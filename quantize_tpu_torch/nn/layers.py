@@ -1,0 +1,360 @@
+"""Quantization-aware layers (NHWC activations, HWIO / (in, out) kernels).
+
+PyTorch counterpart of ``quantize_tpu/nn/layers.py``. Models are built
+quantized from config; FP32 behaviour is the ``'fp32'`` mode (or
+``n_bits >= 32``). Modes: ``fp32``, ``calibrate``, ``quant``, ``pack`` and
+``packed``. The packed dispatch mirrors ``layers.py:399-539`` for its W8A8
+branches:
+
+* conv, 1x1/stride 1 with a residual and zero weight zero points -> the
+  fused tail (kernel K2, :func:`~quantize_tpu_torch.ops.qconv1x1.conv1x1_residual`);
+* the stride-2 stem with ``s2d`` -> space-to-depth rewrite, then K3;
+* every other conv -> :func:`~quantize_tpu_torch.ops.qconv.quant_conv2d` (K3);
+* dense -> :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_w8a8` (K1).
+
+Branches the port does not have yet raise NotImplementedError: int4
+weights, AWQ, per-channel activations and weight-only layers, depthwise and
+grouped convs, bias correction.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+
+from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, quant_conv2d,
+                         s2d_block_padding, s2d_kernel, space_to_depth)
+from ..ops.qconv1x1 import conv1x1_residual
+from ..ops.qmatmul import quant_matmul_w8a8, quantize_act_int8
+from ..quant.fakequant import fake_quant
+from ..quant.qspec import QuantSpec, _freeze
+from .precision import packed_carry_dtype
+from .quantizer import Quantizer
+from .variables import VarModule
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerQuantCfg:
+    """Resolved per-layer quantization parameters.
+
+    ``weight``/``activation`` are the reference's ``w_setting``/``a_setting``
+    dicts; ``bias_correct`` enables the corrector; ``bn_folding`` marks that
+    a following BN is folded into this layer at import time.
+    """
+
+    weight: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    activation: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    bias_correct: Union[Mapping[str, Any], bool, None] = None
+    bn_folding: Union[Mapping[str, Any], bool, None] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "weight", _freeze(dict(self.weight or {})))
+        object.__setattr__(self, "activation", _freeze(dict(self.activation or {})))
+        bc = self.bias_correct
+        object.__setattr__(self, "bias_correct", _freeze(dict(bc)) if isinstance(bc, Mapping) else bc)
+        bf = self.bn_folding
+        object.__setattr__(self, "bn_folding", _freeze(dict(bf)) if isinstance(bf, Mapping) else bf)
+
+
+FP32 = LayerQuantCfg(weight={"n_bits": 32}, activation={"n_bits": 32})
+
+_MODES = ("fp32", "calibrate", "quant", "pack", "packed")
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to quantize_tpu_torch yet; see ROADMAP.md")
+
+
+def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    """flax's ``lecun_normal`` (truncated normal on [-2, 2] std, variance
+    1/fan_in), drawn on the CPU from ``generator`` and copied to ``t``."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    # inverse-CDF sampling of the standard normal truncated to [-2, 2]
+    cdf = lambda v: 0.5 * (1.0 + math.erf(v / math.sqrt(2.0)))  # noqa: E731
+    u = torch.empty(t.shape, dtype=torch.float32)
+    u.uniform_(2 * cdf(-2.0) - 1, 2 * cdf(2.0) - 1, generator=generator)
+    z = torch.erfinv(u).mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0)
+    with torch.no_grad():
+        t.copy_(z * std)
+
+
+class _QuantLayerBase(VarModule):
+    """Shared calibrate / quant / pack plumbing for dense and conv layers."""
+
+    def _setup(self, quant: LayerQuantCfg, kernel_shape: Tuple[int, ...], in_ch: int,
+               with_bias: bool, device) -> None:
+        if quant.bias_correct:
+            raise _not_ported("bias correction (BiasCorrect)")
+        self.quant = quant
+        self.w_spec = QuantSpec.from_config(dict(quant.weight), "weight", channel_axis=-1)
+        self.a_spec = QuantSpec.from_config(dict(quant.activation), "activation", channel_axis=-1)
+        self.put_var("params", "kernel", torch.zeros(kernel_shape, dtype=torch.float32, device=device))
+        if with_bias:
+            self.put_var("params", "bias", torch.zeros((kernel_shape[-1],), dtype=torch.float32, device=device))
+        self.w_quantizer = Quantizer(self.w_spec, self.w_spec.n_channels(kernel_shape), device)
+        self.a_quantizer = Quantizer(self.a_spec, in_ch if self.a_spec.per_channel else 1, device)
+
+    def init_params(self, generator: torch.Generator) -> None:
+        kernel = self.get_var("params", "kernel")
+        lecun_normal_(kernel, int(math.prod(kernel.shape[:-1])), generator)
+        if self.has_var("params", "bias"):
+            with torch.no_grad():
+                self.get_var("params", "bias").zero_()
+
+    def _bias(self) -> Optional[torch.Tensor]:
+        return self.get_var("params", "bias") if self.has_var("params", "bias") else None
+
+    def _run(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        kernel, bias = self.get_var("params", "kernel"), self._bias()
+        if mode == "calibrate":
+            self.a_quantizer(x, mode="calibrate")
+            self.w_quantizer(kernel, mode="calibrate")
+            xq, wq = self.a_quantizer(x, mode="fp32"), self.w_quantizer(kernel, mode="fp32")
+        else:
+            xq = self.a_quantizer(x, mode=mode)
+            wq = self.w_quantizer(kernel, mode=mode)
+        out = self._contract(xq, wq)
+        return out if bias is None else out + bias
+
+    def _pack(self, x: torch.Tensor) -> torch.Tensor:
+        """mode='pack': quantize the weight to its integer grid and store the
+        deploy buffers in the ``packed`` collection; returns the FP32
+        forward so the pack pass flows through the whole network."""
+        w_spec, a_spec = self.w_spec, self.a_spec
+        kernel, bias = self.get_var("params", "kernel"), self._bias()
+        n_out = kernel.shape[-1]
+        ori = self.w_quantizer(kernel, mode="fp32")
+        self.put_var("packed", "bias", torch.zeros((n_out,), dtype=torch.float32, device=x.device)
+                     if bias is None else bias.detach().float().clone())
+        if w_spec.enabled:
+            if w_spec.n_bits <= 4:
+                raise _not_ported("int4 weight packing")
+            q, w_scale, w_zero = self.w_quantizer(kernel, mode="pack")
+            # shift unsigned grids into int8 range, folding into the zero
+            shift = (1 << (w_spec.n_bits - 1)) if w_spec.qmin >= 0 else 0
+            q_i8 = (q - shift).to(torch.int8)
+            w_zero = w_zero.float() + shift
+            w_scale = w_scale.float().reshape(-1)
+            w_zero = w_zero.reshape(-1)
+            if w_scale.numel() in (1, n_out):
+                w_scale = w_scale.expand(n_out).contiguous()
+                w_zero = w_zero.expand(n_out).contiguous()
+            self.put_var("packed", "w_scale", w_scale)
+            self.put_var("packed", "w_zero", w_zero)
+            self._store_weight(x, q_i8)
+        if a_spec.enabled:
+            a_scale, a_zero = self.a_quantizer(x, mode="export_qparams")
+            self.put_var("packed", "a_scale", a_scale.float())
+            self.put_var("packed", "a_zero", a_zero.float())
+        out = self._contract(x, ori)
+        return out if bias is None else out + bias
+
+    def _packed_act(self, x: torch.Tensor) -> torch.Tensor:
+        a_scale = self.get_var("packed", "a_scale")
+        a_zero = self.get_var("packed", "a_zero")
+        return fake_quant(x, a_scale, a_zero, self.a_spec.qmin, self.a_spec.qmax, channel_axis=-1)
+
+    def _fused_act_qparams(self):
+        """(a_scale, a_zero) as 0-d tensors when the activation quantize can
+        fuse into the int8 kernels (per-tensor), else None."""
+        if not self.a_spec.enabled or self.a_spec.per_channel:
+            return None
+        return (self.get_var("packed", "a_scale").reshape(()),
+                self.get_var("packed", "a_zero").reshape(()))
+
+
+class QuantDense(_QuantLayerBase):
+    """Quantized dense layer; kernel (in, out)."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 quant: LayerQuantCfg = FP32, device=None):
+        super().__init__()
+        self.features = features
+        self._setup(quant, (in_features, features), in_features,
+                    bool(use_bias or quant.bias_correct), device)
+
+    def _contract(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return a @ w
+
+    def _store_weight(self, x: torch.Tensor, q_i8: torch.Tensor) -> None:
+        self.put_var("packed", "w_int", q_i8)
+        self.put_var("packed", "col_sum", q_i8.sum(dim=0, dtype=torch.int32))
+
+    def _packed_forward(self, x: torch.Tensor) -> torch.Tensor:
+        w_spec, a_spec = self.w_spec, self.a_spec
+        bias = self.get_var("packed", "bias")
+        if not w_spec.enabled:
+            xq = self._packed_act(x) if a_spec.enabled else x
+            return xq @ self.get_var("params", "kernel") + bias
+        act = self._fused_act_qparams()
+        if act is None:
+            raise _not_ported("weight-only / per-channel-activation packed dense")
+        # symmetric signed weights pack with zero == 0 exactly, so the
+        # rowsum(A) correction terms vanish
+        wz0 = bool(w_spec.symmetric and w_spec.qmin < 0)
+        return quant_matmul_w8a8(
+            x, act[0], act[1], a_spec.qmin, a_spec.qmax,
+            self.get_var("packed", "w_int"), self.get_var("packed", "w_scale"),
+            self.get_var("packed", "w_zero"), bias, self.get_var("packed", "col_sum"),
+            w_zero_is_zero=wz0)
+
+    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+        if mode == "packed":
+            return self._packed_forward(x).to(packed_carry_dtype())
+        if mode == "pack":
+            return self._pack(x)
+        if mode not in _MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        return self._run(x, mode)
+
+
+class QuantConv(_QuantLayerBase):
+    """Quantized 2-D convolution: NHWC input, HWIO kernel."""
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size: Sequence[int] = (3, 3), strides: Sequence[int] = (1, 1),
+                 padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
+                 feature_group_count: int = 1, use_bias: bool = True,
+                 quant: LayerQuantCfg = FP32, s2d: bool = False, device=None):
+        super().__init__()
+        self.features = features
+        self.kernel_size = tuple(kernel_size)
+        self.strides = tuple(strides)
+        self.padding = padding if isinstance(padding, str) else [tuple(p) for p in padding]
+        self.feature_group_count = feature_group_count
+        self.s2d = s2d
+        kh, kw = self.kernel_size
+        needs_bias = bool(use_bias or quant.bias_correct or quant.bn_folding)
+        self._setup(quant, (kh, kw, in_features // feature_group_count, features),
+                    in_features, needs_bias, device)
+
+    def _contract(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        return conv_nhwc(x, w, self.strides, self.padding, self.feature_group_count)
+
+    def _store_weight(self, x: torch.Tensor, q_i8: torch.Tensor) -> None:
+        self.put_var("packed", "w_int", q_i8)
+        if self.a_spec.enabled and not self.a_spec.per_channel:
+            # pack-time zero-point correction map for this input size
+            self.put_var("packed", "corr_a", conv_zero_correction_map(
+                q_i8, x.shape[1], x.shape[2], self.strides, self.padding))
+
+    def _packed_forward(self, x: torch.Tensor, residual=None,
+                        fuse_relu: bool = False) -> torch.Tensor:
+        w_spec, a_spec = self.w_spec, self.a_spec
+        bias = self.get_var("packed", "bias")
+
+        def _finish(out):
+            # unfused residual tail: cast to the carry dtype, then add + relu
+            if residual is None:
+                return out
+            out = out.to(packed_carry_dtype()) + residual
+            return torch.relu(out) if fuse_relu else out
+
+        if not w_spec.enabled:
+            xq = self._packed_act(x) if a_spec.enabled else x
+            return _finish(self._contract(xq, self.get_var("params", "kernel")) + bias)
+        if self.feature_group_count > 1:
+            raise _not_ported("packed grouped / depthwise conv")
+        act = self._fused_act_qparams()
+        if act is None:
+            raise _not_ported("weight-only / per-channel-activation packed conv")
+        a_scale, a_zero = act
+        w_scale = self.get_var("packed", "w_scale")
+        w_zero = self.get_var("packed", "w_zero")
+        w_int = self.get_var("packed", "w_int")
+        corr_a = self.get_var("packed", "corr_a") if self.has_var("packed", "corr_a") else None
+        q_a, z_eff = quantize_act_int8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax)
+        # zero == 0 exactly only for symmetric *signed* grids (unsigned
+        # symmetric packs with a +2^(b-1) shift folded into w_zero)
+        wz0 = bool(w_spec.symmetric and w_spec.qmin < 0)
+        pad_zero = (self.padding.upper() in ("VALID", "SAME")
+                    if isinstance(self.padding, str)  # identical for 1x1/s1
+                    else tuple(map(tuple, self.padding)) == ((0, 0), (0, 0)))
+        if (residual is not None and wz0 and pad_zero and self.kernel_size == (1, 1)
+                and self.strides == (1, 1)):
+            return conv1x1_residual(q_a, z_eff, a_scale, w_int, w_scale, bias, residual,
+                                    relu=fuse_relu, out_dtype=packed_carry_dtype())
+        x_sh, conv_kw = x, dict(strides=self.strides, padding=self.padding)
+        if self.s2d and self.strides == (2, 2) and wz0 and not isinstance(self.padding, str):
+            kh, kw = w_int.shape[:2]
+            bp = s2d_block_padding(kh, kw, list(self.padding), x.shape[1], x.shape[2])
+            if bp is not None and corr_a is not None:
+                # exact rewrite: stride-1 conv over 2x2 depth-stacked input;
+                # the pack-time corr_a carries over (same output grid)
+                q_a = space_to_depth(q_a)
+                w_int = s2d_kernel(w_int)
+                x_sh, conv_kw = q_a, dict(strides=(1, 1), padding=bp)
+        out = quant_conv2d(x_sh, a_scale, a_zero, a_spec.qmin, a_spec.qmax, w_int, w_scale,
+                           w_zero, bias, w_zero_is_zero=wz0, corr_a=corr_a,
+                           pre_q=(q_a, z_eff), out_dtype=packed_carry_dtype(), **conv_kw)
+        return _finish(out)
+
+    def forward(self, x: torch.Tensor, mode: str = "fp32", residual=None,
+                fuse_relu: bool = False) -> torch.Tensor:
+        if mode == "packed":
+            return self._packed_forward(x, residual, fuse_relu).to(packed_carry_dtype())
+        if mode == "pack":
+            return self._pack(x)
+        if mode not in _MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        out = self._run(x, mode)
+        if residual is not None:
+            out = out + residual
+            if fuse_relu:
+                out = torch.relu(out)
+        return out
+
+
+class _ActQuantLayer(VarModule):
+    """Activation-only quantization in front of an op."""
+
+    def __init__(self, quant: LayerQuantCfg = FP32, in_ch: int = 1, device=None):
+        super().__init__()
+        self.a_spec = QuantSpec.from_config(dict(quant.activation), "activation", channel_axis=-1)
+        self.a_quantizer = Quantizer(self.a_spec, in_ch if self.a_spec.per_channel else 1, device)
+
+    def _quantize_in(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        q = self.a_quantizer
+        if mode == "calibrate":
+            q(x, mode="calibrate")
+            return q(x, mode="fp32")
+        if mode == "pack":
+            return q(x, mode="fp32")
+        if mode == "packed":
+            # activation-only layers need no packed buffers: fake-quant with
+            # the stored qparams is already the deploy behaviour
+            return q(x, mode="quant")
+        return q(x, mode=mode)
+
+
+class QuantReLU(_ActQuantLayer):
+    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+        return torch.relu(self._quantize_in(x, mode))
+
+
+def max_pool_nhwc(x: torch.Tensor, window: Sequence[int], strides: Sequence[int],
+                  padding: Sequence[Tuple[int, int]]) -> torch.Tensor:
+    """Max pool over NHWC with explicit -inf padding (flax semantics)."""
+    (pt, pb), (pl, pr) = padding
+    xc = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb), value=float("-inf"))
+    return F.max_pool2d(xc, tuple(window), tuple(strides)).permute(0, 2, 3, 1)
+
+
+class QuantMaxPool(_ActQuantLayer):
+    def __init__(self, window=(2, 2), strides=(2, 2), padding=((0, 0), (0, 0)),
+                 quant: LayerQuantCfg = FP32, in_ch: int = 1, device=None):
+        super().__init__(quant, in_ch, device)
+        self.window, self.strides, self.padding = tuple(window), tuple(strides), padding
+
+    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+        return max_pool_nhwc(self._quantize_in(x, mode), self.window, self.strides, self.padding)
+
+
+class QuantGlobalAvgPool(_ActQuantLayer):
+    """Adaptive average pool to 1x1."""
+
+    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+        return self._quantize_in(x, mode).mean(dim=(1, 2))

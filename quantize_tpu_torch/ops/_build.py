@@ -1,0 +1,150 @@
+"""Build and load the port's CUDA kernels (``quantize_tpu_torch/csrc``).
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ``ctypes``. The build
+happens at first use, into ``quantize_tpu_torch/_build/`` (listed in
+``.gitignore``), with one ``nvcc`` process per source, all started
+together. A library's file name carries a hash of its sources, so an edited
+source is rebuilt and a built one is reused. Nothing here runs at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# library name -> (C function, argtypes)
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+KERNELS = {
+    "w8a8_gemm": ("qtt_w8a8_gemm", [_P] * 9 + [_I] * 4 + [_P]),
+    "conv1x1_residual": ("qtt_conv1x1_residual", [_P] * 9 + [_I] * 6 + [_P]),
+    "qconv2d": ("qtt_qconv2d", [_P] * 9 + [_I] * 15 + [_P]),
+}
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_fns: Dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of quantize_tpu_torch "
+                       "need the CUDA toolkit (nvcc) to build")
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha1()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
+
+
+def build_all(names: List[str] = None) -> Dict[str, str]:
+    """Compile every kernel library that is not built yet, in parallel.
+
+    Returns ``{name: ptxas report}`` for the libraries built by this call.
+    Raises RuntimeError with the compiler's output if any build fails.
+    """
+    names = list(KERNELS) if names is None else names
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out)
+    reports, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{log}")
+            continue
+        os.replace(tmp, out)
+        out.with_suffix(".log").write_text(log)
+        reports[name] = log
+    if failed:
+        raise RuntimeError("building the CUDA kernels failed:\n" + "\n".join(failed))
+    return reports
+
+
+def kernel_fn(name: str) -> ctypes._CFuncPtr:
+    """The C entry point of kernel library ``name``, built on first use."""
+    fn = _fns.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        if name not in _fns:
+            build_all()
+            for lib_name, (sym, argtypes) in KERNELS.items():
+                lib = ctypes.CDLL(str(_lib_path(lib_name)))
+                f = getattr(lib, sym)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+                _fns[lib_name] = f
+    return _fns[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+# -- helpers shared by the kernel wrappers ----------------------------------
+
+def require(t, name: str, device, dtype, shape=None) -> None:
+    """Raise ValueError unless ``t`` is a contiguous tensor of ``dtype`` on
+    ``device`` (and of ``shape`` when given)."""
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise ValueError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def ptr(t):
+    """Device pointer of a tensor for ctypes (None -> NULL)."""
+    return None if t is None else t.data_ptr()
+
+
+def current_stream(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(dtype) -> int:
+    """The launchers' dtype codes: 0 = float32, 1 = bfloat16."""
+    import torch
+
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise ValueError(f"unsupported dtype {dtype} (float32 or bfloat16)")
+    return codes[dtype]
