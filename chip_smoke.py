@@ -6,24 +6,36 @@
 Phases (any failure exits non-zero; the last line is printed only on success):
 
 1. Set-up: the card's name and power limit, TF32 off for float32 convs and
-   matmuls, and the build of every kernel from ``quantize_tpu_torch/csrc``.
-2. Slice: ResNet-50 W8A8 (symmetric per-channel weights, asymmetric
-   per-tensor activations, folded BN), 1000 classes, 224x224, random weights
-   from seed 0: init, MinMax calibration on 4 batches of 32, pack, then 4
+   matmuls, and the build of every kernel from ``quantize_tpu_torch/csrc``
+   (one nvcc per source, all started together).
+2. ResNet-50 W8A8 (symmetric per-channel weights, asymmetric per-tensor
+   activations, folded BN), 1000 classes, 224x224, random weights from
+   seed 0: init, MinMax calibration on 4 batches of 32, pack, then 4
    requests of batch 256 served in ``mode="packed"`` with the fused residual
    tail on. The launch counters are zeroed just before the requests and read
-   just after: each kernel must have run (K3 37, K2 16, K1 1 per forward).
-   The outputs must be finite, within 2e-2 of the quant simulation, within
-   1e-3 of the unfused path and within 5e-2 with a bf16 carry (relative to
-   max|logits|).
-3. Kernels: every kernel is called on the very arguments the main path gives
-   it (recorded at batch 32 for the convs and 256 for the fc, f32 and bf16
-   carry) and held against its plain PyTorch version: f32 outputs within
-   rtol 1e-5 / atol 1e-4, bf16 outputs within one bf16 ulp.
-4. Times (CUDA-event medians, batch 256): the packed forward at f32 and bf16
-   carry, the float32 cuDNN forward as the yardstick, and each kernel at
-   each of its main-path shapes beside its bound, its plain version and the
-   nearest library call.
+   just after: K3 37, K2 16, K1 1 per forward. The outputs must be finite,
+   within 2e-2 of the quant simulation, within 1e-3 of the unfused path and
+   within 5e-2 with a bf16 carry (relative to max|logits|).
+3. ViT-B/16 W4A8 (``bench.py``'s headline with 4-bit weights: int4
+   symmetric per-channel MinMax weights, the out-projections' ranges MSE,
+   int8 asymmetric per-tensor MinMax activations), 1000 classes, 224x224
+   (S = 197 padded to 200), random weights from seed 0: init, calibration
+   on 4 batches of 32, pack, then 4 requests of batch 128 in
+   ``mode="packed"`` at f32 carry, counted as above: K4 37, K7 24, K8 12,
+   K6 1, K3 1 per forward. The logits must be finite, within 5e-2 of the
+   quant simulation and within 5e-2 with a bf16 carry.
+4. Kernels: every kernel is called on the very arguments the main paths
+   give it (recorded at each main-path shape, f32 and bf16 carry; K3 at
+   ResNet-50's shapes and at ViT's patch embedding) and held against its
+   plain PyTorch version: K1-K4 bit for bit except K1-K3's f32
+   tolerance (rtol 1e-5 / atol 1e-4, one bf16 ulp); K6 rtol 1e-5 / atol
+   1e-5 in f32, one ulp in bf16; K7 int8 equal but for at most one step on
+   at most 1e-4 of the elements (the count is printed); K8 rtol 1e-4 /
+   atol 1e-5 in f32, two ulps in bf16.
+5. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+   carry beside its float32 forward (TF32 off) as the yardstick, and each
+   kernel at each of its main-path shapes beside its bound, its plain
+   version and the nearest library call.
 
 Before the last line it prints one JSON object with a ``kernels`` list and
 the card's name and power limit; the last line is the ``{"ok": true, ...}``
@@ -37,15 +49,22 @@ import subprocess
 import sys
 import time
 
-PEAK_INT8_OPS = 1979e12  # H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
+# NVIDIA H100 SXM data sheet: dense tensor-core rates, CUDA-core f32, HBM3
+PEAK_INT8_OPS = 1979e12
+PEAK_BF16 = 989e12
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
 
-CFG = {"default": {
-    "weight": {"n_bits": 8, "symmetric": True, "signed": True, "granularity": "channel",
-               "range": {"name": "minmax"}},
-    "activation": {"n_bits": 8, "symmetric": False, "granularity": "layer",
-                   "range": {"name": "minmax"}},
-    "bn_folding": True}}
+_ACT = {"n_bits": 8, "symmetric": False, "granularity": "layer", "range": {"name": "minmax"}}
+
+
+def _weight(bits):
+    return {"n_bits": bits, "symmetric": True, "signed": True, "granularity": "channel",
+            "range": {"name": "minmax"}}
+
+
+CFG = {"default": {"weight": _weight(8), "activation": _ACT, "bn_folding": True}}
+CFG_W4A8 = {"default": {"weight": _weight(4), "activation": _ACT, "bn_folding": True}}
 
 KERNEL_INFO = {
     "w8a8_gemm": ("quantize_tpu_torch/csrc/w8a8_gemm.cu",
@@ -54,7 +73,18 @@ KERNEL_INFO = {
                          "quantize_tpu/ops/pallas/qconv1x1.py:36 (_conv1x1_res_kernel)"),
     "qconv2d": ("quantize_tpu_torch/csrc/qconv2d.cu",
                 "quantize_tpu/ops/qconv.py:58 (quant_conv2d, XLA int8 conv)"),
+    "w4a8_gemm": ("quantize_tpu_torch/csrc/w4a8_gemm.cu",
+                  "quantize_tpu/ops/pallas/qmatmul.py:228 (_w4a8_kernel)"),
+    "layernorm": ("quantize_tpu_torch/csrc/layernorm.cu",
+                  "quantize_tpu/ops/pallas/layernorm.py:49 (_ln_kernel)"),
+    "layernorm_quant_int8": ("quantize_tpu_torch/csrc/layernorm.cu",
+                             "quantize_tpu/ops/pallas/layernorm.py:56 (_ln_q_kernel)"),
+    "mha_rows": ("quantize_tpu_torch/csrc/mha_rows.cu",
+                 "quantize_tpu/ops/pallas/attention.py:51 (_mha_rows_kernel)"),
 }
+RESNET_PER_FWD = {"qconv2d": 37, "conv1x1_residual": 16, "w8a8_gemm": 1}
+VIT_PER_FWD = {"w4a8_gemm": 37, "layernorm_quant_int8": 24, "mha_rows": 12, "layernorm": 1,
+               "qconv2d": 1}
 
 
 def log(*args):
@@ -106,13 +136,19 @@ class Recorder:
     that keep the first call of each distinct signature and count calls."""
 
     def __init__(self):
+        import quantize_tpu_torch.ops.attention as attention
+        import quantize_tpu_torch.ops.layernorm as layernorm
         import quantize_tpu_torch.ops.qconv as qconv
         import quantize_tpu_torch.ops.qconv1x1 as qconv1x1
         import quantize_tpu_torch.ops.qmatmul as qmatmul
 
         self.sites = {"w8a8_gemm": (qmatmul, "w8a8_gemm"),
                       "conv1x1_residual": (qconv1x1, "conv1x1_residual_gemm"),
-                      "qconv2d": (qconv, "qconv2d_int8")}
+                      "qconv2d": (qconv, "qconv2d_int8"),
+                      "w4a8_gemm": (qmatmul, "w4a8_gemm"),
+                      "layernorm": (layernorm, "layernorm_rows"),
+                      "layernorm_quant_int8": (layernorm, "layernorm_quant_int8_rows"),
+                      "mha_rows": (attention, "mha_rows")}
         self.calls = {name: {} for name in self.sites}
 
     def __enter__(self):
@@ -148,73 +184,130 @@ def cuda_ms(fn, reps: int = 5, inner: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def work(name: str, args) -> tuple:
-    """(int8 ops, bytes moved once) of one kernel call."""
+def _nbytes(t) -> int:
     import torch
 
-    def nbytes(t):
-        return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
+    return t.numel() * t.element_size() if isinstance(t, torch.Tensor) else 0
 
-    if name == "w8a8_gemm":
+
+def _itemsize(dtype) -> int:
+    import torch
+
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def work(name: str, args) -> tuple:
+    """(operations, their peak rate, bytes moved once) of one kernel call:
+    each input read once, each output written once."""
+    if name in ("w8a8_gemm", "w4a8_gemm"):
         q, _, _, w, cs, ws, wz, bias, _ = args
         m, k = q.shape
         n = w.shape[1]
-        return 2 * m * n * k, sum(map(nbytes, (q, w, cs, ws, wz, bias))) + m * n * 4
+        return 2 * m * n * k, PEAK_INT8_OPS, sum(map(_nbytes, (q, w, cs, ws, wz, bias))) + m * n * 4
     if name == "conv1x1_residual":
         q, _, _, w, cs, ws, bias, res, _, out_dtype = args
         m, k = q.shape
         n = w.shape[1]
-        out_b = m * n * torch.empty((), dtype=out_dtype).element_size()
-        return 2 * m * n * k, sum(map(nbytes, (q, w, cs, ws, bias, res))) + out_b
-    q, _, _, w, ws, wz, bias, strides, pads, corr, _, out_dtype = args
-    n_img = q.shape[0]
-    kh, kw, ci, co = w.shape
-    oh, ow = corr.shape[1:3]
-    out_b = n_img * oh * ow * co * torch.empty((), dtype=out_dtype).element_size()
-    return (2 * n_img * oh * ow * co * kh * kw * ci,
-            sum(map(nbytes, (q, w, ws, wz, bias, corr))) + out_b)
+        return (2 * m * n * k, PEAK_INT8_OPS,
+                sum(map(_nbytes, (q, w, cs, ws, bias, res))) + m * n * _itemsize(out_dtype))
+    if name == "qconv2d":
+        q, _, _, w, ws, wz, bias, strides, pads, corr, _, out_dtype = args
+        n_img = q.shape[0]
+        kh, kw, ci, co = w.shape
+        oh, ow = corr.shape[1:3]
+        return (2 * n_img * oh * ow * co * kh * kw * ci, PEAK_INT8_OPS,
+                sum(map(_nbytes, (q, w, ws, wz, bias, corr)))
+                + n_img * oh * ow * co * _itemsize(out_dtype))
+    if name == "layernorm":
+        x, g, b, _, out_dtype = args
+        # float32 ops per element: 2 for the mean, 3 for the variance, 4 for y
+        return (9 * x.numel(), PEAK_F32,
+                sum(map(_nbytes, (x, g, b))) + x.numel() * _itemsize(out_dtype))
+    if name == "layernorm_quant_int8":
+        x, g, b = args[:3]
+        # as K6, plus divide, subtract, round, two clamps
+        return 14 * x.numel(), PEAK_F32, sum(map(_nbytes, (x, g, b))) + x.numel()
+    qkv, heads, s, _, out_dtype, valid = args
+    import torch
+
+    rows, three_e = qkv.shape
+    b, e = rows // s, three_e // 3
+    d, v = e // heads, valid or s
+    # q.k and ex.v over the valid rows and keys, on the tensor cores of the
+    # product dtype (bf16) or the CUDA cores (float32)
+    peak = PEAK_BF16 if qkv.dtype == torch.bfloat16 else PEAK_F32
+    return 4 * b * heads * v * v * d, peak, _nbytes(qkv) + rows * e * _itemsize(out_dtype)
 
 
-def bound_ms(ops: int, nbytes: int) -> tuple:
-    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound_ms(ops: int, peak: float, nbytes: int) -> tuple:
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def library_call(name: str, args):
-    """One PyTorch call computing the same function, for the yardstick:
-    torch._int_mm plus the epilogue in torch ops (K1, K2); a bf16 cuDNN conv
-    on the dequantized tensors (K3, the nearest call: torch has no CUDA int8
-    convolution). None where the library call does not take the shape."""
+    """One PyTorch call computing the same function, as the yardstick (never
+    called by the port): torch._int_mm plus the epilogue in torch ops (K1,
+    K2; K4 on the unpacked weight); a bf16 cuDNN conv on the dequantized
+    tensors (K3, the nearest call: torch has no CUDA int8 convolution);
+    F.layer_norm (K6; plus the quantize ops for K7, no single call does
+    both); F.scaled_dot_product_attention with the key mask (K8). None
+    where the library call does not take the shape."""
     import torch
     import torch.nn.functional as F
 
-    if name in ("w8a8_gemm", "conv1x1_residual"):
+    if name in ("w8a8_gemm", "conv1x1_residual", "w4a8_gemm"):
         q, z, a_s, w = args[:4]
+        if name == "w4a8_gemm":
+            from quantize_tpu_torch.ops.qmatmul import unpack_int4_splithalf
+
+            w = unpack_int4_splithalf(w).contiguous()
         if q.shape[0] <= 16 or q.shape[1] % 8 or w.shape[1] % 8:
             return None
-        if name == "w8a8_gemm":
+        if name != "conv1x1_residual":
             _, _, _, _, cs, ws, _, bias, _ = args
             return lambda: (a_s * ws) * (torch._int_mm(q, w).float() + z * cs) + bias
         _, _, _, _, cs, ws, bias, res, relu, out_dtype = args
         return lambda: torch.relu((a_s * ws) * (torch._int_mm(q, w).float() + z * cs)
                                   + bias + res.float()).to(out_dtype)
-    q, z, a_s, w, ws, wz, bias, strides, pads, corr, _, out_dtype = args
-    (pt, pb), (pl, pr) = pads
-    x = F.pad(((q.float() + z) * a_s).permute(0, 3, 1, 2), (pl, pr, pt, pb))
-    x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    wd = ((w.float() + wz) * ws).permute(3, 2, 0, 1).to(torch.bfloat16)
-    wd = wd.contiguous(memory_format=torch.channels_last)
-    b16 = bias.to(torch.bfloat16)
-    return lambda: F.conv2d(x, wd, b16, stride=tuple(strides))
+    if name == "qconv2d":
+        q, z, a_s, w, ws, wz, bias, strides, pads, corr, _, out_dtype = args
+        (pt, pb), (pl, pr) = pads
+        x = F.pad(((q.float() + z) * a_s).permute(0, 3, 1, 2), (pl, pr, pt, pb))
+        x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wd = ((w.float() + wz) * ws).permute(3, 2, 0, 1).to(torch.bfloat16)
+        wd = wd.contiguous(memory_format=torch.channels_last)
+        b16 = bias.to(torch.bfloat16)
+        return lambda: F.conv2d(x, wd, b16, stride=tuple(strides))
+    if name == "layernorm":
+        x, g, b, eps, out_dtype = args
+        gx, bx = g.to(x.dtype), b.to(x.dtype)
+        return lambda: F.layer_norm(x, (x.shape[-1],), gx, bx, eps).to(out_dtype)
+    if name == "layernorm_quant_int8":
+        x, g, b, eps, a_s, a_z, qmin, qmax = args
+        gx, bx = g.to(x.dtype), b.to(x.dtype)
+        shift = 128.0 if qmin >= 0 else 0.0
+        return lambda: (torch.clamp(torch.round(F.layer_norm(x, (x.shape[-1],), gx, bx, eps).float()
+                                                / a_s - a_z), qmin, qmax) - shift).to(torch.int8)
+    qkv, heads, s, causal, out_dtype, valid = args
+    rows, three_e = qkv.shape
+    b, e = rows // s, three_e // 3
+    d = e // heads
+    q, k, v = qkv.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    mask = (torch.arange(s, device=qkv.device) < (valid or s)).reshape(1, 1, 1, s)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=False)
 
 
 def plain_fn(name: str):
+    from quantize_tpu_torch.ops.attention import mha_rows_plain
+    from quantize_tpu_torch.ops.layernorm import layernorm_plain, layernorm_quant_int8_plain
     from quantize_tpu_torch.ops.qconv import qconv2d_int8_plain
     from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual_plain
-    from quantize_tpu_torch.ops.qmatmul import w8a8_gemm_plain
+    from quantize_tpu_torch.ops.qmatmul import w4a8_gemm_plain, w8a8_gemm_plain
 
     return {"w8a8_gemm": w8a8_gemm_plain, "conv1x1_residual": conv1x1_residual_plain,
-            "qconv2d": qconv2d_int8_plain}[name]
+            "qconv2d": qconv2d_int8_plain, "w4a8_gemm": w4a8_gemm_plain,
+            "layernorm": layernorm_plain, "layernorm_quant_int8": layernorm_quant_int8_plain,
+            "mha_rows": mha_rows_plain}[name]
 
 
 def kernel_fn(name: str):
@@ -223,23 +316,42 @@ def kernel_fn(name: str):
     return KERNEL_WRAPPERS[name]
 
 
+def _ulps_bf16(g, w):
+    """|g - w| in bf16 ulps of the larger magnitude (2^(exponent - 7))."""
+    import torch
+
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(1e-30))) - 7)
+    return float(((g - w).abs() / ulp).max())
+
+
 def compare(name: str, args) -> float:
     """Run the kernel and its plain version on ``args``; return max|diff|
-    and fail outside the tolerance of the output dtype."""
+    and fail outside the kernel's tolerance (module docstring, phase 4)."""
     import torch
 
     got = kernel_fn(name)(*args)
     want = plain_fn(name)(*args)
     torch.cuda.synchronize()
+    if name == "layernorm_quant_int8":
+        (got, z_got), (want, z_want) = got, want
+        check(float(z_got) == float(z_want), f"{name}: z_eff {float(z_got)} != {float(z_want)}")
+        step = (got.int() - want.int()).abs()
+        n_diff = int((step > 0).sum())
+        log(f"  {name} {describe(name, args)}: {n_diff} of {step.numel()} int8 values differ "
+            f"(max {int(step.max())} step)")
+        check(int(step.max()) <= 1 and n_diff <= 1e-4 * step.numel(),
+              f"{name}: {n_diff} int8 values differ from the plain version")
+        return float(step.max())
     check(got.shape == want.shape and got.dtype == want.dtype, f"{name}: shape/dtype mismatch")
     g, w = got.float(), want.float()
     err = float((g - w).abs().max())
-    if got.dtype == torch.bfloat16:
-        # one bf16 ulp of the larger magnitude: 2^(exponent - 7)
-        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(1e-30))) - 7)
-        ok = bool(((g - w).abs() <= ulp).all())
+    if name in ("w4a8_gemm",):
+        ok = bool(torch.equal(got, want))
+    elif got.dtype == torch.bfloat16:
+        ok = _ulps_bf16(g, w) <= (2 if name == "mha_rows" else 1)
     else:
-        ok = bool(((g - w).abs() <= 1e-4 + 1e-5 * w.abs()).all())
+        rtol, atol = {"layernorm": (1e-5, 1e-5), "mha_rows": (1e-4, 1e-5)}.get(name, (1e-5, 1e-4))
+        ok = bool(((g - w).abs() <= atol + rtol * w.abs()).all())
     check(ok and bool(torch.isfinite(g).all()), f"{name}: kernel disagrees with its plain version "
                                                 f"(max abs err {err})")
     return err
@@ -250,11 +362,203 @@ def describe(name: str, args) -> str:
         q, w, strides = args[0], args[3], args[7]
         return (f"x{tuple(q.shape)} w{tuple(w.shape)} s{tuple(strides)} "
                 f"out={str(args[11]).replace('torch.', '')}")
+    if name in ("layernorm", "layernorm_quant_int8"):
+        return f"x{tuple(args[0].shape)} {str(args[0].dtype).replace('torch.', '')}"
+    if name == "mha_rows":
+        return (f"qkv{tuple(args[0].shape)} {str(args[0].dtype).replace('torch.', '')} "
+                f"heads={args[1]} S={args[2]} valid={args[5]}")
     extra = f" out={str(args[9]).replace('torch.', '')}" if name == "conv1x1_residual" else ""
     return f"M={args[0].shape[0]} K={args[0].shape[1]} N={args[3].shape[1]}{extra}"
 
 
-# -- the run ------------------------------------------------------------------------
+def rel(a, b) -> float:
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+
+def serve(model, requests, per_fwd: dict, label: str) -> tuple:
+    """The main path: counts zeroed just before the requests, read just
+    after; every kernel of ``per_fwd`` launched that many times a forward."""
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    model(requests[0], mode="packed")  # first call outside the counted run
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [model(x, mode="packed") for x in requests]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"{label}: served {len(requests)} requests of {requests[0].shape[0]} with launches {counts}")
+    for name, n in per_fwd.items():
+        check(counts[name] == n * len(requests),
+              f"{label}: {name}: {counts[name]} launches, expected {n * len(requests)}")
+    for name, n in counts.items():
+        check(name in per_fwd or n == 0, f"{label}: {name} launched {n} times, expected none")
+    for out in outs:
+        check(tuple(out.shape) == (requests[0].shape[0], 1000) and bool(torch.isfinite(out).all()),
+              f"{label}: packed logits not finite or of the wrong shape")
+    return outs, counts
+
+
+def kernel_entries(serve_calls: dict, counts: dict, max_err: dict, names) -> list:
+    """Per-launch times of each recorded main-path shape, summed over one
+    forward for the JSON line."""
+    entries = []
+    for name in names:
+        agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+               "ops_ms": 0.0, "bytes_ms": 0.0}
+        library_ok = True
+        for args, per_fwd in serve_calls[name].values():
+            ops, peak, nbytes = work(name, args)
+            b_ms, b_by = bound_ms(ops, peak, nbytes)
+            k_ms = cuda_ms(lambda: kernel_fn(name)(*args), reps=5, inner=10)
+            p_ms = cuda_ms(lambda: plain_fn(name)(*args), reps=3, warmup=1)
+            lib = library_call(name, args)
+            l_ms = cuda_ms(lib, reps=5, inner=5) if lib is not None else None
+            library_ok = library_ok and l_ms is not None
+            log(f"kernel {name} {describe(name, args)}: x{per_fwd}/fwd {k_ms:.4f} ms "
+                f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms, "
+                f"library {'n/a' if l_ms is None else f'{l_ms:.4f} ms'}")
+            agg["ms"] += per_fwd * k_ms
+            agg["plain_ms"] += per_fwd * p_ms
+            agg["bound_ms"] += per_fwd * b_ms
+            agg["ops_ms"] += per_fwd * ops / peak * 1e3
+            agg["bytes_ms"] += per_fwd * nbytes / PEAK_BYTES * 1e3
+            agg["library_ms"] += per_fwd * (l_ms or 0.0)
+        src, replaces = KERNEL_INFO[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": counts[name], "max_abs_err": max_err[name],
+            "ms": agg["ms"], "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
+            "bound_by": "operations" if agg["ops_ms"] >= agg["bytes_ms"] else "bytes",
+            "library_ms": agg["library_ms"] if library_ok else None,
+        })
+    return entries
+
+
+def check_kernels(calls_list, names, max_err: dict) -> int:
+    """Compare every recorded call of ``names`` with the plain version."""
+    checks = [(name, args) for calls in calls_list for name in names
+              for args, _ in calls[name].values()]
+    for name, args in checks:
+        max_err[name] = max(max_err.get(name, 0.0), compare(name, args))
+    return len(checks)
+
+
+# -- the phases ----------------------------------------------------------------------
+
+def resnet_phase(qtt, batch, card) -> tuple:
+    import torch
+
+    t0 = time.time()
+    model = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
+    sample = batch(32)
+    qtt.init_model(model, sample, seed=0)
+    qtt.calibrate_model(model, [batch(32) for _ in range(4)])
+    qtt.pack_model(model, sample)
+    torch.cuda.synchronize()
+    log(f"resnet50 set-up (init, calibrate 4x32, pack) {time.time() - t0:.1f} s")
+
+    requests = [batch(256) for _ in range(4)]
+    with torch.inference_mode(), qtt.fused_residual(True):
+        outs, counts = serve(model, requests, RESNET_PER_FWD, "resnet50")
+        x0, packed = requests[0], outs[0]
+        sim = model(x0, mode="quant")
+        with qtt.fused_residual(False):
+            unfused = model(x0, mode="packed")
+        with qtt.packed_carry(torch.bfloat16):
+            packed_bf16 = model(x0, mode="packed")
+        r_sim, r_fuse, r_bf16 = rel(packed, sim), rel(packed, unfused), rel(packed_bf16, packed)
+        log(f"resnet50 agreement (relative to max|logits|): packed vs quant-sim {r_sim:.3e} "
+            f"(<= 2e-2), fused vs unfused {r_fuse:.3e} (<= 1e-3), bf16 carry vs f32 {r_bf16:.3e} "
+            f"(<= 5e-2)")
+        check(r_sim <= 2e-2 and r_fuse <= 1e-3 and r_bf16 <= 5e-2, "resnet50 agreement failed")
+        log(f"resnet50 argmax agreement packed vs quant-sim on request 0: "
+            f"{float((packed.argmax(-1) == sim.argmax(-1)).float().mean()):.4f}")
+
+        small = batch(32)
+        records = []
+        for carry in (torch.float32, torch.bfloat16):
+            with qtt.packed_carry(carry), Recorder() as rec:
+                model(small, mode="packed")
+            records.append(rec.calls)
+        with Recorder() as serve_rec:
+            model(requests[1], mode="packed")
+        max_err = {}
+        n = check_kernels(records, ("qconv2d", "conv1x1_residual"), max_err)
+        n += check_kernels([serve_rec.calls], ("w8a8_gemm",), max_err)
+        log(f"resnet50 kernels: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
+
+        times = {}
+        for label, carry in (("packed f32 carry", torch.float32),
+                             ("packed bf16 carry", torch.bfloat16)):
+            with qtt.packed_carry(carry):
+                times[label] = cuda_ms(lambda: model(requests[2], mode="packed"))
+        times["fp32 forward (yardstick)"] = cuda_ms(lambda: model(requests[2], mode="fp32"))
+        for label, ms in times.items():
+            log(f"time: resnet50 {label}: {ms:.3f} ms per batch of 256, {256e3 / ms:.1f} img/s "
+                f"[{card}]")
+        entries = kernel_entries(serve_rec.calls, counts, max_err,
+                                 ("w8a8_gemm", "conv1x1_residual", "qconv2d"))
+    del model, requests, outs, records, serve_rec
+    torch.cuda.empty_cache()
+    return entries
+
+
+def vit_phase(qtt, batch, card) -> list:
+    import torch
+
+    t0 = time.time()
+    model = qtt.MODELS.build("vit_b_16", num_classes=1000, ctx=qtt.QuantCtx(CFG_W4A8))
+    sample = batch(32)
+    qtt.init_model(model, sample, seed=0)
+    qtt.calibrate_model(model, [batch(32) for _ in range(4)])
+    qtt.pack_model(model, sample)
+    torch.cuda.synchronize()
+    log(f"vit_b_16 W4A8 set-up (init, calibrate 4x32, pack) {time.time() - t0:.1f} s")
+
+    requests = [batch(128) for _ in range(4)]
+    with torch.inference_mode():
+        outs, counts = serve(model, requests, VIT_PER_FWD, "vit_b_16")
+        x0, packed = requests[0], outs[0]
+        sim = model(x0, mode="quant")
+        with qtt.packed_carry(torch.bfloat16):
+            packed_bf16 = model(x0, mode="packed")
+        r_sim, r_bf16 = rel(packed, sim), rel(packed_bf16, packed)
+        log(f"vit_b_16 agreement (relative to max|logits|): packed vs quant-sim {r_sim:.3e} "
+            f"(<= 5e-2), bf16 carry vs f32 {r_bf16:.3e} (<= 5e-2)")
+        check(r_sim <= 5e-2 and r_bf16 <= 5e-2, "vit_b_16 agreement failed")
+        log(f"vit_b_16 argmax agreement packed vs quant-sim on request 0: "
+            f"{float((packed.argmax(-1) == sim.argmax(-1)).float().mean()):.4f}")
+        del sim, packed_bf16
+
+        names = ("w4a8_gemm", "layernorm", "layernorm_quant_int8", "mha_rows")
+        max_err = {}
+        n = 0
+        serve_calls = None
+        for carry in (torch.float32, torch.bfloat16):
+            with qtt.packed_carry(carry), Recorder() as rec:
+                model(requests[1], mode="packed")
+            # K3 too: the patch embedding gives it a shape of its own
+            n += check_kernels([rec.calls], names + ("qconv2d",), max_err)
+            if carry == torch.float32:
+                serve_calls = rec.calls
+            del rec
+        log(f"vit_b_16 kernels: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
+
+        times = {}
+        for label, carry in (("packed f32 carry", torch.float32),
+                             ("packed bf16 carry", torch.bfloat16)):
+            with qtt.packed_carry(carry):
+                times[label] = cuda_ms(lambda: model(requests[2], mode="packed"))
+        times["fp32 forward (yardstick)"] = cuda_ms(lambda: model(requests[2], mode="fp32"))
+        for label, ms in times.items():
+            log(f"time: vit_b_16 {label}: {ms:.3f} ms per batch of 128, {128e3 / ms:.1f} img/s "
+                f"[{card}]")
+        entries = kernel_entries(serve_calls, counts, max_err, names)
+    del model, requests, outs, serve_calls
+    torch.cuda.empty_cache()
+    return entries
+
 
 def main() -> int:
     import torch
@@ -265,7 +569,7 @@ def main() -> int:
         return 2
     try:
         import quantize_tpu_torch as qtt
-        from quantize_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+        from quantize_tpu_torch.ops import _build
     except ImportError as exc:
         print(f"chip_smoke: the quantize_tpu_torch package is not here ({exc})", file=sys.stderr)
         return 2
@@ -297,112 +601,15 @@ def main() -> int:
     def batch(n):
         return torch.randn((n, 224, 224, 3), generator=gen, device=dev)
 
-    # ---- slice: init -> calibrate -> pack -> serve --------------------------------
     t0 = time.time()
-    model = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
-    sample = batch(32)
-    qtt.init_model(model, sample, seed=0)
-    qtt.calibrate_model(model, [batch(32) for _ in range(4)])
-    qtt.pack_model(model, sample)
-    torch.cuda.synchronize()
-    log(f"slice set-up (init, calibrate 4x32, pack) {time.time() - t0:.1f} s")
-
-    requests = [batch(256) for _ in range(4)]
-    with torch.inference_mode():
-        qtt.set_packed_fused_residual(True)
-        model(requests[0], mode="packed")  # first call outside the counted run
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        outs = [model(x, mode="packed") for x in requests]
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        log(f"served {len(requests)} requests of 256 with launches {counts}")
-        per_fwd = {"qconv2d": 37, "conv1x1_residual": 16, "w8a8_gemm": 1}
-        for name, n in per_fwd.items():
-            check(counts[name] == n * len(requests),
-                  f"{name}: {counts[name]} launches, expected {n * len(requests)}")
-        for out in outs:
-            check(tuple(out.shape) == (256, 1000) and bool(torch.isfinite(out).all()),
-                  "packed logits not finite or of the wrong shape")
-
-        def rel(a, b):
-            return float((a.float() - b.float()).abs().max() / b.float().abs().max())
-
-        x0, packed = requests[0], outs[0]
-        sim = model(x0, mode="quant")
-        qtt.set_packed_fused_residual(False)
-        unfused = model(x0, mode="packed")
-        qtt.set_packed_fused_residual(True)
-        with qtt.packed_carry(torch.bfloat16):
-            packed_bf16 = model(x0, mode="packed")
-        r_sim, r_fuse, r_bf16 = rel(packed, sim), rel(packed, unfused), rel(packed_bf16, packed)
-        log(f"agreement (relative to max|logits|): packed vs quant-sim {r_sim:.3e} (<= 2e-2), "
-            f"fused vs unfused {r_fuse:.3e} (<= 1e-3), bf16 carry vs f32 {r_bf16:.3e} (<= 5e-2)")
-        check(r_sim <= 2e-2 and r_fuse <= 1e-3 and r_bf16 <= 5e-2, "slice agreement failed")
-        top1 = float((packed.argmax(-1) == sim.argmax(-1)).float().mean())
-        log(f"argmax agreement packed vs quant-sim on request 0: {top1:.4f}")
-
-        # ---- kernels: record the main path's calls --------------------------------
-        small = batch(32)
-        records = []
-        for carry in (torch.float32, torch.bfloat16):
-            with qtt.packed_carry(carry), Recorder() as rec:
-                model(small, mode="packed")
-            records.append(rec.calls)
-        with Recorder() as serve_rec:
-            model(requests[1], mode="packed")
-
-        max_err = {name: 0.0 for name in KERNEL_INFO}
-        checks = [(name, args) for calls in records for name in ("qconv2d", "conv1x1_residual")
-                  for args, _ in calls[name].values()]
-        checks += [("w8a8_gemm", args) for args, _ in serve_rec.calls["w8a8_gemm"].values()]
-        for name, args in checks:
-            max_err[name] = max(max_err[name], compare(name, args))
-        n_checked = len(checks)
-        log(f"kernel phase: {n_checked} kernel-vs-plain comparisons passed; max abs err {max_err}")
-
-        # ---- times ------------------------------------------------------------
-        times = {}
-        for label, carry in (("packed f32 carry", torch.float32),
-                             ("packed bf16 carry", torch.bfloat16)):
-            with qtt.packed_carry(carry):
-                times[label] = cuda_ms(lambda: model(requests[2], mode="packed"))
-        times["fp32 cuDNN forward (yardstick)"] = cuda_ms(lambda: model(requests[2], mode="fp32"))
-        for label, ms in times.items():
-            log(f"time: {label}: {ms:.3f} ms per batch of 256, {256e3 / ms:.1f} img/s [{card}]")
-
-        entries = []
-        for name, sigs in serve_rec.calls.items():
-            agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                   "ops_ms": 0.0, "bytes_ms": 0.0}
-            library_ok = True
-            for args, per_fwd in sigs.values():
-                ops, nbytes = work(name, args)
-                b_ms, b_by = bound_ms(ops, nbytes)
-                k_ms = cuda_ms(lambda: kernel_fn(name)(*args), reps=5, inner=10)
-                p_ms = cuda_ms(lambda: plain_fn(name)(*args), reps=3, warmup=1)
-                lib = library_call(name, args)
-                l_ms = cuda_ms(lib, reps=5, inner=5) if lib is not None else None
-                library_ok = library_ok and l_ms is not None
-                log(f"kernel {name} {describe(name, args)}: x{per_fwd}/fwd {k_ms:.4f} ms "
-                    f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms, "
-                    f"library {'n/a' if l_ms is None else f'{l_ms:.4f} ms'}")
-                agg["ms"] += per_fwd * k_ms
-                agg["plain_ms"] += per_fwd * p_ms
-                agg["bound_ms"] += per_fwd * b_ms
-                agg["ops_ms"] += per_fwd * ops / PEAK_INT8_OPS * 1e3
-                agg["bytes_ms"] += per_fwd * nbytes / PEAK_BYTES * 1e3
-                agg["library_ms"] += per_fwd * (l_ms or 0.0)
-            src, replaces = KERNEL_INFO[name]
-            entries.append({
-                "name": name, "route": "cuda", "source": src, "replaces": replaces,
-                "launches": counts[name], "max_abs_err": max_err[name],
-                "ms": agg["ms"], "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
-                "bound_by": "operations" if agg["ops_ms"] >= agg["bytes_ms"] else "bytes",
-                "library_ms": agg["library_ms"] if library_ok else None,
-            })
-    log("kernel times above are per launch; the JSON sums them over one forward at batch 256 "
-        "(each shape's time x its launches per forward)")
+    entries = resnet_phase(qtt, batch, card)
+    log(f"resnet50 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    entries += vit_phase(qtt, batch, card)
+    log(f"vit_b_16 phase {time.time() - t0:.1f} s")
+    log("kernel times above are per launch; the JSON sums them over one forward of each model "
+        "(each shape's time x its launches per forward; K3 is ResNet-50's, launches are each "
+        "model's 4 served requests)")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

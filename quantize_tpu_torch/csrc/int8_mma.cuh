@@ -1,5 +1,5 @@
-// Shared int8 tensor-core mainloop for the port's three W8A8 kernels
-// (w8a8_gemm.cu, conv1x1_residual.cu, qconv2d.cu).
+// Shared int8 tensor-core mainloop for the port's int8 kernels
+// (w8a8_gemm.cu, conv1x1_residual.cu, qconv2d.cu, w4a8_gemm.cu).
 //
 // One block computes a BM x BN tile of C = A . W with int32 accumulation,
 // A (M, K) int8 row-major (or gathered on the fly from an NHWC image by
@@ -74,10 +74,12 @@ __device__ __forceinline__ void set_word(int4& v, int q, int w) {
 
 // W (K, N) row-major -> shared b[n * SK + k].
 struct BTile {
+  const int8_t* w;
+  int K, N, n0;
+  bool vec;
   int4 r[B_CHUNKS];
 
-  __device__ __forceinline__ void load(const int8_t* __restrict__ w, int K, int N, int n0,
-                                       int k0, bool vec) {
+  __device__ __forceinline__ void load(int k0) {
 #pragma unroll
     for (int i = 0; i < B_CHUNKS; ++i) {
       const int c = threadIdx.x + i * NTHREADS;
@@ -157,15 +159,14 @@ struct Frag {
   __device__ __forceinline__ int col(int j, int r) const { return wn * 32 + j * 8 + t * 2 + (r & 1); }
 };
 
-// Runs the whole K loop. When want_rowsum is set, thread tid also sums the
-// int8 values of tile row tid (BM == NTHREADS) over all of K.
-template <class ALoader>
-__device__ __forceinline__ void mainloop(ALoader& la, const int8_t* __restrict__ w, int K, int N,
-                                         int n0, bool w_vec, Smem& sm, int (&acc)[4][4][4],
-                                         bool want_rowsum, int& rowsum) {
+// Runs the whole K loop: nk steps of BK columns. Each loader's load(k0)
+// reads the registers for the step at column k0 = kt * BK and store()
+// writes them to a shared buffer. When want_rowsum is set, thread tid also
+// sums the int8 values of A-tile row tid (BM == NTHREADS) over all steps.
+template <class ALoader, class BLoader>
+__device__ __forceinline__ void mainloop(ALoader& la, BLoader& lb, int nk, Smem& sm,
+                                         int (&acc)[4][4][4], bool want_rowsum, int& rowsum) {
   const Frag f;
-  BTile lb;
-  const int nk = (K + BK - 1) / BK;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -175,7 +176,7 @@ __device__ __forceinline__ void mainloop(ALoader& la, const int8_t* __restrict__
   rowsum = 0;
 
   la.load(0);
-  lb.load(w, K, N, n0, 0, w_vec);
+  lb.load(0);
   la.store(sm.a[0]);
   lb.store(sm.b[0]);
   __syncthreads();
@@ -185,7 +186,7 @@ __device__ __forceinline__ void mainloop(ALoader& la, const int8_t* __restrict__
     const bool more = kt + 1 < nk;
     if (more) {
       la.load((kt + 1) * BK);
-      lb.load(w, K, N, n0, (kt + 1) * BK, w_vec);
+      lb.load((kt + 1) * BK);
     }
     const int8_t* as = sm.a[cur];
     const int8_t* bs = sm.b[cur];
@@ -222,6 +223,49 @@ __device__ __forceinline__ void mainloop(ALoader& la, const int8_t* __restrict__
     }
     __syncthreads();
   }
+}
+
+// The K loop over a row-major int8 W (K, N).
+template <class ALoader>
+__device__ __forceinline__ void mainloop(ALoader& la, const int8_t* __restrict__ w, int K, int N,
+                                         int n0, bool w_vec, Smem& sm, int (&acc)[4][4][4],
+                                         bool want_rowsum, int& rowsum) {
+  BTile lb{w, K, N, n0, w_vec};
+  mainloop(la, lb, (K + BK - 1) / BK, sm, acc, want_rowsum, rowsum);
+}
+
+// The W8A8 epilogue of a BM x BN tile (K1 and K4), in the operand order of
+// the JAX expression: out(M, N) f32 =
+//   s_a * s_w[n] * (acc + z_a * colsum[n] [+ z_w[n] * rowsum[m] + (K * z_a) * z_w[n]]) + bias[n]
+// rs holds the tile's row sums when wz0 is false.
+__device__ __forceinline__ void w8a8_epilogue(const int (&acc)[4][4][4], const int* rs, int m0,
+                                              int n0, int M, int N, int K,
+                                              const int* __restrict__ col_sum,
+                                              const float* __restrict__ w_scale,
+                                              const float* __restrict__ w_zero,
+                                              const float* __restrict__ bias, float a_scale,
+                                              float z, bool wz0, float* __restrict__ out) {
+  const Frag f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int lm = f.row(i, r);
+        const int m = m0 + lm;
+        const int n = n0 + f.col(j, r);
+        if (m >= M || n >= N) continue;
+        float corrected = __fadd_rn((float)acc[i][j][r], __fmul_rn(z, (float)col_sum[n]));
+        if (!wz0) {
+          const float wz = w_zero[n];
+          corrected = __fadd_rn(__fadd_rn(corrected, __fmul_rn(wz, (float)rs[lm])),
+                                __fmul_rn(__fmul_rn((float)K, z), wz));
+        }
+        float v = __fmul_rn(__fmul_rn(a_scale, w_scale[n]), corrected);
+        if (bias != nullptr) v = __fadd_rn(v, bias[n]);
+        out[(int64_t)m * N + n] = v;
+      }
 }
 
 template <typename T>

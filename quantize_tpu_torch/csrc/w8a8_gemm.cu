@@ -36,29 +36,8 @@ __global__ void __launch_bounds__(NTHREADS)
     rs[threadIdx.x] = rowsum;
     __syncthreads();
   }
-  const float a_scale = *a_scale_p;
-  const float z = *z_eff_p;
-  const Frag f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int lm = f.row(i, r);
-        const int m = m0 + lm;
-        const int n = n0 + f.col(j, r);
-        if (m >= M || n >= N) continue;
-        float corrected = __fadd_rn((float)acc[i][j][r], __fmul_rn(z, (float)col_sum[n]));
-        if (!wz0) {
-          const float wz = w_zero[n];
-          corrected = __fadd_rn(__fadd_rn(corrected, __fmul_rn(wz, (float)rs[lm])),
-                                __fmul_rn(__fmul_rn((float)K, z), wz));
-        }
-        float v = __fmul_rn(__fmul_rn(a_scale, w_scale[n]), corrected);
-        if (bias != nullptr) v = __fadd_rn(v, bias[n]);
-        out[(int64_t)m * N + n] = v;
-      }
+  w8a8_epilogue(acc, rs, m0, n0, M, N, K, col_sum, w_scale, w_zero, bias, *a_scale_p, *z_eff_p,
+                wz0, out);
 }
 
 extern "C" int qtt_w8a8_gemm(const void* a, const void* w, const void* col_sum,

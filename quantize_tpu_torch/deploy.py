@@ -17,7 +17,7 @@ import torch
 
 from .nn.variables import collections
 
-_W_KEYS = ("w_int",)
+_W_KEYS = ("w_int", "w_p4")
 
 
 def _to_device(x, device) -> torch.Tensor:

@@ -3,18 +3,24 @@
 PyTorch counterpart of ``quantize_tpu/nn/layers.py``. Models are built
 quantized from config; FP32 behaviour is the ``'fp32'`` mode (or
 ``n_bits >= 32``). Modes: ``fp32``, ``calibrate``, ``quant``, ``pack`` and
-``packed``. The packed dispatch mirrors ``layers.py:399-539`` for its W8A8
-branches:
+``packed``. The packed dispatch mirrors ``layers.py:236-305`` (dense) and
+``layers.py:399-539`` (conv):
 
 * conv, 1x1/stride 1 with a residual and zero weight zero points -> the
   fused tail (kernel K2, :func:`~quantize_tpu_torch.ops.qconv1x1.conv1x1_residual`);
 * the stride-2 stem with ``s2d`` -> space-to-depth rewrite, then K3;
 * every other conv -> :func:`~quantize_tpu_torch.ops.qconv.quant_conv2d` (K3);
-* dense -> :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_w8a8` (K1).
+  int4 weights with an odd input channel count are stored as int8;
+* dense with per-tensor activations -> :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_w8a8`
+  (K1), or :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_w4a8` (K4) for
+  int4 weights with an even K (stored split-half packed as ``w_p4``); a
+  deferred LayerNorm (``pre_norm``) fuses into the activation quantize (K7);
+* dense without a fusable activation quantizer -> the weight-only
+  :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_wo`.
 
-Branches the port does not have yet raise NotImplementedError: int4
-weights, AWQ, per-channel activations and weight-only layers, depthwise and
-grouped convs, bias correction.
+Branches the port does not have yet raise NotImplementedError: AWQ,
+per-channel-activation and weight-only convs, even-channel int4 convs
+(``w_p4c``), depthwise and grouped convs, bias correction.
 """
 from __future__ import annotations
 
@@ -27,8 +33,10 @@ import torch.nn.functional as F
 
 from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, quant_conv2d,
                          s2d_block_padding, s2d_kernel, space_to_depth)
+from ..ops.layernorm import layernorm, layernorm_quant_int8
 from ..ops.qconv1x1 import conv1x1_residual
-from ..ops.qmatmul import quant_matmul_w8a8, quantize_act_int8
+from ..ops.qmatmul import (pack_int4_splithalf, quant_matmul_w4a8, quant_matmul_w8a8,
+                           quant_matmul_wo, quantize_act_int8, unpack_int4_splithalf)
 from ..quant.fakequant import fake_quant
 from ..quant.qspec import QuantSpec, _freeze
 from .precision import packed_carry_dtype
@@ -130,8 +138,6 @@ class _QuantLayerBase(VarModule):
         self.put_var("packed", "bias", torch.zeros((n_out,), dtype=torch.float32, device=x.device)
                      if bias is None else bias.detach().float().clone())
         if w_spec.enabled:
-            if w_spec.n_bits <= 4:
-                raise _not_ported("int4 weight packing")
             q, w_scale, w_zero = self.w_quantizer(kernel, mode="pack")
             # shift unsigned grids into int8 range, folding into the zero
             shift = (1 << (w_spec.n_bits - 1)) if w_spec.qmin >= 0 else 0
@@ -179,31 +185,72 @@ class QuantDense(_QuantLayerBase):
     def _contract(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return a @ w
 
+    def _use_p4(self, k: int) -> bool:
+        return self.w_spec.enabled and self.w_spec.n_bits <= 4 and k % 2 == 0
+
     def _store_weight(self, x: torch.Tensor, q_i8: torch.Tensor) -> None:
-        self.put_var("packed", "w_int", q_i8)
+        if self._use_p4(q_i8.shape[0]):
+            self.put_var("packed", "w_p4", pack_int4_splithalf(q_i8))
+        else:
+            self.put_var("packed", "w_int", q_i8)
         self.put_var("packed", "col_sum", q_i8.sum(dim=0, dtype=torch.int32))
 
-    def _packed_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _packed_forward(self, x: torch.Tensor, pre_norm=None) -> torch.Tensor:
         w_spec, a_spec = self.w_spec, self.a_spec
         bias = self.get_var("packed", "bias")
+        p4 = self._use_p4(x.shape[-1])
+
+        def norm(x):
+            # non-fused path: apply the deferred LayerNorm first (kernel K6)
+            return x if pre_norm is None else layernorm(x, *pre_norm, out_dtype=x.dtype)
+
         if not w_spec.enabled:
+            x = norm(x)
             xq = self._packed_act(x) if a_spec.enabled else x
             return xq @ self.get_var("params", "kernel") + bias
-        act = self._fused_act_qparams()
-        if act is None:
-            raise _not_ported("weight-only / per-channel-activation packed dense")
+        if self.has_var("packed", "awq_recip"):
+            raise _not_ported("the AWQ packed dense")
+        w_scale = self.get_var("packed", "w_scale")
+        w_zero = self.get_var("packed", "w_zero")
         # symmetric signed weights pack with zero == 0 exactly, so the
         # rowsum(A) correction terms vanish
         wz0 = bool(w_spec.symmetric and w_spec.qmin < 0)
-        return quant_matmul_w8a8(
-            x, act[0], act[1], a_spec.qmin, a_spec.qmax,
-            self.get_var("packed", "w_int"), self.get_var("packed", "w_scale"),
-            self.get_var("packed", "w_zero"), bias, self.get_var("packed", "col_sum"),
-            w_zero_is_zero=wz0)
+        act = self._fused_act_qparams()
+        if act is not None:
+            a_scale, a_zero = act
+            pre_q = None
+            if pre_norm is not None:
+                # LN fused with the activation quantize (kernel K7): int8
+                # out of the kernel, the normalized tensor never stored
+                pre_q = layernorm_quant_int8(x, *pre_norm, a_scale, a_zero,
+                                             a_spec.qmin, a_spec.qmax)
+            fn, w_key = (quant_matmul_w4a8, "w_p4") if p4 else (quant_matmul_w8a8, "w_int")
+            return fn(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax, self.get_var("packed", w_key),
+                      w_scale, w_zero, bias, self.get_var("packed", "col_sum"),
+                      w_zero_is_zero=wz0, pre_q=pre_q)
+        # weight-only (or per-channel activations): float activations times
+        # the dequantized weight
+        w_int = (unpack_int4_splithalf(self.get_var("packed", "w_p4")) if p4
+                 else self.get_var("packed", "w_int"))
+        x = norm(x)
+        xq = self._packed_act(x) if a_spec.enabled else x
+        return quant_matmul_wo(xq, w_int, w_scale, w_zero, bias)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def packed_proj_buffers(self) -> dict:
+        """This layer's deploy buffers, so that a parent module can run
+        sibling projections as ONE fused matmul (the q/k/v projections of
+        :class:`~quantize_tpu_torch.nn.attention.QuantMultiheadAttention`)."""
+        out = {name: self.get_var("packed", name) for name in ("bias", "w_scale", "w_zero")}
+        for name in ("w_int", "w_p4", "col_sum", "a_scale", "a_zero"):
+            if self.has_var("packed", name):
+                out[name] = self.get_var("packed", name)
+        return out
+
+    def forward(self, x: torch.Tensor, mode: str = "fp32", pre_norm=None) -> torch.Tensor:
         if mode == "packed":
-            return self._packed_forward(x).to(packed_carry_dtype())
+            return self._packed_forward(x, pre_norm).to(packed_carry_dtype())
+        if pre_norm is not None:
+            raise ValueError("pre_norm fusion is a packed-mode feature")
         if mode == "pack":
             return self._pack(x)
         if mode not in _MODES:
@@ -235,6 +282,8 @@ class QuantConv(_QuantLayerBase):
         return conv_nhwc(x, w, self.strides, self.padding, self.feature_group_count)
 
     def _store_weight(self, x: torch.Tensor, q_i8: torch.Tensor) -> None:
+        if self.w_spec.n_bits <= 4 and q_i8.shape[2] % 2 == 0:
+            raise _not_ported("int4 conv weight packing for an even input channel count (w_p4c)")
         self.put_var("packed", "w_int", q_i8)
         if self.a_spec.enabled and not self.a_spec.per_channel:
             # pack-time zero-point correction map for this input size

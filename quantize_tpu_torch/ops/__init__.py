@@ -5,15 +5,27 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
 * K1 :func:`~.qmatmul.w8a8_gemm` (``csrc/w8a8_gemm.cu``)
 * K2 :func:`~.qconv1x1.conv1x1_residual_gemm` (``csrc/conv1x1_residual.cu``)
 * K3 :func:`~.qconv.qconv2d_int8` (``csrc/qconv2d.cu``)
+* K4 :func:`~.qmatmul.w4a8_gemm` (``csrc/w4a8_gemm.cu``)
+* K6 :func:`~.layernorm.layernorm_rows` (``csrc/layernorm.cu``)
+* K7 :func:`~.layernorm.layernorm_quant_int8_rows` (``csrc/layernorm.cu``)
+* K8 :func:`~.attention.mha_rows` (``csrc/mha_rows.cu``)
 """
+from .attention import mha_fused_qkv, mha_fused_qkv_rows, mha_rows
+from .layernorm import layernorm_quant_int8, layernorm_quant_int8_rows, layernorm_rows
 from .qconv import qconv2d_int8, quant_conv2d
 from .qconv1x1 import conv1x1_residual, conv1x1_residual_gemm
-from .qmatmul import quant_matmul_w8a8, quantize_act_int8, w8a8_gemm
+from .qmatmul import (pack_int4_splithalf, quant_matmul_w4a8, quant_matmul_w8a8,
+                      quant_matmul_wo, quantize_act_int8, unpack_int4_splithalf, w4a8_gemm,
+                      w8a8_gemm)
 
 KERNEL_WRAPPERS = {
     "w8a8_gemm": w8a8_gemm,
     "conv1x1_residual": conv1x1_residual_gemm,
     "qconv2d": qconv2d_int8,
+    "w4a8_gemm": w4a8_gemm,
+    "layernorm": layernorm_rows,
+    "layernorm_quant_int8": layernorm_quant_int8_rows,
+    "mha_rows": mha_rows,
 }
 
 
@@ -28,6 +40,9 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNEL_WRAPPERS", "conv1x1_residual", "conv1x1_residual_gemm", "launch_counts",
-    "qconv2d_int8", "quant_conv2d", "quant_matmul_w8a8", "quantize_act_int8",
-    "reset_launch_counts", "w8a8_gemm",
+    "layernorm_quant_int8", "layernorm_quant_int8_rows", "layernorm_rows",
+    "mha_fused_qkv", "mha_fused_qkv_rows", "mha_rows", "pack_int4_splithalf",
+    "qconv2d_int8", "quant_conv2d", "quant_matmul_w4a8", "quant_matmul_w8a8",
+    "quant_matmul_wo", "quantize_act_int8", "reset_launch_counts", "unpack_int4_splithalf",
+    "w4a8_gemm", "w8a8_gemm",
 ]

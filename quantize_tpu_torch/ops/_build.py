@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``quantize_tpu_torch/csrc``).
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``. The build
+Each ``csrc/<library>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (one entry point per kernel; the
+LayerNorm library has two) and loaded with ``ctypes``. The build
 happens at first use, into ``quantize_tpu_torch/_build/`` (listed in
 ``.gitignore``), with one ``nvcc`` process per source, all started
 together. A library's file name carries a hash of its sources, so an edited
@@ -22,14 +23,21 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
-# library name -> (C function, argtypes)
+# kernel name -> (library, C function, argtypes)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 KERNELS = {
-    "w8a8_gemm": ("qtt_w8a8_gemm", [_P] * 9 + [_I] * 4 + [_P]),
-    "conv1x1_residual": ("qtt_conv1x1_residual", [_P] * 9 + [_I] * 6 + [_P]),
-    "qconv2d": ("qtt_qconv2d", [_P] * 9 + [_I] * 15 + [_P]),
+    "w8a8_gemm": ("w8a8_gemm", "qtt_w8a8_gemm", [_P] * 9 + [_I] * 4 + [_P]),
+    "conv1x1_residual": ("conv1x1_residual", "qtt_conv1x1_residual", [_P] * 9 + [_I] * 6 + [_P]),
+    "qconv2d": ("qconv2d", "qtt_qconv2d", [_P] * 9 + [_I] * 15 + [_P]),
+    "w4a8_gemm": ("w4a8_gemm", "qtt_w4a8_gemm", [_P] * 9 + [_I] * 4 + [_P]),
+    "layernorm": ("layernorm", "qtt_layernorm", [_P] * 4 + [_I] * 2 + [_F] + [_I] * 2 + [_P]),
+    "layernorm_quant_int8": ("layernorm", "qtt_layernorm_q",
+                             [_P] * 6 + [_I] * 2 + [_F] + [_I] * 3 + [_P]),
+    "mha_rows": ("mha_rows", "qtt_mha_rows", [_P] * 2 + [_I] * 6 + [_F] + [_I] * 2 + [_P]),
 }
+LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -57,12 +65,13 @@ def _lib_path(name: str) -> Path:
 
 
 def build_all(names: List[str] = None) -> Dict[str, str]:
-    """Compile every kernel library that is not built yet, in parallel.
+    """Compile every kernel library (of ``names``, default all) that is not
+    built yet, in parallel.
 
-    Returns ``{name: ptxas report}`` for the libraries built by this call.
-    Raises RuntimeError with the compiler's output if any build fails.
+    Returns ``{library: ptxas report}`` for the libraries built by this
+    call. Raises RuntimeError with the compiler's output if any build fails.
     """
-    names = list(KERNELS) if names is None else names
+    names = LIBRARIES if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -88,19 +97,19 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
 
 
 def kernel_fn(name: str) -> ctypes._CFuncPtr:
-    """The C entry point of kernel library ``name``, built on first use."""
+    """The C entry point of kernel ``name``, built on first use."""
     fn = _fns.get(name)
     if fn is not None:
         return fn
     with _lock:
         if name not in _fns:
             build_all()
-            for lib_name, (sym, argtypes) in KERNELS.items():
-                lib = ctypes.CDLL(str(_lib_path(lib_name)))
-                f = getattr(lib, sym)
+            libs = {lib: ctypes.CDLL(str(_lib_path(lib))) for lib in LIBRARIES}
+            for kname, (lib, sym, argtypes) in KERNELS.items():
+                f = getattr(libs[lib], sym)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-                _fns[lib_name] = f
+                _fns[kname] = f
     return _fns[name]
 
 

@@ -1,14 +1,19 @@
-"""W8A8 quantized matmul: activation quantize + kernel K1.
+"""Quantized matmuls: activation quantize, W8A8 (kernel K1), W4A8 over
+split-half int4 weights (kernel K4) and the weight-only product.
 
-PyTorch counterpart of the W8A8 part of ``quantize_tpu/ops/pallas/qmatmul.py``.
-Both JAX backends (the Pallas ``_w8a8_kernel`` and the XLA twin
-``quant_matmul_w8a8_xla``) compute
+PyTorch counterpart of ``quantize_tpu/ops/pallas/qmatmul.py``. Both JAX
+backends (the Pallas kernels and the XLA twins) compute
 
     out = s_a·s_w·(A·W + z_a·colsum(W) + z_w·rowsum(A) + K·z_a·z_w) + bias
 
-over int8 A and W with int32 accumulation; here :func:`w8a8_gemm` launches
-the hand-written CUDA kernel ``csrc/w8a8_gemm.cu`` on CUDA tensors and runs
-:func:`w8a8_gemm_plain` on CPU tensors.
+over int8 A and int8 (or int4) W with int32 accumulation. Here
+:func:`w8a8_gemm` launches the hand-written CUDA kernel ``csrc/w8a8_gemm.cu``
+and :func:`w4a8_gemm` launches ``csrc/w4a8_gemm.cu`` on CUDA tensors; on CPU
+tensors they run :func:`w8a8_gemm_plain` and :func:`w4a8_gemm_plain`.
+
+The weight-only product (:func:`quant_matmul_wo`) is a dequantized weight
+and one plain matrix product, as the JAX package's default (XLA) backend
+computes it; its Pallas ``_wo_kernel`` is not on this path.
 """
 from __future__ import annotations
 
@@ -101,6 +106,165 @@ def w8a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
 w8a8_gemm.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# W4A8: split-half int4 packing + kernel K4
+# ---------------------------------------------------------------------------
+
+def pack_int4_splithalf(q: torch.Tensor) -> torch.Tensor:
+    """Pack signed int4 (K, N) into (K/2, N) int8: row r holds row r in the
+    low nibble and row r + K/2 in the high nibble. K must be even."""
+    k = q.shape[0]
+    if k % 2:
+        raise ValueError(f"pack_int4_splithalf: K = {k} must be even for split-half int4 packing")
+    lo = q[: k // 2].to(torch.int16)
+    hi = q[k // 2:].to(torch.int16)
+    v = (lo & 0x0F) | ((hi & 0x0F) << 4)
+    return torch.where(v >= 128, v - 256, v).to(torch.int8)
+
+
+def unpack_int4_splithalf(p: torch.Tensor) -> torch.Tensor:
+    """(K/2, N) split-half nibbles -> (K, N) int8 in [-8, 7]."""
+    p16 = p.to(torch.int16)
+    lo = ((p16 & 0x0F) ^ 8) - 8
+    hi = p16 >> 4
+    return torch.cat([lo, hi], dim=0).to(torch.int8)
+
+
+def w4a8_gemm_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
+                    w_p4: torch.Tensor, col_sum: torch.Tensor, w_scale: torch.Tensor,
+                    w_zero: torch.Tensor, bias: Optional[torch.Tensor],
+                    w_zero_is_zero: bool) -> torch.Tensor:
+    """Plain version of kernel K4: unpack, then K1's exact sums and epilogue
+    (``_w4a8_kernel``'s epilogue is ``_w8a8_kernel``'s)."""
+    return w8a8_gemm_plain(q_a, z_eff, a_scale, unpack_int4_splithalf(w_p4), col_sum,
+                           w_scale, w_zero, bias, w_zero_is_zero)
+
+
+def w4a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
+              w_p4: torch.Tensor, col_sum: torch.Tensor, w_scale: torch.Tensor,
+              w_zero: torch.Tensor, bias: Optional[torch.Tensor],
+              w_zero_is_zero: bool) -> torch.Tensor:
+    """Kernel K4: int8 (M, K) x split-half int4 (K/2, N) -> f32 (M, N) with
+    the W8A8 epilogue. ``col_sum`` is the pack-time int32 column sum of the
+    unpacked weight; the other arguments are as :func:`w8a8_gemm`'s.
+
+    CPU tensors take :func:`w4a8_gemm_plain`; CUDA tensors launch the kernel
+    (``csrc/w4a8_gemm.cu``) or raise.
+    """
+    dev = q_a.device
+    if dev.type == "cpu":
+        return w4a8_gemm_plain(q_a, z_eff, a_scale, w_p4, col_sum, w_scale, w_zero,
+                               bias, w_zero_is_zero)
+    if dev.type != "cuda":
+        raise ValueError(f"w4a8_gemm: unsupported device {dev}")
+    m, k = q_a.shape
+    if k % 2:
+        raise ValueError(f"w4a8_gemm: K = {k} must be even")
+    n = w_p4.shape[1]
+    _build.require(q_a, "q_a", dev, torch.int8, (m, k))
+    _build.require(w_p4, "w_p4", dev, torch.int8, (k // 2, n))
+    _build.require(col_sum, "col_sum", dev, torch.int32, (n,))
+    for name, t in (("w_scale", w_scale), ("w_zero", w_zero)):
+        _build.require(t, name, dev, torch.float32, (n,))
+    if bias is not None:
+        _build.require(bias, "bias", dev, torch.float32, (n,))
+    _build.require(a_scale, "a_scale", dev, torch.float32, ())
+    _build.require(z_eff, "z_eff", dev, torch.float32, ())
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    fn = _build.kernel_fn("w4a8_gemm")
+    with torch.cuda.device(dev):
+        err = fn(_build.ptr(q_a), _build.ptr(w_p4), _build.ptr(col_sum),
+                 _build.ptr(w_scale), _build.ptr(w_zero), _build.ptr(bias),
+                 _build.ptr(a_scale), _build.ptr(z_eff), _build.ptr(out),
+                 m, n, k, int(bool(w_zero_is_zero)), _build.current_stream(dev))
+    _build.check(err, "w4a8_gemm")
+    w4a8_gemm.launches += 1
+    return out
+
+
+w4a8_gemm.launches = 0
+
+
+def _quantized_input(x: torch.Tensor, a_scale, a_zero, a_qmin: int, a_qmax: int, pre_q):
+    """``(q_a (M, K) int8, z_eff)`` from ``pre_q`` or by quantizing ``x``."""
+    k = x.shape[-1]
+    if pre_q is not None:
+        q_a, z_eff = pre_q
+        return q_a.reshape(-1, k), z_eff
+    return quantize_act_int8(x.reshape(-1, k), a_scale, a_zero, a_qmin, a_qmax)
+
+
+def quant_matmul_w4a8(
+    x: torch.Tensor,
+    a_scale,
+    a_zero,
+    a_qmin: int,
+    a_qmax: int,
+    w_packed: torch.Tensor,
+    w_scale: torch.Tensor,
+    w_zero: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    col_sum_w: Optional[torch.Tensor] = None,
+    w_zero_is_zero: bool = False,
+    pre_q=None,
+) -> torch.Tensor:
+    """Fused W4A8 matmul over split-half packed weights ((K/2, N) int8).
+    ``x``: (..., K) float (read only for its shape when ``pre_q`` is given)."""
+    lead = x.shape[:-1]
+    n = w_packed.shape[1]
+    q_a, z_eff = _quantized_input(x, a_scale, a_zero, a_qmin, a_qmax, pre_q)
+    if col_sum_w is None:
+        col_sum_w = unpack_int4_splithalf(w_packed).sum(dim=0, dtype=torch.int32)
+    a_scale = torch.as_tensor(a_scale, dtype=torch.float32, device=q_a.device).reshape(())
+    out = w4a8_gemm(q_a.contiguous(), z_eff.reshape(()), a_scale, w_packed.contiguous(),
+                    col_sum_w.to(torch.int32), w_scale.float().reshape(-1),
+                    w_zero.float().reshape(-1), None if bias is None else bias.float(),
+                    w_zero_is_zero)
+    return out.reshape(*lead, n)
+
+
+# ---------------------------------------------------------------------------
+# Weight-only quantized matmul (float activations)
+# ---------------------------------------------------------------------------
+
+def _dequant_weight(w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
+                    awq_recip=None, group_size: int = 0) -> torch.Tensor:
+    """Per-out-channel weight dequant ``(w + z)·s`` in float32."""
+    if awq_recip is not None or group_size:
+        raise NotImplementedError(
+            "_dequant_weight: the AWQ and group_size deploy layouts are not ported to "
+            "quantize_tpu_torch yet; see ROADMAP.md")
+    return (w_int.float() + w_zero.float().reshape(1, -1)) * w_scale.float().reshape(1, -1)
+
+
+def quant_matmul_wo(
+    x: torch.Tensor,
+    w_int: torch.Tensor,
+    w_scale: torch.Tensor,
+    w_zero: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    awq_recip: Optional[torch.Tensor] = None,
+    group_size: int = 0,
+) -> torch.Tensor:
+    """Weight-only quantized matmul: float activations x int8-stored weights,
+    f32 result. As the JAX package's XLA branch (``qmatmul.py:462-476``):
+    the operands are bf16 on the accelerator and f32 elsewhere."""
+    lead = x.shape[:-1]
+    n = w_int.shape[1]
+    w_deq = _dequant_weight(w_int, w_scale, w_zero, awq_recip, group_size)
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.device.type == "cuda":
+        # bf16 x bf16 with a float32 result, as dot_general(...,
+        # preferred_element_type=float32) on the TPU: mm's out_dtype
+        # overload keeps cuBLAS's f32 accumulator instead of rounding to bf16
+        out = torch.mm(x2.to(torch.bfloat16), w_deq.to(torch.bfloat16), out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w_deq
+    if bias is not None:
+        out = out + bias
+    return out.reshape(*lead, n)
+
+
 def quant_matmul_w8a8(
     x: torch.Tensor,
     a_scale,
@@ -117,16 +281,11 @@ def quant_matmul_w8a8(
 ) -> torch.Tensor:
     """Fused W8A8 matmul. ``x``: (..., K) float; ``w_int``: (K, N) int8."""
     lead = x.shape[:-1]
-    k = x.shape[-1]
     n = w_int.shape[1]
-    if pre_q is not None:
-        q_a, z_eff = pre_q
-        q_a = q_a.reshape(-1, k)
-    else:
-        q_a, z_eff = quantize_act_int8(x.reshape(-1, k), a_scale, a_zero, a_qmin, a_qmax)
+    q_a, z_eff = _quantized_input(x, a_scale, a_zero, a_qmin, a_qmax, pre_q)
     if col_sum_w is None:
         col_sum_w = w_int.sum(dim=0, dtype=torch.int32)
-    a_scale = torch.as_tensor(a_scale, dtype=torch.float32, device=x.device).reshape(())
+    a_scale = torch.as_tensor(a_scale, dtype=torch.float32, device=q_a.device).reshape(())
     out = w8a8_gemm(q_a.contiguous(), z_eff.reshape(()), a_scale, w_int.contiguous(),
                     col_sum_w.to(torch.int32), w_scale.float().reshape(-1),
                     w_zero.float().reshape(-1), None if bias is None else bias.float(),

@@ -46,15 +46,21 @@ def compute_scale_zero(
     signed: bool,
     eps: float = 1e-12,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Map a value range to (scale, zero) per the reference convention."""
-    denom = quant_range_denominator(n_bits, symmetric, signed)
+    """Map a value range to (scale, zero) per the reference convention.
+
+    The divisor is a tensor, not a Python number: on CUDA PyTorch turns a
+    division by a Python scalar into a multiplication by its float32
+    reciprocal, one rounding away from the true quotient JAX computes.
+    """
     if symmetric:
         value_range = torch.maximum(xmin.abs(), xmax.abs())
+        denom = torch.full_like(value_range, quant_range_denominator(n_bits, symmetric, signed))
         scale = value_range / denom
         scale = torch.where(scale == 0, torch.full_like(scale, eps), scale)
         zero = torch.zeros_like(scale)
     else:
         value_range = xmax - xmin
+        denom = torch.full_like(value_range, quant_range_denominator(n_bits, symmetric, signed))
         scale = value_range / denom
         scale = torch.where(scale == 0, torch.full_like(scale, eps), scale)
         zero = xmin / scale

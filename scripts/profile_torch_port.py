@@ -1,18 +1,24 @@
 #!/usr/bin/env python3
-"""Where the time of the port's packed ResNet-50 forward goes, on one GPU.
+"""Where the time of the port's packed forward goes, on one GPU.
 
-    python3 scripts/profile_torch_port.py [--batch 256] [--carry float32|bfloat16]
+    python3 scripts/profile_torch_port.py [--model resnet50|vit_b_16] [--batch N]
+                                          [--carry float32|bfloat16]
 
-Builds ResNet-50 W8A8 (the configuration of chip_smoke.py: random weights
-from seed 0, calibrated on 4 batches of 32, fused residual tail on), then
-traces 3 packed forwards with torch.profiler and prints device time per
-forward by kernel name and by group (the port's int8 kernels, torch
-elementwise kernels, other), and the device's busy share of the traced
-wall time. Needs a CUDA card and nvcc.
+Builds the model of chip_smoke.py (ResNet-50 W8A8 with the fused residual
+tail, batch 256 by default; or ViT-B/16 W4A8, batch 128 by default; random
+weights from seed 0, calibrated on 4 batches of 32), then traces 3 packed
+forwards with torch.profiler and prints device time per forward by kernel
+name and by group (the port's kernels, cuBLAS matrix products, torch
+elementwise kernels, other), the device's busy share of the traced wall
+time, and the device time under two ranges this script marks around the
+port's calls: every ``quantize_act_int8`` (the torch activation quantize
+passes) and every ``quant_matmul_wo`` (the weight-only out-projections: a
+dequantize and one ``torch.mm``). Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import os
 import sys
 import time
@@ -20,20 +26,37 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PORT_KERNELS = ("w8a8_gemm_kernel", "conv1x1_res_kernel", "qconv2d_kernel")
+PORT_KERNELS = ("w8a8_gemm_kernel", "conv1x1_res_kernel", "qconv2d_kernel", "w4a8_gemm_kernel",
+                "ln_kernel", "ln_q_kernel", "mha_rows_kernel")
+RANGES = ("quantize_act_int8", "quant_matmul_wo")
 
 
 def _group(name: str) -> str:
     if any(k in name for k in PORT_KERNELS):
-        return "port int8 kernels (K1-K3)"
+        return "port kernels"
+    if "gemm" in name or "nvjet" in name or "xmma" in name or "cutlass" in name:
+        return "cuBLAS matrix products"
     if "elementwise" in name or "vectorized" in name or "reduce" in name:
         return "torch elementwise / reduce"
     return "other"
 
 
+def _marked(fn, label):
+    """``fn`` inside a profiler range named ``label``."""
+    import torch
+
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--model", default="resnet50", choices=["resnet50", "vit_b_16"])
+    ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--carry", default="float32", choices=["float32", "bfloat16"])
     args = ap.parse_args()
 
@@ -44,7 +67,14 @@ def main() -> int:
         print("profile_torch_port: no CUDA device", file=sys.stderr)
         return 2
     import quantize_tpu_torch as qtt
-    from chip_smoke import CFG
+    import quantize_tpu_torch.nn.layers as layers
+    import quantize_tpu_torch.ops.qmatmul as qmatmul
+    from chip_smoke import CFG, CFG_W4A8
+
+    for mod in (qmatmul, layers):
+        for label in RANGES:
+            if hasattr(mod, label):
+                setattr(mod, label, _marked(getattr(mod, label), label))
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -54,14 +84,17 @@ def main() -> int:
     def batch(n):
         return torch.randn((n, 224, 224, 3), generator=gen, device=dev)
 
-    model = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
+    vit = args.model == "vit_b_16"
+    n_batch = args.batch or (128 if vit else 256)
+    model = qtt.MODELS.build(args.model, num_classes=1000,
+                             ctx=qtt.QuantCtx(CFG_W4A8 if vit else CFG))
     sample = batch(32)
     qtt.init_model(model, sample, seed=0)
     qtt.calibrate_model(model, [batch(32) for _ in range(4)])
     qtt.pack_model(model, sample)
     qtt.set_packed_fused_residual(True)
     qtt.set_packed_carry_dtype(args.carry)
-    x = batch(args.batch)
+    x = batch(n_batch)
     n_fwd = 3
     with torch.inference_mode():
         for _ in range(2):
@@ -74,17 +107,28 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
 
+    def dev_ms(evt, self_only=True):
+        attr = "self_device_time_total" if self_only else "device_time_total"
+        us = getattr(evt, attr, None)
+        if us is None:
+            us = getattr(evt, attr.replace("device", "cuda"), 0.0)
+        return us / 1e3 / n_fwd
+
     by_name = defaultdict(lambda: [0.0, 0])
+    ranges = {}
     for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "self_cuda_time_total", 0.0)
-        if dev_us and evt.device_type.name == "CUDA":
-            by_name[evt.key][0] += dev_us / 1e3 / n_fwd
+        if evt.key in RANGES:
+            # a range's device time is that of the kernels inside it, which
+            # are counted under their own names below
+            ranges[evt.key] = (dev_ms(evt, self_only=False), evt.count / n_fwd)
+            continue
+        ms = dev_ms(evt)
+        if ms and evt.device_type.name == "CUDA":
+            by_name[evt.key][0] += ms
             by_name[evt.key][1] += evt.count / n_fwd
     total = sum(v[0] for v in by_name.values())
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: ResNet-50 W8A8 packed, batch {args.batch}, carry {args.carry}, fused tail on")
+    print(f"{card}: {args.model} packed, batch {n_batch}, carry {args.carry}")
     if total == 0.0:
         print("the profiler recorded no device time: not measured")
         return 1
@@ -95,6 +139,10 @@ def main() -> int:
         groups[_group(name)] += ms
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  group {g}: {ms:.3f} ms ({ms / total:.1%})")
+    for label in RANGES:
+        if label in ranges:
+            ms, cnt = ranges[label]
+            print(f"  range {label}: {ms:.3f} ms ({ms / total:.1%}) over {cnt:.0f} calls")
     print("top kernels (ms per forward, launches per forward):")
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {ms:8.3f} ms {cnt:6.0f}x  {name[:110]}")

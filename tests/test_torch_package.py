@@ -1,6 +1,7 @@
 """Structure of the port (quantize_tpu_torch): it imports no JAX and nothing
 of quantize_tpu, its entry points default to CUDA, and each kernel wrapper
-runs its plain version on CPU tensors without counting a launch.
+runs its plain version on CPU tensors without counting a launch. The tests
+marked ``cuda`` hold every kernel against its plain version on the card.
 
 The import check reads the sources (AST), not ``sys.modules``: the test
 process itself imports JAX.
@@ -17,10 +18,13 @@ import quantize_tpu_torch as qtt
 from quantize_tpu_torch import api, deploy
 from quantize_tpu_torch.models import MODELS
 from quantize_tpu_torch.models.resnet import ResNet
+from quantize_tpu_torch.models.vit import VisionTransformer
 from quantize_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+from quantize_tpu_torch.ops.attention import mha_rows
+from quantize_tpu_torch.ops.layernorm import layernorm_quant_int8_rows, layernorm_rows
 from quantize_tpu_torch.ops.qconv import qconv2d_int8
 from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual_gemm
-from quantize_tpu_torch.ops.qmatmul import w8a8_gemm
+from quantize_tpu_torch.ops.qmatmul import pack_int4_splithalf, w4a8_gemm, w8a8_gemm
 
 torch.set_num_threads(2)
 
@@ -49,17 +53,21 @@ def test_port_imports_no_jax_and_nothing_of_quantize_tpu():
 
 def test_entry_points_default_to_cuda():
     for fn in (api.init_model, api.calibrate_model, deploy.pack_model,
-               MODELS.lookup("resnet50"), MODELS.lookup("resnet18")):
+               MODELS.lookup("resnet50"), MODELS.lookup("resnet18"), MODELS.lookup("vit_b_16")):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
-    assert inspect.signature(ResNet).parameters["device"].default == "cuda"
+    for cls in (ResNet, VisionTransformer):
+        assert inspect.signature(cls).parameters["device"].default == "cuda", cls
 
 
 def test_every_kernel_has_its_source_and_a_launch_counter():
-    for name in _build.KERNELS:
-        src = PORT / "csrc" / f"{name}.cu"
+    for lib in _build.LIBRARIES:
+        src = PORT / "csrc" / f"{lib}.cu"
         text = src.read_text()
-        assert "Replaces" in text and "extern \"C\"" in text, name
-    for fn in (w8a8_gemm, conv1x1_residual_gemm, qconv2d_int8):
+        assert "Replaces" in text and "extern \"C\"" in text, lib
+    for name, (lib, sym, _) in _build.KERNELS.items():
+        assert f"extern \"C\" int {sym}(" in (PORT / "csrc" / f"{lib}.cu").read_text(), name
+    for fn in (w8a8_gemm, conv1x1_residual_gemm, qconv2d_int8, w4a8_gemm, layernorm_rows,
+               layernorm_quant_int8_rows, mha_rows):
         assert isinstance(fn.launches, int)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "quantize_tpu_torch/_build/" in gitignore
@@ -92,13 +100,15 @@ def _call_all(a):
 
 def test_cpu_tensors_take_the_plain_versions_without_counting():
     reset_launch_counts()
-    outs = _call_all(_kernel_args("cpu"))
-    assert launch_counts() == {"w8a8_gemm": 0, "conv1x1_residual": 0, "qconv2d": 0}
-    assert [tuple(o.shape) for o in outs] == [(24, 16), (24, 16), (6, 2, 2, 16)]
-    assert all(np.isfinite(o.numpy()).all() for o in outs)
+    outs = _call_all(_kernel_args("cpu")) + _call_vit(_vit_kernel_args("cpu"))
+    assert set(launch_counts()) == set(_build.KERNELS)
+    assert all(n == 0 for n in launch_counts().values())
+    assert [tuple(o.shape) for o in outs] == [(24, 16), (24, 16), (6, 2, 2, 16), (24, 16),
+                                              (24, 32), (24, 32), (24, 32), (24, 32)]
+    assert all(np.isfinite(o.float().numpy()).all() for o in outs)
 
 
-@pytest.mark.parametrize("which", [0, 1, 2])
+@pytest.mark.parametrize("which", [0, 1, 2, 3, 4, 5, 6])
 def test_other_devices_raise_instead_of_falling_back(which):
     a = _kernel_args("meta")
     z, s = a["scalars"]
@@ -110,8 +120,39 @@ def test_other_devices_raise_instead_of_falling_back(which):
         lambda: qconv2d_int8(a["q"], z, s, a["w"], a["vec"], a["vec"], None, (1, 1),
                              ((0, 0), (0, 0)), a["corr"], True, torch.float32),
     ]
+    v = _vit_kernel_args("meta")
+    calls += [
+        lambda: w4a8_gemm(v["q"], z, s, v["wp"], v["cs"], v["vec"], v["vec"], None, True),
+        lambda: layernorm_rows(v["x"], v["gamma"], v["beta"], 1e-6, torch.float32),
+        lambda: layernorm_quant_int8_rows(v["x"], v["gamma"], v["beta"], 1e-6, s, z, 0, 255),
+        lambda: mha_rows(v["qkv"], 2, 8, False, torch.float32, 0),
+    ]
     with pytest.raises(ValueError, match="unsupported device"):
         calls[which]()
+
+
+def _vit_kernel_args(device):
+    g = torch.Generator().manual_seed(1)
+    q = torch.randint(-128, 128, (24, 32), generator=g).to(torch.int8)
+    w4 = torch.randint(-8, 8, (32, 16), generator=g).to(torch.int8)
+    x = torch.randn(24, 32, generator=g)
+    out = dict(q=q, wp=pack_int4_splithalf(w4), cs=w4.sum(0, dtype=torch.int32),
+               scalars=(torch.tensor(3.0), torch.tensor(0.01)), vec=torch.rand(16, generator=g),
+               x=x, gamma=torch.rand(32, generator=g) + 0.5, beta=torch.randn(32, generator=g),
+               qkv=torch.randn(24, 96, generator=g))
+    return {k: (tuple(t.to(device) for t in v) if isinstance(v, tuple) else v.to(device))
+            for k, v in out.items()}
+
+
+def _call_vit(a):
+    z, s = a["scalars"]
+    return [
+        w4a8_gemm(a["q"], z, s, a["wp"], a["cs"], a["vec"], a["vec"], a["vec"], False),
+        layernorm_rows(a["x"], a["gamma"], a["beta"], 1e-6, torch.float32),
+        layernorm_quant_int8_rows(a["x"], a["gamma"], a["beta"], 1e-6, s, z, 0, 255)[0],
+        mha_rows(a["qkv"], 2, 8, False, torch.float32, 7),
+        mha_rows(a["qkv"], 2, 8, True, torch.float32, 7),
+    ]
 
 
 @pytest.fixture
@@ -130,7 +171,8 @@ def test_cuda_kernels_match_their_plain_versions(cuda_card):
     reset_launch_counts()
     got = _call_all(a)
     torch.cuda.synchronize()
-    assert launch_counts() == {"w8a8_gemm": 1, "conv1x1_residual": 1, "qconv2d": 1}
+    assert {k: launch_counts()[k] for k in ("w8a8_gemm", "conv1x1_residual", "qconv2d")} == \
+        {"w8a8_gemm": 1, "conv1x1_residual": 1, "qconv2d": 1}
     z, s = a["scalars"]
     w2, q2 = a["w"].reshape(32, 16), a["q"].reshape(24, 32)
     want = [
@@ -141,6 +183,98 @@ def test_cuda_kernels_match_their_plain_versions(cuda_card):
     ]
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_scale_zero_is_a_true_division(cuda_card):
+    """compute_scale_zero on the card equals the CPU's (and JAX's) true
+    float32 division bit for bit; a division by a Python scalar would be
+    a multiplication by the rounded reciprocal on CUDA."""
+    from quantize_tpu_torch.quant.qspec import compute_scale_zero
+
+    g = torch.Generator().manual_seed(0)
+    xmin, xmax = -torch.rand(4096, generator=g) * 7, torch.rand(4096, generator=g) * 9
+    for n_bits, symmetric, signed in ((8, True, True), (8, False, False), (4, True, True)):
+        cpu = compute_scale_zero(xmin, xmax, n_bits, symmetric, signed)
+        gpu = compute_scale_zero(xmin.cuda(), xmax.cuda(), n_bits, symmetric, signed)
+        for a, b in zip(cpu, gpu):
+            assert torch.equal(a, b.cpu())
+
+
+def _assert_within_bf16_ulps(got, want, ulps):
+    g, w = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(g.abs(), w.abs()).clamp_min(1e-30))) - 7)
+    assert bool(((g - w).abs() <= ulps * ulp).all()), float((g - w).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 32, 16), (300, 96, 80), (1000, 768, 2304),
+                                   (100, 40, 70), (130, 3072, 768)])
+@pytest.mark.parametrize("wz0", [True, False])
+def test_cuda_w4a8_kernel_is_bit_equal_to_its_plain_version(cuda_card, shape, wz0):
+    """K4 on the card: exact integer sums and the same epilogue, so equal
+    bit for bit; K/2 = 20 and 48 leave a tail past the 32-row step."""
+    from quantize_tpu_torch.ops.qmatmul import w4a8_gemm_plain
+
+    m, k, n = shape
+    g = torch.Generator().manual_seed(k)
+    q = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-8, 8, (k, n), generator=g, dtype=torch.int8)
+    args = [q, torch.tensor(131.5), torch.tensor(0.02), pack_int4_splithalf(w),
+            w.sum(0, dtype=torch.int32), torch.rand(n, generator=g) * 0.01,
+            torch.zeros(n) if wz0 else torch.randn(n, generator=g), torch.randn(n, generator=g)]
+    args = [t.cuda() for t in args]
+    got = w4a8_gemm(*args, wz0)
+    want = w4a8_gemm_plain(*args, wz0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 768, 100])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_layernorm_kernels_match_their_plain_versions(cuda_card, d, dtype):
+    """K6 and K7 on the card: float64 row sums and IEEE 1/sqrt, so equal to
+    the plain versions bit for bit (K6 in f32 and bf16, K7's int8)."""
+    from quantize_tpu_torch.ops.layernorm import layernorm_plain, layernorm_quant_int8_plain
+
+    g = torch.Generator().manual_seed(d)
+    x = (torch.randn(517, d, generator=g) * 3 + 0.5).to(dtype).cuda()
+    gamma, beta = (torch.rand(d, generator=g) + 0.5).cuda(), torch.randn(d, generator=g).cuda()
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = layernorm_rows(x, gamma, beta, 1e-6, out_dtype)
+        torch.testing.assert_close(got, layernorm_plain(x, gamma, beta, 1e-6, out_dtype),
+                                   rtol=0, atol=0)
+    a_s, a_z = torch.tensor(0.04).cuda(), torch.tensor(-100.0).cuda()
+    for qmin, qmax in ((0, 255), (-128, 127)):
+        q, z = layernorm_quant_int8_rows(x, gamma, beta, 1e-6, a_s, a_z, qmin, qmax)
+        q_p, z_p = layernorm_quant_int8_plain(x, gamma, beta, 1e-6, a_s, a_z, qmin, qmax)
+        torch.cuda.synchronize()
+        assert torch.equal(q, q_p) and float(z) == float(z_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,valid,causal", [(2, 200, 12, 64, 197, False),
+                                                  (3, 24, 2, 16, 17, True),
+                                                  (2, 77, 4, 80, 0, True),
+                                                  (1, 300, 2, 64, 0, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_kernel_matches_its_plain_version(cuda_card, b, s, h, d, valid, causal,
+                                                         dtype):
+    """K8 on the card: f32 within rtol 1e-4 / atol 1e-5 (summation order of
+    the q.k and ex.v products), bf16 within two bf16 ulps."""
+    from quantize_tpu_torch.ops.attention import mha_rows_plain
+
+    g = torch.Generator().manual_seed(s)
+    qkv = (torch.randn(b * s, 3 * h * d, generator=g) * 2).to(dtype).cuda()
+    got = mha_rows(qkv, h, s, causal, dtype, valid)
+    want = mha_rows_plain(qkv, h, s, causal, dtype, valid)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    else:
+        _assert_within_bf16_ulps(got, want, 2)
 
 
 def test_public_api_surface():

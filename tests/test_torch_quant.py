@@ -1,10 +1,14 @@
 """Parity of the port's quantization core (quantize_tpu_torch.quant) with the
-JAX package: grids, scale/zero, fake-quant and the MinMax observer.
+JAX package: grids, scale/zero, fake-quant and the MinMax, MAMinMax and MSE
+observers (also replayed against tests/golden/observers.json).
 
 Inputs are made with numpy from a seed and fed to both packages. Unless a
 test says otherwise, results must be bit-equal: the port runs the same
 float32 operations in the same order.
 """
+import json
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,11 +17,13 @@ import torch
 from quantize_tpu.ops.pallas.qmatmul import quantize_act_int8 as jax_quantize_act
 from quantize_tpu.quant import fakequant as jfq
 from quantize_tpu.quant import qspec as jqs
+from quantize_tpu.quant.observers import MSE as JMSE
+from quantize_tpu.quant.observers import MAMinMax as JMAMinMax
 from quantize_tpu.quant.observers import MinMax as JMinMax
 from quantize_tpu_torch.ops.qmatmul import quantize_act_int8
 from quantize_tpu_torch.quant import fakequant as tfq
 from quantize_tpu_torch.quant import qspec as tqs
-from quantize_tpu_torch.quant.observers import MinMax, build_observer
+from quantize_tpu_torch.quant.observers import MSE, MAMinMax, MinMax, build_observer
 
 torch.set_num_threads(2)
 
@@ -143,6 +149,67 @@ def test_minmax_observer_accumulates_like_jax(symmetric, granularity, percentile
 
 
 def test_unported_observers_raise():
-    spec = tqs.QuantSpec.from_config({"range": {"name": "mse"}}, "weight")
-    with pytest.raises(NotImplementedError, match="mse"):
-        build_observer(spec)
+    for name in ("cross_entropy", "aciq", "awq"):
+        spec = tqs.QuantSpec.from_config({"range": {"name": name}}, "weight")
+        with pytest.raises(NotImplementedError, match=name):
+            build_observer(spec)
+
+
+_GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "observers.json")
+with open(_GOLDEN) as _f:
+    _GOLDEN_CASES = {c["case"]: c for c in json.load(_f)["cases"]}
+
+
+@pytest.mark.parametrize("case", [k for k, c in _GOLDEN_CASES.items()
+                                  if c["cfg"].get("name") in ("maminmax", "mse")])
+def test_observer_replays_the_reference_golden(case):
+    """The reference library's own range estimators on seeded tensors, fed
+    through the port's build_observer, within the tolerances of
+    tests/test_golden_parity.py (scale rtol 1e-4 / atol 1e-6, zero rtol 1e-4
+    / atol 1e-4). Fixture layout: weights channel axis 0, activations 1."""
+    c = _GOLDEN_CASES[case]
+    cfg = dict(c["cfg"])
+    name = cfg.pop("name")
+    axis = 0 if c["flag"] == "weight" else 1
+    kwargs = {k: v for k, v in cfg.items() if k in ("percentile", "momentum", "grid",
+                                                   "maxshrink", "norm")}
+    spec = tqs.QuantSpec.from_config({**cfg, "range": {"name": name, **kwargs}}, c["flag"],
+                                     channel_axis=axis)
+    obs = build_observer(spec)
+    assert isinstance(obs, {"maminmax": MAMinMax, "mse": MSE}[name])
+    state = obs.init_state(c["shape"][axis] if spec.per_channel else 1)
+    for seed in c["seeds"]:
+        x = (np.random.default_rng(seed).normal(size=tuple(c["shape"])) * c["gen"].get("scale", 1.0)
+             + c["gen"].get("loc", 0.0)).astype(np.float32)
+        state, scale, zero = obs(state, torch.from_numpy(x))
+    np.testing.assert_allclose(_np(scale).reshape(-1), c["scale"], rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(_np(zero).reshape(-1), c["zero"], rtol=1e-4, atol=1e-4)
+    assert (spec.qmin, spec.qmax) == (c["qmin"], c["qmax"])
+
+
+@pytest.mark.parametrize("name,granularity,symmetric,n_bits", [
+    ("maminmax", "layer", False, 8), ("maminmax", "channel", True, 8),
+    ("mse", "channel", True, 4), ("mse", "layer", False, 8)])
+def test_maminmax_and_mse_follow_jax_step_by_step(name, granularity, symmetric, n_bits):
+    """Three calibration steps through both packages' observers. State and
+    scale/zero agree to float32 reassociation: the MSE error sums run in
+    another order, which could only move a shrink decision between two
+    grid points whose errors tie to ~1e-7 (rtol 1e-6 holds; seen: equal)."""
+    cfg = {"n_bits": n_bits, "symmetric": symmetric, "granularity": granularity,
+           "range": {"name": name, "momentum": 0.3} if name == "maminmax" else {"name": name}}
+    sj = jqs.QuantSpec.from_config(cfg, "weight")
+    st = tqs.QuantSpec.from_config(cfg, "weight")
+    jcls = {"maminmax": JMAMinMax, "mse": JMSE}[name]
+    oj, ot = jcls(sj, **sj.range_kwargs), build_observer(st)
+    c = 6 if granularity == "channel" else 1
+    state_j, state_t = oj.init_state(c), ot.init_state(c)
+    rng = np.random.default_rng(11)
+    for step in range(3):
+        x = rng.normal(loc=0.2 * step, scale=1 + step, size=(40, 6)).astype(np.float32)
+        x[step, 0] = 9.0  # an outlier the MSE search shrinks away
+        state_j, s_j, z_j = oj(state_j, jnp.asarray(x))
+        state_t, s_t, z_t = ot(state_t, torch.from_numpy(x))
+        for key in ("xmin", "xmax", "count"):
+            np.testing.assert_allclose(_np(state_t[key]), np.asarray(state_j[key]), rtol=1e-6)
+        np.testing.assert_allclose(_np(s_t), np.asarray(s_j), rtol=1e-6)
+        np.testing.assert_allclose(_np(z_t), np.asarray(z_j), rtol=1e-6, atol=1e-6)
