@@ -22,20 +22,37 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    (S = 197 padded to 200), random weights from seed 0: init, calibration
    on 4 batches of 32, pack, then 4 requests of batch 128 in
    ``mode="packed"`` at f32 carry, counted as above: K4 37, K7 24, K8 12,
-   K6 1, K3 1 per forward. The logits must be finite, within 5e-2 of the
-   quant simulation and within 5e-2 with a bf16 carry.
-4. Kernels: every kernel is called on the very arguments the main paths
+   K5 12 (the weight-only out-projections), K6 1, K3 1 per forward. The
+   logits must be finite, within 5e-2 of the quant simulation and within
+   5e-2 with a bf16 carry.
+4. ViT-B/32 weight-only W4 (``configs/runners/ptq/weight_quantize/
+   mse_channel.yaml`` at 4 bits: symmetric per-channel weights with the MSE
+   range search, activations at 32 bits), 1000 classes, 224x224 (S = 50
+   padded to 56), random weights from seed 0: init, calibration on 4
+   batches of 32, pack, then 4 requests of batch 256 counted as above: K5
+   73, K6 25, K8 12 per forward. The logits must be finite, within 5e-2 of
+   the quant simulation and within 5e-2 with a bf16 carry. One request is
+   served again with ``QTPU_ATTN_INT8=1``: K9 12 and K8 0 per forward, the
+   logits within 5e-2 of the default path.
+5. Kernels: every kernel is called on the very arguments the main paths
    give it (recorded at each main-path shape, f32 and bf16 carry; K3 at
-   ResNet-50's shapes and at ViT's patch embedding) and held against its
+   ResNet-50's shapes and at ViT's patch embedding; K5 at both ViTs'; K9 at
+   ViT-B/32's and at ViT-B/16's attention arguments) and held against its
    plain PyTorch version: K1-K4 bit for bit except K1-K3's f32
-   tolerance (rtol 1e-5 / atol 1e-4, one bf16 ulp); K6 rtol 1e-5 / atol
-   1e-5 in f32, one ulp in bf16; K7 int8 equal but for at most one step on
-   at most 1e-4 of the elements (the count is printed); K8 rtol 1e-4 /
-   atol 1e-5 in f32, two ulps in bf16.
-5. Times (CUDA-event medians): each model's packed forward at f32 and bf16
-   carry beside its float32 forward (TF32 off) as the yardstick, and each
-   kernel at each of its main-path shapes beside its bound, its plain
-   version and the nearest library call.
+   tolerance (rtol 1e-5 / atol 1e-4, one bf16 ulp); K5 within
+   2^-18 * sum|a*w| + 2^-23 * |out| per output, a limit that does not grow
+   with K (the reading is printed beside the control: the same product with
+   an f32 activation left unrounded, which must exceed the limit); K6
+   rtol 1e-5 / atol 1e-5 in f32, one ulp in bf16; K7 int8 equal but for at
+   most one step on at most 1e-4 of the elements (the count is printed); K8
+   rtol 1e-4 / atol 1e-5 in f32, two ulps in bf16; K9 equal but for ex8
+   flips (one exp rounding moves one ex8 by a step and one row of one head
+   by at most 2.05 * sv) on at most 1e-3 of the (row, head) groups (the
+   count is printed).
+6. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+   carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
+   off) as the yardstick, and each kernel at each of its main-path shapes
+   beside its bound, its plain version and the nearest library call.
 
 Before the last line it prints one JSON object with a ``kernels`` list and
 the card's name and power limit; the last line is the ``{"ok": true, ...}``
@@ -54,6 +71,11 @@ PEAK_INT8_OPS = 1979e12
 PEAK_BF16 = 989e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# K5 against its plain version, per output and at every K: |diff| <=
+# 2^-18 * sum|a*w| + 2^-23 * |out| (the second term is the rounding of
+# acc + bias). Summing the same float32 products in another order stays
+# below it; skipping the bf16 rounding of an f32 activation does not (phase 5)
+WO_LIMIT = 2.0 ** -18
 
 _ACT = {"n_bits": 8, "symmetric": False, "granularity": "layer", "range": {"name": "minmax"}}
 
@@ -65,6 +87,11 @@ def _weight(bits):
 
 CFG = {"default": {"weight": _weight(8), "activation": _ACT, "bn_folding": True}}
 CFG_W4A8 = {"default": {"weight": _weight(4), "activation": _ACT, "bn_folding": True}}
+# configs/runners/ptq/weight_quantize/mse_channel.yaml's quant section at 4 bits
+CFG_WO = {"default": {"weight": {"n_bits": 4, "symmetric": True, "signed": True,
+                                 "granularity": "channel",
+                                 "range": {"name": "mse", "maxshrink": 0.8, "grid": 100}},
+                      "activation": {"n_bits": 32}, "bn_folding": True}}
 
 KERNEL_INFO = {
     "w8a8_gemm": ("quantize_tpu_torch/csrc/w8a8_gemm.cu",
@@ -81,10 +108,16 @@ KERNEL_INFO = {
                              "quantize_tpu/ops/pallas/layernorm.py:56 (_ln_q_kernel)"),
     "mha_rows": ("quantize_tpu_torch/csrc/mha_rows.cu",
                  "quantize_tpu/ops/pallas/attention.py:51 (_mha_rows_kernel)"),
+    "wo_gemm": ("quantize_tpu_torch/csrc/wo_gemm.cu",
+                "quantize_tpu/ops/pallas/qmatmul.py:376 (_wo_kernel)"),
+    "mha_rows_int8": ("quantize_tpu_torch/csrc/mha_rows_int8.cu",
+                      "quantize_tpu/ops/pallas/attention.py:141 (_mha_rows_int8_kernel)"),
 }
 RESNET_PER_FWD = {"qconv2d": 37, "conv1x1_residual": 16, "w8a8_gemm": 1}
 VIT_PER_FWD = {"w4a8_gemm": 37, "layernorm_quant_int8": 24, "mha_rows": 12, "layernorm": 1,
-               "qconv2d": 1}
+               "qconv2d": 1, "wo_gemm": 12}
+VIT32_PER_FWD = {"wo_gemm": 73, "layernorm": 25, "mha_rows": 12}
+VIT32_INT8_PER_FWD = {"wo_gemm": 73, "layernorm": 25, "mha_rows_int8": 12}
 
 
 def log(*args):
@@ -148,7 +181,9 @@ class Recorder:
                       "w4a8_gemm": (qmatmul, "w4a8_gemm"),
                       "layernorm": (layernorm, "layernorm_rows"),
                       "layernorm_quant_int8": (layernorm, "layernorm_quant_int8_rows"),
-                      "mha_rows": (attention, "mha_rows")}
+                      "mha_rows": (attention, "mha_rows"),
+                      "wo_gemm": (qmatmul, "wo_gemm"),
+                      "mha_rows_int8": (attention, "mha_rows_int8")}
         self.calls = {name: {} for name in self.sites}
 
     def __enter__(self):
@@ -227,15 +262,24 @@ def work(name: str, args) -> tuple:
         x, g, b = args[:3]
         # as K6, plus divide, subtract, round, two clamps
         return 14 * x.numel(), PEAK_F32, sum(map(_nbytes, (x, g, b))) + x.numel()
+    if name == "wo_gemm":
+        x, w, ws, wz, bias, _ = args
+        m, k = x.shape
+        n = w.shape[1]
+        # bf16 products on the tensor cores, f32 output
+        return 2 * m * n * k, PEAK_BF16, sum(map(_nbytes, (x, w, ws, wz, bias))) + m * n * 4
     qkv, heads, s, _, out_dtype, valid = args
     import torch
 
     rows, three_e = qkv.shape
     b, e = rows // s, three_e // 3
     d, v = e // heads, valid or s
-    # q.k and ex.v over the valid rows and keys, on the tensor cores of the
-    # product dtype (bf16) or the CUDA cores (float32)
-    peak = PEAK_BF16 if qkv.dtype == torch.bfloat16 else PEAK_F32
+    # q.k and ex.v over the valid rows and keys: K8 on the tensor cores of
+    # the product dtype (bf16) or the CUDA cores (float32), K9 in int8
+    if name == "mha_rows_int8":
+        peak = PEAK_INT8_OPS
+    else:
+        peak = PEAK_BF16 if qkv.dtype == torch.bfloat16 else PEAK_F32
     return 4 * b * heads * v * v * d, peak, _nbytes(qkv) + rows * e * _itemsize(out_dtype)
 
 
@@ -250,8 +294,10 @@ def library_call(name: str, args):
     K2; K4 on the unpacked weight); a bf16 cuDNN conv on the dequantized
     tensors (K3, the nearest call: torch has no CUDA int8 convolution);
     F.layer_norm (K6; plus the quantize ops for K7, no single call does
-    both); F.scaled_dot_product_attention with the key mask (K8). None
-    where the library call does not take the shape."""
+    both); bf16 ``torch.mm`` with a float32 result on the dequantized weight
+    plus the bias (K5; both operands cast to bf16 beforehand);
+    F.scaled_dot_product_attention with the key mask (K8, and K9 in bf16).
+    None where the library call does not take the shape."""
     import torch
     import torch.nn.functional as F
 
@@ -288,7 +334,16 @@ def library_call(name: str, args):
         shift = 128.0 if qmin >= 0 else 0.0
         return lambda: (torch.clamp(torch.round(F.layer_norm(x, (x.shape[-1],), gx, bx, eps).float()
                                                 / a_s - a_z), qmin, qmax) - shift).to(torch.int8)
+    if name == "wo_gemm":
+        from quantize_tpu_torch.ops.qmatmul import _dequant_weight
+
+        x, w, ws, wz, bias, _ = args
+        xb = x.to(torch.bfloat16)
+        wb = _dequant_weight(w, ws, wz).to(torch.bfloat16)
+        return lambda: torch.mm(xb, wb, out_dtype=torch.float32) + bias
     qkv, heads, s, causal, out_dtype, valid = args
+    if name == "mha_rows_int8":
+        qkv = qkv.to(torch.bfloat16)
     rows, three_e = qkv.shape
     b, e = rows // s, three_e // 3
     d = e // heads
@@ -298,16 +353,17 @@ def library_call(name: str, args):
 
 
 def plain_fn(name: str):
-    from quantize_tpu_torch.ops.attention import mha_rows_plain
+    from quantize_tpu_torch.ops.attention import mha_rows_int8_plain, mha_rows_plain
     from quantize_tpu_torch.ops.layernorm import layernorm_plain, layernorm_quant_int8_plain
     from quantize_tpu_torch.ops.qconv import qconv2d_int8_plain
     from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual_plain
-    from quantize_tpu_torch.ops.qmatmul import w4a8_gemm_plain, w8a8_gemm_plain
+    from quantize_tpu_torch.ops.qmatmul import w4a8_gemm_plain, w8a8_gemm_plain, wo_gemm_plain
 
     return {"w8a8_gemm": w8a8_gemm_plain, "conv1x1_residual": conv1x1_residual_plain,
             "qconv2d": qconv2d_int8_plain, "w4a8_gemm": w4a8_gemm_plain,
             "layernorm": layernorm_plain, "layernorm_quant_int8": layernorm_quant_int8_plain,
-            "mha_rows": mha_rows_plain}[name]
+            "mha_rows": mha_rows_plain, "wo_gemm": wo_gemm_plain,
+            "mha_rows_int8": mha_rows_int8_plain}[name]
 
 
 def kernel_fn(name: str):
@@ -345,6 +401,38 @@ def compare(name: str, args) -> float:
     check(got.shape == want.shape and got.dtype == want.dtype, f"{name}: shape/dtype mismatch")
     g, w = got.float(), want.float()
     err = float((g - w).abs().max())
+    check(bool(torch.isfinite(g).all()), f"{name}: non-finite output")
+    if name == "wo_gemm":
+        from quantize_tpu_torch.ops.qmatmul import _dequant_weight
+
+        x, w_int, ws, wz, _, cdt = args
+        w_c = _dequant_weight(w_int, ws, wz).to(cdt).float()
+        sum_abs = (x.to(cdt).float().abs() @ w_c.abs()).clamp_min(1e-30)
+        limit = WO_LIMIT * sum_abs + 2.0 ** -23 * w.abs()
+        reading = float(((g - w).abs() / sum_abs).max())
+        share = float(((g - w).abs() / limit).max())
+        # the control: the same product with A left unrounded, as a kernel that
+        # skipped A's bf16 rounding would form it; the limit must catch it
+        control = float(((x.float() @ w_c + (0 if args[4] is None else args[4]) - w).abs()
+                         / limit).max())
+        log(f"  {name} {describe(name, args)}: max abs err {err:.3e}, |diff| / sum|a*w| "
+            f"{reading:.3e}, {share:.3e} of the limit (A unrounded: {control:.3e} of it)")
+        check(share <= 1.0, f"{name}: kernel outside 2^-18 * sum|a*w| + 2^-23 * |out|")
+        check(x.dtype == cdt or control > 1.0,
+              f"{name}: the limit would not catch an unrounded A at this shape")
+        return err
+    if name == "mha_rows_int8":
+        qkv, heads, s = args[:3]
+        b, d = qkv.shape[0] // s, qkv.shape[1] // 3 // heads
+        groups = (g - w).abs().reshape(b, s, heads, d).amax(-1)  # (B, S, H)
+        sv = qkv.float().reshape(b, s, 3, heads, d)[:, :, 2].abs().amax(dim=(1, 3)) / 127
+        n_diff = int((groups > 0).sum())
+        log(f"  {name} {describe(name, args)}: {n_diff} of {groups.numel()} (row, head) groups "
+            f"differ (ex8 flips), max abs err {err:.3e}")
+        check(n_diff <= max(2, 1e-3 * groups.numel())
+              and bool((groups <= 2.05 * sv[:, None, :] * (1 + 2.0 ** -7)).all()),
+              f"{name}: kernel disagrees with its plain version beyond ex8 flips")
+        return err
     if name in ("w4a8_gemm",):
         ok = bool(torch.equal(got, want))
     elif got.dtype == torch.bfloat16:
@@ -352,8 +440,7 @@ def compare(name: str, args) -> float:
     else:
         rtol, atol = {"layernorm": (1e-5, 1e-5), "mha_rows": (1e-4, 1e-5)}.get(name, (1e-5, 1e-4))
         ok = bool(((g - w).abs() <= atol + rtol * w.abs()).all())
-    check(ok and bool(torch.isfinite(g).all()), f"{name}: kernel disagrees with its plain version "
-                                                f"(max abs err {err})")
+    check(ok, f"{name}: kernel disagrees with its plain version (max abs err {err})")
     return err
 
 
@@ -364,9 +451,12 @@ def describe(name: str, args) -> str:
                 f"out={str(args[11]).replace('torch.', '')}")
     if name in ("layernorm", "layernorm_quant_int8"):
         return f"x{tuple(args[0].shape)} {str(args[0].dtype).replace('torch.', '')}"
-    if name == "mha_rows":
+    if name in ("mha_rows", "mha_rows_int8"):
         return (f"qkv{tuple(args[0].shape)} {str(args[0].dtype).replace('torch.', '')} "
                 f"heads={args[1]} S={args[2]} valid={args[5]}")
+    if name == "wo_gemm":
+        return (f"M={args[0].shape[0]} K={args[0].shape[1]} N={args[1].shape[1]} "
+                f"x={str(args[0].dtype).replace('torch.', '')}")
     extra = f" out={str(args[9]).replace('torch.', '')}" if name == "conv1x1_residual" else ""
     return f"M={args[0].shape[0]} K={args[0].shape[1]} N={args[3].shape[1]}{extra}"
 
@@ -399,9 +489,10 @@ def serve(model, requests, per_fwd: dict, label: str) -> tuple:
     return outs, counts
 
 
-def kernel_entries(serve_calls: dict, counts: dict, max_err: dict, names) -> list:
-    """Per-launch times of each recorded main-path shape, summed over one
-    forward for the JSON line."""
+def kernel_entries(serve_calls: dict, counts: dict, max_err: dict, names, label: str = "") -> list:
+    """Per-launch times of each recorded main-path shape, logged (``label``
+    names the model where it is not the JSON's) and summed over one forward
+    for the JSON line."""
     entries = []
     for name in names:
         agg = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
@@ -415,8 +506,9 @@ def kernel_entries(serve_calls: dict, counts: dict, max_err: dict, names) -> lis
             lib = library_call(name, args)
             l_ms = cuda_ms(lib, reps=5, inner=5) if lib is not None else None
             library_ok = library_ok and l_ms is not None
-            log(f"kernel {name} {describe(name, args)}: x{per_fwd}/fwd {k_ms:.4f} ms "
-                f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms, "
+            log(f"kernel {name}{label and ' at ' + label} {describe(name, args)}: x{per_fwd}/fwd "
+                f"{k_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, {b_ms / k_ms:.1%} of it), "
+                f"plain {p_ms:.3f} ms, "
                 f"library {'n/a' if l_ms is None else f'{l_ms:.4f} ms'}")
             agg["ms"] += per_fwd * k_ms
             agg["plain_ms"] += per_fwd * p_ms
@@ -504,18 +596,26 @@ def resnet_phase(qtt, batch, card) -> tuple:
     return entries
 
 
-def vit_phase(qtt, batch, card) -> list:
+def build_packed(qtt, batch, name: str, cfg: dict, label: str):
+    """``name`` with 1000 classes built from ``cfg``, random weights from
+    seed 0, calibrated on 4 batches of 32 and packed."""
     import torch
 
     t0 = time.time()
-    model = qtt.MODELS.build("vit_b_16", num_classes=1000, ctx=qtt.QuantCtx(CFG_W4A8))
+    model = qtt.MODELS.build(name, num_classes=1000, ctx=qtt.QuantCtx(cfg))
     sample = batch(32)
     qtt.init_model(model, sample, seed=0)
     qtt.calibrate_model(model, [batch(32) for _ in range(4)])
     qtt.pack_model(model, sample)
     torch.cuda.synchronize()
-    log(f"vit_b_16 W4A8 set-up (init, calibrate 4x32, pack) {time.time() - t0:.1f} s")
+    log(f"{label} set-up (init, calibrate 4x32, pack) {time.time() - t0:.1f} s")
+    return model
 
+
+def vit_phase(qtt, batch, card) -> tuple:
+    import torch
+
+    model = build_packed(qtt, batch, "vit_b_16", CFG_W4A8, "vit_b_16 W4A8")
     requests = [batch(128) for _ in range(4)]
     with torch.inference_mode():
         outs, counts = serve(model, requests, VIT_PER_FWD, "vit_b_16")
@@ -535,11 +635,17 @@ def vit_phase(qtt, batch, card) -> list:
         max_err = {}
         n = 0
         serve_calls = None
+        attn_calls = {}
         for carry in (torch.float32, torch.bfloat16):
             with qtt.packed_carry(carry), Recorder() as rec:
                 model(requests[1], mode="packed")
-            # K3 too: the patch embedding gives it a shape of its own
-            n += check_kernels([rec.calls], names + ("qconv2d",), max_err)
+            # K3 too: the patch embedding gives it a shape of its own; K5 at
+            # the out-projections
+            n += check_kernels([rec.calls], names + ("qconv2d", "wo_gemm"), max_err)
+            # K9 on K8's arguments: S = 200, valid 197
+            n += check_kernels([{"mha_rows_int8": rec.calls["mha_rows"]}], ("mha_rows_int8",),
+                               max_err)
+            attn_calls.update(rec.calls["mha_rows"])
             if carry == torch.float32:
                 serve_calls = rec.calls
             del rec
@@ -555,7 +661,94 @@ def vit_phase(qtt, batch, card) -> list:
             log(f"time: vit_b_16 {label}: {ms:.3f} ms per batch of 128, {128e3 / ms:.1f} img/s "
                 f"[{card}]")
         entries = kernel_entries(serve_calls, counts, max_err, names)
-    del model, requests, outs, serve_calls
+        # K5 and K9 at ViT-B/16's shapes, outside the JSON
+        kernel_entries({**serve_calls, "mha_rows_int8": attn_calls}, counts, max_err,
+                       ("wo_gemm", "mha_rows_int8"), "vit_b_16")
+    del model, requests, outs, serve_calls, attn_calls
+    torch.cuda.empty_cache()
+    return entries, max_err
+
+
+def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
+    import os
+
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    model = build_packed(qtt, batch, "vit_b_32", CFG_WO, "vit_b_32 W4 weight-only")
+    requests = [batch(256) for _ in range(4)]
+    with torch.inference_mode():
+        outs, counts = serve(model, requests, VIT32_PER_FWD, "vit_b_32")
+        x0, packed = requests[0], outs[0]
+        sim = model(x0, mode="quant")
+        with qtt.packed_carry(torch.bfloat16):
+            packed_bf16 = model(x0, mode="packed")
+        r_sim, r_bf16 = rel(packed, sim), rel(packed_bf16, packed)
+        log(f"vit_b_32 agreement (relative to max|logits|): packed vs quant-sim {r_sim:.3e} "
+            f"(<= 5e-2), bf16 carry vs f32 {r_bf16:.3e} (<= 5e-2)")
+        check(r_sim <= 5e-2 and r_bf16 <= 5e-2, "vit_b_32 agreement failed")
+        log(f"vit_b_32 argmax agreement packed vs quant-sim on request 0: "
+            f"{float((packed.argmax(-1) == sim.argmax(-1)).float().mean()):.4f}")
+        del sim, packed_bf16
+
+        # the int8-scores attention: one request again, QTPU_ATTN_INT8=1
+        saved_env = os.environ.get("QTPU_ATTN_INT8")
+        os.environ["QTPU_ATTN_INT8"] = "1"
+        try:
+            reset_launch_counts()
+            int8_out = model(x0, mode="packed")
+            torch.cuda.synchronize()
+            int8_counts = launch_counts()
+            log(f"vit_b_32 with QTPU_ATTN_INT8=1: one request of {x0.shape[0]} with launches "
+                f"{int8_counts}")
+            for name, n in int8_counts.items():
+                check(n == VIT32_INT8_PER_FWD.get(name, 0),
+                      f"vit_b_32 int8 scores: {name} launched {n} times, expected "
+                      f"{VIT32_INT8_PER_FWD.get(name, 0)}")
+            check(tuple(int8_out.shape) == (x0.shape[0], 1000)
+                  and bool(torch.isfinite(int8_out).all()), "vit_b_32 int8 logits not finite")
+            r_int8 = rel(int8_out, packed)
+            same = float((int8_out.argmax(-1) == packed.argmax(-1)).float().mean())
+            log(f"vit_b_32 agreement: int8-scores forward vs the default {r_int8:.3e} (<= 5e-2); "
+                f"argmax agreement {same:.4f}")
+            check(r_int8 <= 5e-2, "vit_b_32 int8-scores agreement failed")
+            int8_records = []
+            for carry in (torch.float32, torch.bfloat16):
+                with qtt.packed_carry(carry), Recorder() as rec:
+                    model(requests[1], mode="packed")
+                int8_records.append(rec.calls)
+            int8_ms = cuda_ms(lambda: model(requests[2], mode="packed"))
+        finally:
+            if saved_env is None:
+                del os.environ["QTPU_ATTN_INT8"]
+            else:
+                os.environ["QTPU_ATTN_INT8"] = saved_env
+
+        max_err = dict(prior_err)
+        records = []
+        for carry in (torch.float32, torch.bfloat16):
+            with qtt.packed_carry(carry), Recorder() as rec:
+                model(requests[1], mode="packed")
+            records.append(rec.calls)
+        n = check_kernels(records, ("wo_gemm", "layernorm", "mha_rows"), max_err)
+        n += check_kernels(int8_records, ("mha_rows_int8",), max_err)
+        log(f"vit_b_32 kernels: {n} kernel-vs-plain comparisons passed; max abs err "
+            f"{ {k: max_err[k] for k in ('wo_gemm', 'layernorm', 'mha_rows', 'mha_rows_int8')} }")
+
+        times = {}
+        for label, carry in (("packed f32 carry", torch.float32),
+                             ("packed bf16 carry", torch.bfloat16)):
+            with qtt.packed_carry(carry):
+                times[label] = cuda_ms(lambda: model(requests[2], mode="packed"))
+        times["packed f32 carry, int8 scores"] = int8_ms
+        times["fp32 forward (yardstick)"] = cuda_ms(lambda: model(requests[2], mode="fp32"))
+        for label, ms in times.items():
+            log(f"time: vit_b_32 {label}: {ms:.3f} ms per batch of 256, {256e3 / ms:.1f} img/s "
+                f"[{card}]")
+        entries = kernel_entries(records[0], counts, max_err, ("wo_gemm",))
+        entries += kernel_entries(int8_records[0], int8_counts, max_err, ("mha_rows_int8",))
+        kernel_entries(records[0], counts, max_err, ("layernorm", "mha_rows"), "vit_b_32")
+    del model, requests, outs, records, int8_records
     torch.cuda.empty_cache()
     return entries
 
@@ -605,11 +798,15 @@ def main() -> int:
     entries = resnet_phase(qtt, batch, card)
     log(f"resnet50 phase {time.time() - t0:.1f} s")
     t0 = time.time()
-    entries += vit_phase(qtt, batch, card)
+    vit_entries, vit_err = vit_phase(qtt, batch, card)
+    entries += vit_entries
     log(f"vit_b_16 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    entries += vit32_phase(qtt, batch, card, vit_err)
+    log(f"vit_b_32 phase {time.time() - t0:.1f} s")
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
-        "(each shape's time x its launches per forward; K3 is ResNet-50's, launches are each "
-        "model's 4 served requests)")
+        "(each shape's time x its launches per forward; K3 is ResNet-50's, K5 ViT-B/32's; "
+        "launches are each model's 4 served requests, K9's the one int8-scores request)")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,290 @@
+// K9: multi-head self-attention over fused qkv rows with int8 scores.
+//
+// Input (B*S, 3E) rows: head h's q at lanes [h*D, (h+1)*D), k at E + h*D,
+// v at 2E + h*D. Output (B*S, E) rows, head h at [h*D, (h+1)*D). Per
+// (image, head), exactly as the Pallas kernel:
+//   sc_x = max(absmax over all S rows of x, 1e-12) / 127   x = q, k, v
+//          (pad rows included: the Pallas block is the whole padded image)
+//   x8   = clip(rint(x / sc_x), -127, 127)                 IEEE division
+//   s    = float(q8 . k8^T) * ((sq * sk) * scale)           exact s32 sums
+//   s    = ok ? s : -1e30      ok = col < valid_len (and col <= row if causal)
+//   ex8  = rint(expf(s - rowmax(s)) * 127)                  in [0, 127]
+//   norm = sum ex8                                          exact
+//   out  = float(ex8 . v8) * (sv / max(norm, 1))            exact s32 sums
+//
+// Replaces the Pallas kernel quantize_tpu/ops/pallas/attention.py:
+// _mha_rows_int8_kernel (the opt-in QTPU_ATTN_INT8=1 variant), which runs one
+// image per grid step with all heads' (S, S) scores in VMEM. Here one block
+// owns one (image, head): a first pass over that head's q, k and v in device
+// memory takes the three absmax values (a block reduction), a second pass
+// quantizes them into int8 tiles in shared memory (q and k row-major, v
+// transposed, the col layout mma wants for B). QK^T and AV run on the tensor
+// cores as mma.sync.m16n8k32 s8 x s8 -> s32. Keys are padded to 32 and head
+// dims to 32 with zeros (zero weights); pad keys are masked to -1e30, so
+// they get ex8 = 0. Each warp takes 16 query rows at a time: it computes
+// their scores twice from the int8 tiles (once for the row max, once for
+// ex8, the recomputation is cheaper than an f32 score buffer in shared
+// memory), writes ex8 to its own shared tile and runs AV from there, so no
+// score reaches device memory.
+//
+// On the H100 at ViT shapes (S = 56 or 200, D = 64) the work is
+// 4*B*H*S*S*D int8 operations against a read of (B*S, 3E) and a write of
+// (B*S, E): bound by bytes. The kernel reads its input twice (absmax, then
+// quantize), which the L2 cache mostly absorbs.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int WARPS = 4;
+constexpr int NTHREADS = WARPS * 32;
+constexpr int MAX_GRID_Y = 65535;
+
+__host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Shared-memory layout of one (image, head) block, offsets in bytes. Row
+// strides are 16 bytes more than a multiple of 32, which keeps the 32-bit
+// fragment reads of eight rows on distinct banks.
+struct Layout {
+  int SP, DP, ldq, ldv, lde;
+  size_t k8, vt, ex, red, total;
+  __host__ __device__ Layout(int S, int D) {
+    SP = round_up(S, 32);        // keys (and q rows) padded to the k32 step
+    DP = round_up(D, 32);        // head dim padded to the k32 step
+    ldq = DP + 16;               // q8 / k8 row stride
+    ldv = SP + 16;               // vT row stride (one row per head-dim column)
+    lde = SP + 16;               // a warp's ex8 tile row stride
+    k8 = (size_t)SP * ldq;
+    vt = k8 + (size_t)SP * ldq;
+    ex = round_up((int)(vt + (size_t)D * ldv), 16);
+    red = round_up((int)(ex + (size_t)WARPS * 16 * lde), 16);
+    total = red + sizeof(float) * 3 * WARPS;
+  }
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ int ld32(const int8_t* p) { return *reinterpret_cast<const int*>(p); }
+
+__device__ __forceinline__ int8_t quant(float a, float sc) {
+  const float q = rintf(__fdiv_rn(a, sc));
+  return (int8_t)fminf(fmaxf(q, -127.0f), 127.0f);
+}
+
+// The m16n8 s32 tile of q8 rows [r0, r0 + 16) x k8 rows [c0, c0 + 8).
+__device__ __forceinline__ void qk_tile(const int8_t* q8, const int8_t* k8, const Layout& L,
+                                        int r0, int c0, int g, int t, int (&acc)[4]) {
+  acc[0] = acc[1] = acc[2] = acc[3] = 0;
+  for (int kk = 0; kk < L.DP; kk += 32) {
+    const int8_t* p = q8 + (r0 + g) * L.ldq + kk + t * 4;
+    const int a[4] = {ld32(p), ld32(p + 8 * L.ldq), ld32(p + 16), ld32(p + 8 * L.ldq + 16)};
+    const int8_t* pb = k8 + (c0 + g) * L.ldq + kk + t * 4;
+    const int b[2] = {ld32(pb), ld32(pb + 16)};
+    mma_s8(acc, a, b);
+  }
+}
+
+// score of fragment element r (row g or g + 8, column 2t or 2t + 1)
+__device__ __forceinline__ float score(int acc, float ts, int row, int col, int valid,
+                                       bool causal) {
+  const bool ok = col < valid && (!causal || col <= row);
+  return ok ? __fmul_rn((float)acc, ts) : -1e30f;
+}
+
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(NTHREADS)
+    mha_rows_int8_kernel(const TI* __restrict__ qkv, TO* __restrict__ out, int S, int H, int D,
+                         int valid, bool causal, float scale) {
+  extern __shared__ int4 smem4[];
+  int8_t* sm = reinterpret_cast<int8_t*>(smem4);
+  const Layout L(S, D);
+  int8_t* q8 = sm;
+  int8_t* k8 = sm + L.k8;
+  int8_t* vt = sm + L.vt;
+  float* red = reinterpret_cast<float*>(sm + L.red);
+
+  const int h = blockIdx.x;
+  const int E = H * D;
+  const int64_t ld = 3 * (int64_t)E;
+  const TI* base = qkv + (int64_t)blockIdx.y * S * ld + (int64_t)h * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // 1. the absmax of q, k and v over all S rows
+  float mx[3] = {0.0f, 0.0f, 0.0f};
+  for (int i = threadIdx.x; i < S * D; i += NTHREADS) {
+    const int r = i / D;
+    const TI* p = base + (int64_t)r * ld + (i - r * D);
+    mx[0] = fmaxf(mx[0], fabsf(to_f(p[0])));
+    mx[1] = fmaxf(mx[1], fabsf(to_f(p[E])));
+    mx[2] = fmaxf(mx[2], fabsf(to_f(p[2 * E])));
+  }
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], o));
+    if (lane == 0) red[warp * 3 + j] = mx[j];
+  }
+  __syncthreads();
+  float sc[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    float m = red[j];
+    for (int w = 1; w < WARPS; ++w) m = fmaxf(m, red[w * 3 + j]);
+    sc[j] = __fdiv_rn(fmaxf(m, 1e-12f), 127.0f);
+  }
+
+  // 2. int8 tiles: q8, k8 [SP][ldq] and vT [D][ldv], zero-padded
+  for (int i = threadIdx.x; i < L.SP * L.DP; i += NTHREADS) {
+    const int r = i / L.DP;
+    const int c = i - r * L.DP;
+    int8_t qv = 0, kv = 0;
+    if (r < S && c < D) {
+      const TI* p = base + (int64_t)r * ld + c;
+      qv = quant(to_f(p[0]), sc[0]);
+      kv = quant(to_f(p[E]), sc[1]);
+    }
+    q8[r * L.ldq + c] = qv;
+    k8[r * L.ldq + c] = kv;
+  }
+  for (int i = threadIdx.x; i < L.SP * D; i += NTHREADS) {
+    const int r = i / D;
+    const int c = i - r * D;
+    vt[c * L.ldv + r] = r < S ? quant(to_f(base[(int64_t)r * ld + 2 * E + c]), sc[2]) : (int8_t)0;
+  }
+  __syncthreads();
+
+  const float ts = __fmul_rn(__fmul_rn(sc[0], sc[1]), scale);
+  const float sv = sc[2];
+  const int g = lane >> 2, t = lane & 3;
+  int8_t* ex = sm + L.ex + (size_t)warp * 16 * L.lde;
+  const int nq = (S + 15) / 16;
+  for (int qt = warp; qt < nq; qt += WARPS) {
+    const int r0 = qt * 16;
+    const int row_lo = r0 + g, row_hi = r0 + g + 8;
+
+    // 3a. row max of the masked scores
+    float m_lo = -INFINITY, m_hi = -INFINITY;
+    for (int c0 = 0; c0 < L.SP; c0 += 8) {
+      int acc[4];
+      qk_tile(q8, k8, L, r0, c0, g, t, acc);
+      const int col = c0 + 2 * t;
+      m_lo = fmaxf(m_lo, fmaxf(score(acc[0], ts, row_lo, col, valid, causal),
+                               score(acc[1], ts, row_lo, col + 1, valid, causal)));
+      m_hi = fmaxf(m_hi, fmaxf(score(acc[2], ts, row_hi, col, valid, causal),
+                               score(acc[3], ts, row_hi, col + 1, valid, causal)));
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      m_lo = fmaxf(m_lo, __shfl_xor_sync(0xffffffffu, m_lo, o));
+      m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, o));
+    }
+
+    // 3b. ex8 into the warp's tile, and the integer row sums
+    int n_lo = 0, n_hi = 0;
+    for (int c0 = 0; c0 < L.SP; c0 += 8) {
+      int acc[4];
+      qk_tile(q8, k8, L, r0, c0, g, t, acc);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const bool hi = r >= 2;
+        const int col = c0 + 2 * t + (r & 1);
+        const float s = score(acc[r], ts, hi ? row_hi : row_lo, col, valid, causal);
+        const int e8 = (int)rintf(__fmul_rn(expf(__fsub_rn(s, hi ? m_hi : m_lo)), 127.0f));
+        ex[(g + (hi ? 8 : 0)) * L.lde + col] = (int8_t)e8;
+        if (hi) n_hi += e8; else n_lo += e8;
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      n_lo += __shfl_xor_sync(0xffffffffu, n_lo, o);
+      n_hi += __shfl_xor_sync(0xffffffffu, n_hi, o);
+    }
+    __syncwarp();
+
+    // 3c. out = (ex8 . v8) * (sv / max(norm, 1)), 64 head-dim columns at a time
+    const float f_lo = __fdiv_rn(sv, fmaxf((float)n_lo, 1.0f));
+    const float f_hi = __fdiv_rn(sv, fmaxf((float)n_hi, 1.0f));
+    for (int d0 = 0; d0 < D; d0 += 64) {
+      int acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
+      for (int kk = 0; kk < L.SP; kk += 32) {
+        const int8_t* p = ex + g * L.lde + kk + t * 4;
+        const int a[4] = {ld32(p), ld32(p + 8 * L.lde), ld32(p + 16), ld32(p + 8 * L.lde + 16)};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (d0 + j * 8 >= D) break;  // warp-uniform: D is a multiple of 8
+          const int8_t* pb = vt + (d0 + j * 8 + g) * L.ldv + kk + t * 4;
+          const int b[2] = {ld32(pb), ld32(pb + 16)};
+          mma_s8(acc[j], a, b);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = d0 + j * 8 + 2 * t;
+        if (col >= D) break;
+        TO* o = out + (int64_t)blockIdx.y * S * E + (int64_t)h * D + col;
+        if (row_lo < S) {
+          put(o + (int64_t)row_lo * E, __fmul_rn((float)acc[j][0], f_lo));
+          put(o + (int64_t)row_lo * E + 1, __fmul_rn((float)acc[j][1], f_lo));
+        }
+        if (row_hi < S) {
+          put(o + (int64_t)row_hi * E, __fmul_rn((float)acc[j][2], f_hi));
+          put(o + (int64_t)row_hi * E + 1, __fmul_rn((float)acc[j][3], f_hi));
+        }
+      }
+    }
+    __syncwarp();  // the next query tile overwrites ex
+  }
+}
+
+template <typename TI, typename TO>
+int launch(const void* qkv, void* out, int B, int S, int H, int D, int valid, bool causal,
+           float scale, cudaStream_t stream) {
+  const Layout L(S, D);
+  cudaError_t err = cudaFuncSetAttribute(mha_rows_int8_kernel<TI, TO>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)L.total);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(H, B);
+  mha_rows_int8_kernel<TI, TO><<<grid, NTHREADS, L.total, stream>>>(
+      (const TI*)qkv, (TO*)out, S, H, D, valid, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype codes: 0 = float32, 1 = bfloat16. D must be a multiple of 8. A
+// shape whose tiles exceed the shared memory of a block (S above ~700 at
+// D = 64) is refused by cudaFuncSetAttribute, and the error is returned.
+extern "C" int qtt_mha_rows_int8(const void* qkv, void* out, int B, int S, int H, int D,
+                                 int valid, int causal, float scale, int in_dtype, int out_dtype,
+                                 void* stream) {
+  if (D % 8 != 0 || valid < 1 || valid > S || B > MAX_GRID_Y || H < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool c = causal != 0;
+  if (in_dtype == 0 && out_dtype == 0)
+    return launch<float, float>(qkv, out, B, S, H, D, valid, c, scale, s);
+  if (in_dtype == 0 && out_dtype == 1)
+    return launch<float, __nv_bfloat16>(qkv, out, B, S, H, D, valid, c, scale, s);
+  if (in_dtype == 1 && out_dtype == 0)
+    return launch<__nv_bfloat16, float>(qkv, out, B, S, H, D, valid, c, scale, s);
+  if (in_dtype == 1 && out_dtype == 1)
+    return launch<__nv_bfloat16, __nv_bfloat16>(qkv, out, B, S, H, D, valid, c, scale, s);
+  return (int)cudaErrorInvalidValue;
+}

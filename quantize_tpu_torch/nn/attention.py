@@ -6,10 +6,12 @@ out-projection whose weight range is forced to MSE and whose input is not
 quantized. Built from :class:`~quantize_tpu_torch.nn.layers.QuantDense`
 children, so the calibrate / quant / pack / packed modes come from the
 dense layer. In packed mode the q/k/v projections run as one fused matmul
-(its int8 input straight from the deferred LayerNorm, kernel K7) and the
-attention middle is kernel K8
-(:func:`~quantize_tpu_torch.ops.attention.mha_fused_qkv_rows`); the other
-modes run the float einsum path on the (de)quantized projections.
+(its int8 input straight from the deferred LayerNorm, kernel K7), or, for
+weight-only layers, one by one after the LayerNorm (K6, then K5 each); the
+attention middle is
+:func:`~quantize_tpu_torch.ops.attention.mha_fused_qkv_rows` (kernel K8, or
+K9 with ``QTPU_ATTN_INT8=1``); the other modes run the float einsum path on
+the (de)quantized projections.
 """
 from __future__ import annotations
 

@@ -16,11 +16,15 @@ quantized from config; FP32 behaviour is the ``'fp32'`` mode (or
   int4 weights with an even K (stored split-half packed as ``w_p4``); a
   deferred LayerNorm (``pre_norm``) fuses into the activation quantize (K7);
 * dense without a fusable activation quantizer -> the weight-only
-  :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_wo`.
+  :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_wo` (K5);
+* conv without a fusable activation quantizer (weight-only, or
+  per-channel activations fake-quantized first) ->
+  :func:`~quantize_tpu_torch.ops.qconv.quant_conv2d_wo`, then the unfused
+  residual tail.
 
 Branches the port does not have yet raise NotImplementedError: AWQ,
-per-channel-activation and weight-only convs, even-channel int4 convs
-(``w_p4c``), depthwise and grouped convs, bias correction.
+even-channel int4 convs (``w_p4c``), depthwise and grouped convs, bias
+correction.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, quant_conv2d,
+from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, quant_conv2d, quant_conv2d_wo,
                          s2d_block_padding, s2d_kernel, space_to_depth)
 from ..ops.layernorm import layernorm, layernorm_quant_int8
 from ..ops.qconv1x1 import conv1x1_residual
@@ -307,13 +311,17 @@ class QuantConv(_QuantLayerBase):
             return _finish(self._contract(xq, self.get_var("params", "kernel")) + bias)
         if self.feature_group_count > 1:
             raise _not_ported("packed grouped / depthwise conv")
-        act = self._fused_act_qparams()
-        if act is None:
-            raise _not_ported("weight-only / per-channel-activation packed conv")
-        a_scale, a_zero = act
         w_scale = self.get_var("packed", "w_scale")
         w_zero = self.get_var("packed", "w_zero")
         w_int = self.get_var("packed", "w_int")
+        act = self._fused_act_qparams()
+        if act is None:
+            # weight-only (or per-channel activations): float activations
+            # through the dequantized weight (JAX layers.py:535-539)
+            xq = self._packed_act(x) if a_spec.enabled else x
+            return _finish(quant_conv2d_wo(xq, w_int, w_scale, w_zero, bias,
+                                           strides=self.strides, padding=self.padding))
+        a_scale, a_zero = act
         corr_a = self.get_var("packed", "corr_a") if self.has_var("packed", "corr_a") else None
         q_a, z_eff = quantize_act_int8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax)
         # zero == 0 exactly only for symmetric *signed* grids (unsigned

@@ -6,17 +6,19 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
 * K2 :func:`~.qconv1x1.conv1x1_residual_gemm` (``csrc/conv1x1_residual.cu``)
 * K3 :func:`~.qconv.qconv2d_int8` (``csrc/qconv2d.cu``)
 * K4 :func:`~.qmatmul.w4a8_gemm` (``csrc/w4a8_gemm.cu``)
+* K5 :func:`~.qmatmul.wo_gemm` (``csrc/wo_gemm.cu``)
 * K6 :func:`~.layernorm.layernorm_rows` (``csrc/layernorm.cu``)
 * K7 :func:`~.layernorm.layernorm_quant_int8_rows` (``csrc/layernorm.cu``)
 * K8 :func:`~.attention.mha_rows` (``csrc/mha_rows.cu``)
+* K9 :func:`~.attention.mha_rows_int8` (``csrc/mha_rows_int8.cu``)
 """
-from .attention import mha_fused_qkv, mha_fused_qkv_rows, mha_rows
+from .attention import mha_fused_qkv, mha_fused_qkv_rows, mha_rows, mha_rows_int8
 from .layernorm import layernorm_quant_int8, layernorm_quant_int8_rows, layernorm_rows
-from .qconv import qconv2d_int8, quant_conv2d
+from .qconv import qconv2d_int8, quant_conv2d, quant_conv2d_wo
 from .qconv1x1 import conv1x1_residual, conv1x1_residual_gemm
 from .qmatmul import (pack_int4_splithalf, quant_matmul_w4a8, quant_matmul_w8a8,
                       quant_matmul_wo, quantize_act_int8, unpack_int4_splithalf, w4a8_gemm,
-                      w8a8_gemm)
+                      w8a8_gemm, wo_gemm)
 
 KERNEL_WRAPPERS = {
     "w8a8_gemm": w8a8_gemm,
@@ -26,6 +28,8 @@ KERNEL_WRAPPERS = {
     "layernorm": layernorm_rows,
     "layernorm_quant_int8": layernorm_quant_int8_rows,
     "mha_rows": mha_rows,
+    "wo_gemm": wo_gemm,
+    "mha_rows_int8": mha_rows_int8,
 }
 
 
@@ -41,8 +45,8 @@ def launch_counts() -> dict:
 __all__ = [
     "KERNEL_WRAPPERS", "conv1x1_residual", "conv1x1_residual_gemm", "launch_counts",
     "layernorm_quant_int8", "layernorm_quant_int8_rows", "layernorm_rows",
-    "mha_fused_qkv", "mha_fused_qkv_rows", "mha_rows", "pack_int4_splithalf",
-    "qconv2d_int8", "quant_conv2d", "quant_matmul_w4a8", "quant_matmul_w8a8",
+    "mha_fused_qkv", "mha_fused_qkv_rows", "mha_rows", "mha_rows_int8", "pack_int4_splithalf",
+    "qconv2d_int8", "quant_conv2d", "quant_conv2d_wo", "quant_matmul_w4a8", "quant_matmul_w8a8",
     "quant_matmul_wo", "quantize_act_int8", "reset_launch_counts", "unpack_int4_splithalf",
-    "w4a8_gemm", "w8a8_gemm",
+    "w4a8_gemm", "w8a8_gemm", "wo_gemm",
 ]

@@ -36,6 +36,9 @@ KERNELS = {
     "layernorm_quant_int8": ("layernorm", "qtt_layernorm_q",
                              [_P] * 6 + [_I] * 2 + [_F] + [_I] * 3 + [_P]),
     "mha_rows": ("mha_rows", "qtt_mha_rows", [_P] * 2 + [_I] * 6 + [_F] + [_I] * 2 + [_P]),
+    "wo_gemm": ("wo_gemm", "qtt_wo_gemm", [_P] * 6 + [_I] * 4 + [_P]),
+    "mha_rows_int8": ("mha_rows_int8", "qtt_mha_rows_int8",
+                      [_P] * 2 + [_I] * 6 + [_F] + [_I] * 2 + [_P]),
 }
 LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

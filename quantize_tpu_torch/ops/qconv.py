@@ -1,5 +1,6 @@
 """W8A8 conv2d on the int8 path: kernel K3, the z_a correction map and the
-space-to-depth stem rewrite.
+space-to-depth stem rewrite; and the weight-only conv (a dequantized weight
+and one float32 conv).
 
 PyTorch counterpart of ``quantize_tpu/ops/qconv.py``. The JAX package lowers
 the int8 conv through XLA (``conv_general_dilated(int8, int8) -> int32``);
@@ -24,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .qmatmul import quantize_act_int8
+from .qmatmul import _dequant_weight, quantize_act_int8
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 
@@ -206,6 +207,30 @@ def quant_conv2d(
         corr_a.float().contiguous(), w_zero_is_zero,
         torch.float32 if out_dtype is None else out_dtype)
     return out
+
+
+def quant_conv2d_wo(
+    x: torch.Tensor,
+    w_int: torch.Tensor,  # (kh, kw, ci, co) int8
+    w_scale: torch.Tensor,  # (co,)
+    w_zero: torch.Tensor,  # (co,)
+    bias: Optional[torch.Tensor] = None,
+    strides: Sequence[int] = (1, 1),
+    padding: Padding = "SAME",
+    groups: int = 1,
+    awq_recip: Optional[torch.Tensor] = None,
+    group_size: int = 0,
+) -> torch.Tensor:
+    """Weight-only-quantized conv (JAX ``qconv.py:127-168``): the weight
+    dequantized per out-channel, ``(w + z)·s`` in float32, then one float32
+    conv and ``+ bias``. JAX computes this in XLA outside any Pallas kernel,
+    so the conv is the library's (TF32 off on the card keeps it float32)."""
+    if awq_recip is not None or group_size:
+        raise NotImplementedError(
+            "quant_conv2d_wo: the AWQ and group_size deploy layouts are not ported to "
+            "quantize_tpu_torch yet; see ROADMAP.md")
+    out = conv_nhwc(x.float(), _dequant_weight(w_int, w_scale, w_zero), strides, padding, groups)
+    return out if bias is None else out + bias
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Quantized matmuls: activation quantize, W8A8 (kernel K1), W4A8 over
-split-half int4 weights (kernel K4) and the weight-only product.
+split-half int4 weights (kernel K4) and the weight-only product (kernel K5).
 
 PyTorch counterpart of ``quantize_tpu/ops/pallas/qmatmul.py``. Both JAX
 backends (the Pallas kernels and the XLA twins) compute
@@ -11,9 +11,11 @@ over int8 A and int8 (or int4) W with int32 accumulation. Here
 and :func:`w4a8_gemm` launches ``csrc/w4a8_gemm.cu`` on CUDA tensors; on CPU
 tensors they run :func:`w8a8_gemm_plain` and :func:`w4a8_gemm_plain`.
 
-The weight-only product (:func:`quant_matmul_wo`) is a dequantized weight
-and one plain matrix product, as the JAX package's default (XLA) backend
-computes it; its Pallas ``_wo_kernel`` is not on this path.
+The weight-only product (:func:`quant_matmul_wo`) is float activations
+times int8 weights dequantized as ``(w + z)·s``: :func:`wo_gemm` launches
+``csrc/wo_gemm.cu`` (the Pallas ``_wo_kernel``'s counterpart, dequantizing
+in the loader) on CUDA tensors and runs :func:`wo_gemm_plain` on CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -227,14 +229,60 @@ def quant_matmul_w4a8(
 # Weight-only quantized matmul (float activations)
 # ---------------------------------------------------------------------------
 
-def _dequant_weight(w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
-                    awq_recip=None, group_size: int = 0) -> torch.Tensor:
+def _dequant_weight(w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor
+                    ) -> torch.Tensor:
     """Per-out-channel weight dequant ``(w + z)·s`` in float32."""
-    if awq_recip is not None or group_size:
-        raise NotImplementedError(
-            "_dequant_weight: the AWQ and group_size deploy layouts are not ported to "
-            "quantize_tpu_torch yet; see ROADMAP.md")
     return (w_int.float() + w_zero.float().reshape(1, -1)) * w_scale.float().reshape(1, -1)
+
+
+def wo_gemm_plain(x: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor,
+                  w_zero: torch.Tensor, bias: Optional[torch.Tensor],
+                  compute_dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of kernel K5: the weight dequantized ``(w + z)·s`` in
+    float32, both operands rounded to ``compute_dtype``, their products
+    formed exactly in float32 (a bf16 x bf16 product fits) and summed in
+    float32, then ``+ bias``. Runs on any device (on CUDA with TF32 off)."""
+    w_deq = _dequant_weight(w_int, w_scale, w_zero)
+    out = x.to(compute_dtype).float() @ w_deq.to(compute_dtype).float()
+    return out if bias is None else out + bias
+
+
+def wo_gemm(x: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
+            bias: Optional[torch.Tensor], compute_dtype: torch.dtype) -> torch.Tensor:
+    """Kernel K5: float (M, K) ``x`` (f32 or bf16) times int8 (K, N)
+    ``w_int`` dequantized per out-channel by ``w_scale``/``w_zero`` (f32
+    (N,)), plus ``bias`` (f32 (N,) or None): f32 (M, N).
+
+    CPU tensors take :func:`wo_gemm_plain`; CUDA tensors launch
+    ``csrc/wo_gemm.cu``, which computes in bf16 only, or raise.
+    """
+    dev = x.device
+    if dev.type == "cpu":
+        return wo_gemm_plain(x, w_int, w_scale, w_zero, bias, compute_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"wo_gemm: unsupported device {dev}")
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"wo_gemm: the kernel computes in bfloat16, not {compute_dtype}")
+    m, k = x.shape
+    n = w_int.shape[1]
+    _build.require(x, "x", dev, x.dtype, (m, k))
+    in_code = _build.dtype_code(x.dtype)
+    _build.require(w_int, "w_int", dev, torch.int8, (k, n))
+    for name, t in (("w_scale", w_scale), ("w_zero", w_zero)):
+        _build.require(t, name, dev, torch.float32, (n,))
+    if bias is not None:
+        _build.require(bias, "bias", dev, torch.float32, (n,))
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    fn = _build.kernel_fn("wo_gemm")
+    with torch.cuda.device(dev):
+        err = fn(_build.ptr(x), _build.ptr(w_int), _build.ptr(w_scale), _build.ptr(w_zero),
+                 _build.ptr(bias), _build.ptr(out), m, n, k, in_code, _build.current_stream(dev))
+    _build.check(err, "wo_gemm")
+    wo_gemm.launches += 1
+    return out
+
+
+wo_gemm.launches = 0
 
 
 def quant_matmul_wo(
@@ -247,21 +295,19 @@ def quant_matmul_wo(
     group_size: int = 0,
 ) -> torch.Tensor:
     """Weight-only quantized matmul: float activations x int8-stored weights,
-    f32 result. As the JAX package's XLA branch (``qmatmul.py:462-476``):
-    the operands are bf16 on the accelerator and f32 elsewhere."""
+    f32 result, through kernel K5. The operands are bf16 on the card (the
+    function the JAX package runs on its accelerator, ``qmatmul.py:462-476``,
+    and ``_wo_kernel``'s body for a bf16 operand) and f32 on the CPU."""
+    if awq_recip is not None or group_size:
+        raise NotImplementedError(
+            "quant_matmul_wo: the AWQ and group_size deploy layouts are not ported to "
+            "quantize_tpu_torch yet; see ROADMAP.md")
     lead = x.shape[:-1]
     n = w_int.shape[1]
-    w_deq = _dequant_weight(w_int, w_scale, w_zero, awq_recip, group_size)
     x2 = x.reshape(-1, x.shape[-1])
-    if x2.device.type == "cuda":
-        # bf16 x bf16 with a float32 result, as dot_general(...,
-        # preferred_element_type=float32) on the TPU: mm's out_dtype
-        # overload keeps cuBLAS's f32 accumulator instead of rounding to bf16
-        out = torch.mm(x2.to(torch.bfloat16), w_deq.to(torch.bfloat16), out_dtype=torch.float32)
-    else:
-        out = x2.float() @ w_deq
-    if bias is not None:
-        out = out + bias
+    cdt = torch.bfloat16 if x2.device.type == "cuda" else torch.float32
+    out = wo_gemm(x2.contiguous(), w_int.contiguous(), w_scale.float().reshape(-1),
+                  w_zero.float().reshape(-1), None if bias is None else bias.float(), cdt)
     return out.reshape(*lead, n)
 
 

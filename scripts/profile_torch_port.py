@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """Where the time of the port's packed forward goes, on one GPU.
 
-    python3 scripts/profile_torch_port.py [--model resnet50|vit_b_16] [--batch N]
+    python3 scripts/profile_torch_port.py [--model resnet50|vit_b_16|vit_b_32] [--batch N]
                                           [--carry float32|bfloat16]
+    QTPU_ATTN_INT8=1 python3 scripts/profile_torch_port.py --model vit_b_32   # K9 for K8
 
 Builds the model of chip_smoke.py (ResNet-50 W8A8 with the fused residual
-tail, batch 256 by default; or ViT-B/16 W4A8, batch 128 by default; random
-weights from seed 0, calibrated on 4 batches of 32), then traces 3 packed
-forwards with torch.profiler and prints device time per forward by kernel
-name and by group (the port's kernels, cuBLAS matrix products, torch
-elementwise kernels, other), the device's busy share of the traced wall
-time, and the device time under two ranges this script marks around the
+tail, batch 256 by default; ViT-B/16 W4A8, batch 128 by default; or
+ViT-B/32 weight-only W4 with MSE weight ranges and 32-bit activations,
+batch 256 by default; random weights from seed 0, calibrated on 4 batches
+of 32; the port reads QTPU_ATTN_INT8 at call time), then traces 3
+packed forwards with torch.profiler and prints device time per forward by
+kernel name and by group (the port's kernels, cuBLAS matrix products,
+torch elementwise kernels, other), the device's busy share of the traced
+wall time, and the device time under ranges this script marks around the
 port's calls: every ``quantize_act_int8`` (the torch activation quantize
-passes) and every ``quant_matmul_wo`` (the weight-only out-projections: a
-dequantize and one ``torch.mm``). Needs a CUDA card and nvcc.
+passes), every ``quant_matmul_wo`` (the weight-only products, kernel K5
+and the operand casts around it), every ``unpack_int4_splithalf`` (the
+per-call unpack of split-half int4 weights) and every
+``quant_conv2d_wo`` (the weight-only patch conv). Needs a CUDA card and
+nvcc.
 """
 from __future__ import annotations
 
@@ -27,8 +33,9 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 PORT_KERNELS = ("w8a8_gemm_kernel", "conv1x1_res_kernel", "qconv2d_kernel", "w4a8_gemm_kernel",
-                "ln_kernel", "ln_q_kernel", "mha_rows_kernel")
-RANGES = ("quantize_act_int8", "quant_matmul_wo")
+                "ln_kernel", "ln_q_kernel", "mha_rows_kernel", "wo_gemm_kernel",
+                "mha_rows_int8_kernel")
+RANGES = ("quantize_act_int8", "quant_matmul_wo", "unpack_int4_splithalf", "quant_conv2d_wo")
 
 
 def _group(name: str) -> str:
@@ -55,7 +62,7 @@ def _marked(fn, label):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="resnet50", choices=["resnet50", "vit_b_16"])
+    ap.add_argument("--model", default="resnet50", choices=["resnet50", "vit_b_16", "vit_b_32"])
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--carry", default="float32", choices=["float32", "bfloat16"])
     args = ap.parse_args()
@@ -68,10 +75,12 @@ def main() -> int:
         return 2
     import quantize_tpu_torch as qtt
     import quantize_tpu_torch.nn.layers as layers
+    import quantize_tpu_torch.ops.qconv as qconv
     import quantize_tpu_torch.ops.qmatmul as qmatmul
-    from chip_smoke import CFG, CFG_W4A8
+    from chip_smoke import CFG, CFG_W4A8, CFG_WO
 
-    for mod in (qmatmul, layers):
+    cfg = {"resnet50": CFG, "vit_b_16": CFG_W4A8, "vit_b_32": CFG_WO}[args.model]
+    for mod in (qmatmul, qconv, layers):
         for label in RANGES:
             if hasattr(mod, label):
                 setattr(mod, label, _marked(getattr(mod, label), label))
@@ -84,10 +93,8 @@ def main() -> int:
     def batch(n):
         return torch.randn((n, 224, 224, 3), generator=gen, device=dev)
 
-    vit = args.model == "vit_b_16"
-    n_batch = args.batch or (128 if vit else 256)
-    model = qtt.MODELS.build(args.model, num_classes=1000,
-                             ctx=qtt.QuantCtx(CFG_W4A8 if vit else CFG))
+    n_batch = args.batch or (128 if args.model == "vit_b_16" else 256)
+    model = qtt.MODELS.build(args.model, num_classes=1000, ctx=qtt.QuantCtx(cfg))
     sample = batch(32)
     qtt.init_model(model, sample, seed=0)
     qtt.calibrate_model(model, [batch(32) for _ in range(4)])
@@ -128,7 +135,8 @@ def main() -> int:
             by_name[evt.key][1] += evt.count / n_fwd
     total = sum(v[0] for v in by_name.values())
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: {args.model} packed, batch {n_batch}, carry {args.carry}")
+    print(f"{card}: {args.model} packed, batch {n_batch}, carry {args.carry}, "
+          f"QTPU_ATTN_INT8={os.environ.get('QTPU_ATTN_INT8', '0')}")
     if total == 0.0:
         print("the profiler recorded no device time: not measured")
         return 1

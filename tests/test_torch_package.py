@@ -20,11 +20,11 @@ from quantize_tpu_torch.models import MODELS
 from quantize_tpu_torch.models.resnet import ResNet
 from quantize_tpu_torch.models.vit import VisionTransformer
 from quantize_tpu_torch.ops import _build, launch_counts, reset_launch_counts
-from quantize_tpu_torch.ops.attention import mha_rows
+from quantize_tpu_torch.ops.attention import mha_rows, mha_rows_int8
 from quantize_tpu_torch.ops.layernorm import layernorm_quant_int8_rows, layernorm_rows
 from quantize_tpu_torch.ops.qconv import qconv2d_int8
 from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual_gemm
-from quantize_tpu_torch.ops.qmatmul import pack_int4_splithalf, w4a8_gemm, w8a8_gemm
+from quantize_tpu_torch.ops.qmatmul import pack_int4_splithalf, w4a8_gemm, w8a8_gemm, wo_gemm
 
 torch.set_num_threads(2)
 
@@ -67,7 +67,7 @@ def test_every_kernel_has_its_source_and_a_launch_counter():
     for name, (lib, sym, _) in _build.KERNELS.items():
         assert f"extern \"C\" int {sym}(" in (PORT / "csrc" / f"{lib}.cu").read_text(), name
     for fn in (w8a8_gemm, conv1x1_residual_gemm, qconv2d_int8, w4a8_gemm, layernorm_rows,
-               layernorm_quant_int8_rows, mha_rows):
+               layernorm_quant_int8_rows, mha_rows, wo_gemm, mha_rows_int8):
         assert isinstance(fn.launches, int)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "quantize_tpu_torch/_build/" in gitignore
@@ -104,11 +104,12 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert set(launch_counts()) == set(_build.KERNELS)
     assert all(n == 0 for n in launch_counts().values())
     assert [tuple(o.shape) for o in outs] == [(24, 16), (24, 16), (6, 2, 2, 16), (24, 16),
-                                              (24, 32), (24, 32), (24, 32), (24, 32)]
+                                              (24, 32), (24, 32), (24, 32), (24, 32),
+                                              (24, 16), (24, 16), (24, 32), (24, 32)]
     assert all(np.isfinite(o.float().numpy()).all() for o in outs)
 
 
-@pytest.mark.parametrize("which", [0, 1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("which", [0, 1, 2, 3, 4, 5, 6, 7, 8])
 def test_other_devices_raise_instead_of_falling_back(which):
     a = _kernel_args("meta")
     z, s = a["scalars"]
@@ -126,6 +127,8 @@ def test_other_devices_raise_instead_of_falling_back(which):
         lambda: layernorm_rows(v["x"], v["gamma"], v["beta"], 1e-6, torch.float32),
         lambda: layernorm_quant_int8_rows(v["x"], v["gamma"], v["beta"], 1e-6, s, z, 0, 255),
         lambda: mha_rows(v["qkv"], 2, 8, False, torch.float32, 0),
+        lambda: wo_gemm(v["x"], v["w8"], v["vec"], v["vec"], None, torch.bfloat16),
+        lambda: mha_rows_int8(v["qkv"], 2, 8, False, torch.float32, 0),
     ]
     with pytest.raises(ValueError, match="unsupported device"):
         calls[which]()
@@ -136,7 +139,7 @@ def _vit_kernel_args(device):
     q = torch.randint(-128, 128, (24, 32), generator=g).to(torch.int8)
     w4 = torch.randint(-8, 8, (32, 16), generator=g).to(torch.int8)
     x = torch.randn(24, 32, generator=g)
-    out = dict(q=q, wp=pack_int4_splithalf(w4), cs=w4.sum(0, dtype=torch.int32),
+    out = dict(q=q, wp=pack_int4_splithalf(w4), cs=w4.sum(0, dtype=torch.int32), w8=w4,
                scalars=(torch.tensor(3.0), torch.tensor(0.01)), vec=torch.rand(16, generator=g),
                x=x, gamma=torch.rand(32, generator=g) + 0.5, beta=torch.randn(32, generator=g),
                qkv=torch.randn(24, 96, generator=g))
@@ -152,6 +155,10 @@ def _call_vit(a):
         layernorm_quant_int8_rows(a["x"], a["gamma"], a["beta"], 1e-6, s, z, 0, 255)[0],
         mha_rows(a["qkv"], 2, 8, False, torch.float32, 7),
         mha_rows(a["qkv"], 2, 8, True, torch.float32, 7),
+        wo_gemm(a["x"], a["w8"], a["vec"], a["vec"], a["vec"], torch.float32),
+        wo_gemm(a["x"].to(torch.bfloat16), a["w8"], a["vec"], a["vec"], None, torch.bfloat16),
+        mha_rows_int8(a["qkv"], 2, 8, False, torch.float32, 7),
+        mha_rows_int8(a["qkv"].to(torch.bfloat16), 2, 8, True, torch.bfloat16, 7),
     ]
 
 
@@ -275,6 +282,90 @@ def test_cuda_attention_kernel_matches_its_plain_version(cuda_card, b, s, h, d, 
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
     else:
         _assert_within_bf16_ulps(got, want, 2)
+
+
+def _assert_within_sum_order(got, want, x, w_int, w_scale, w_zero, bias, compute_dtype):
+    """K5 against its plain version: the same float32 products summed in
+    another order, held per output at every K to |diff| <= 2^-18 * sum|a*w|
+    + 2^-23 * |out| (the second term is the rounding of acc + bias). The
+    control, the product of an f32 activation left unrounded (a kernel that
+    skipped A's rounding to ``compute_dtype``), must fall outside it."""
+    from quantize_tpu_torch.ops.qmatmul import _dequant_weight
+
+    w = _dequant_weight(w_int, w_scale, w_zero).to(compute_dtype).float()
+    sum_abs = x.to(compute_dtype).float().abs() @ w.abs()
+    limit = 2.0 ** -18 * sum_abs + 2.0 ** -23 * want.abs()
+    assert bool(((got - want).abs() <= limit).all()), float(((got - want).abs() / limit).max())
+    if x.dtype != compute_dtype:
+        control = x.float() @ w + (0 if bias is None else bias)
+        assert bool(((control - want).abs() > limit).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(24, 32, 16), (300, 96, 80), (256, 768, 1000),
+                                   (100, 40, 70), (130, 3072, 768), (14336, 768, 768)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wo_kernel_matches_its_plain_version(cuda_card, shape, dtype):
+    """K5 on the card, f32 and bf16 activations, ragged M, N and K (K = 40
+    and N = 70 take the byte-wise loaders), with and without a bias."""
+    from quantize_tpu_torch.ops.qmatmul import wo_gemm_plain
+
+    m, k, n = shape
+    g = torch.Generator().manual_seed(k + n)
+    x = (torch.randn(m, k, generator=g) * 2).to(dtype)
+    w = torch.randint(-8, 8, (k, n), generator=g, dtype=torch.int8)
+    w_s, w_z = torch.rand(n, generator=g) * 0.01, torch.randn(n, generator=g)
+    for bias in (torch.randn(n, generator=g), None):
+        args = [t if t is None else t.cuda() for t in (x, w, w_s, w_z, bias)]
+        got = wo_gemm(*args, torch.bfloat16)
+        want = wo_gemm_plain(*args, torch.bfloat16)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+        _assert_within_sum_order(got, want, *args, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d,valid,causal", [(4, 56, 12, 64, 50, False),
+                                                  (2, 200, 12, 64, 197, False),
+                                                  (3, 24, 2, 16, 17, True),
+                                                  (2, 77, 4, 80, 0, True),
+                                                  (1, 40, 2, 8, 33, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_int8_attention_kernel_matches_its_plain_version(cuda_card, b, s, h, d, valid,
+                                                              causal, dtype):
+    """K9 on the card: bit-equal to its plain version but for ex8 flips
+    (an exp rounding on a boundary moves one ex8 by one step and one row of
+    one head by at most 2.05 * sv); at most 1e-3 of the (row, head) groups
+    may differ. Pad rows carry non-zero values."""
+    from quantize_tpu_torch.ops.attention import mha_rows_int8_plain
+
+    g = torch.Generator().manual_seed(s + d)
+    qkv = (torch.randn(b * s, 3 * h * d, generator=g) * 2).to(dtype).cuda()
+    got = mha_rows_int8(qkv, h, s, causal, dtype, valid)
+    want = mha_rows_int8_plain(qkv, h, s, causal, dtype, valid)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    diff = (got.float() - want.float()).abs().reshape(b, s, h, d).amax(-1)  # (B, S, H)
+    sv = qkv.float().reshape(b, s, 3, h, d)[:, :, 2].abs().amax(dim=(1, 3)) / 127  # (B, H)
+    assert int((diff > 0).sum()) <= max(2, 1e-3 * diff.numel())
+    assert bool((diff <= 2.05 * sv[:, None, :] * (1 + 2.0 ** -7)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_attention_dispatch_sends_odd_head_dims_to_the_oracle(cuda_card):
+    """Head dim 12 (not a multiple of 8): the JAX package's dispatch runs
+    its float32 oracle, and so does the port on the card: no K8 or K9
+    launch."""
+    from quantize_tpu_torch.ops.attention import mha_fused_qkv_rows, mha_oracle_rows
+
+    qkv = torch.randn(2 * 24, 3 * 24, generator=torch.Generator().manual_seed(0))
+    qkv = qkv.to(torch.bfloat16).cuda()
+    reset_launch_counts()
+    for int8 in (False, True):
+        got = mha_fused_qkv_rows(qkv, 2, 24, valid_len=19, int8_scores=int8)
+        assert torch.equal(got, mha_oracle_rows(qkv, 2, 24, False, torch.bfloat16, 19))
+    torch.cuda.synchronize()
+    assert launch_counts()["mha_rows"] == 0 and launch_counts()["mha_rows_int8"] == 0
 
 
 def test_public_api_surface():
