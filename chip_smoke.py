@@ -34,7 +34,16 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    the quant simulation and within 5e-2 with a bf16 carry. One request is
    served again with ``QTPU_ATTN_INT8=1``: K9 12 and K8 0 per forward, the
    logits within 5e-2 of the default path.
-5. Kernels: every kernel is called on the very arguments the main paths
+5. Long sequences: ViT-B/16 W4A8 as in phase 3 at ``image_size=384`` (S =
+   577 padded to 584, the usual fine-tuning resolution), calibrated on 4
+   batches of 8, then one request of 32 images at bf16 carry, counted as
+   above (K8 12 a forward); the logits finite and within 5e-2 of the f32
+   carry. K8 and K9 on that request's attention arguments, and on random
+   rows at the other shapes the JAX dispatch sends them that once exceeded
+   their shared memory (K8: S 488, 680 bf16 and 456 f32; K9: S 776 bf16;
+   E 768, 12 heads), against their plain versions: K8 within its tolerance,
+   K9 bit for bit.
+6. Kernels: every kernel is called on the very arguments the main paths
    give it (recorded at each main-path shape, f32 and bf16 carry; K3 at
    ResNet-50's shapes and at ViT's patch embedding; K5 at both ViTs'; K9 at
    ViT-B/32's and at ViT-B/16's attention arguments) and held against its
@@ -49,7 +58,7 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    flips (one exp rounding moves one ex8 by a step and one row of one head
    by at most 2.05 * sv) on at most 1e-3 of the (row, head) groups (the
    count is printed).
-6. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+7. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
    beside its bound, its plain version and the nearest library call.
@@ -753,6 +762,63 @@ def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
     return entries
 
 
+def long_attention_phase(qtt, card, dev) -> None:
+    """ViT-B/16 W4A8 at 384 x 384 (phase 5), and K8 / K9 at the long
+    shapes the dispatch sends them."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(384)
+
+    def batch(n):
+        return torch.randn((n, 384, 384, 3), generator=gen, device=dev)
+
+    t0 = time.time()
+    model = qtt.MODELS.build("vit_b_16", num_classes=1000, ctx=qtt.QuantCtx(CFG_W4A8),
+                             image_size=384)
+    sample = batch(8)
+    qtt.init_model(model, sample, seed=0)
+    qtt.calibrate_model(model, [batch(8) for _ in range(4)])
+    qtt.pack_model(model, sample)
+    torch.cuda.synchronize()
+    log(f"vit_b_16@384 W4A8 set-up (init, calibrate 4x8, pack) {time.time() - t0:.1f} s")
+    request = batch(32)
+    max_err = {}
+    with torch.inference_mode():
+        with qtt.packed_carry(torch.bfloat16):
+            (out,), counts = serve(model, [request], VIT_PER_FWD, "vit_b_16@384 bf16 carry")
+        f32 = model(request, mode="packed")
+        r_f32 = rel(out, f32)
+        log(f"vit_b_16@384 agreement: bf16 carry vs f32 {r_f32:.3e} (<= 5e-2)")
+        check(r_f32 <= 5e-2, "vit_b_16@384 agreement failed")
+        with qtt.packed_carry(torch.bfloat16), Recorder() as rec:
+            model(request, mode="packed")
+            ms = cuda_ms(lambda: model(request, mode="packed"))
+        log(f"time: vit_b_16@384 packed bf16 carry: {ms:.3f} ms per batch of 32, "
+            f"{32e3 / ms:.1f} img/s [{card}]")
+        calls = {"mha_rows": rec.calls["mha_rows"], "mha_rows_int8": rec.calls["mha_rows"]}
+        n = check_kernels([calls], ("mha_rows", "mha_rows_int8"), max_err)
+        kernel_entries(calls, counts, max_err, ("mha_rows",), "vit_b_16@384")
+    del model, request, out, f32, rec, calls
+    torch.cuda.empty_cache()
+
+    rows = torch.Generator(device=dev).manual_seed(776)
+    for name, s, valid, dtype in (("mha_rows", 488, 485, torch.bfloat16),
+                                  ("mha_rows", 680, 677, torch.bfloat16),
+                                  ("mha_rows", 456, 453, torch.float32),
+                                  ("mha_rows_int8", 584, 577, torch.bfloat16),
+                                  ("mha_rows_int8", 776, 769, torch.bfloat16)):
+        qkv = (torch.randn((4 * s, 3 * 768), generator=rows, device=dev) * 2).to(dtype)
+        args = (qkv, 12, s, False, dtype, valid)
+        max_err[name] = max(max_err.get(name, 0.0), compare(name, args))
+        if name == "mha_rows_int8":
+            check(bool(torch.equal(kernel_fn(name)(*args), plain_fn(name)(*args))),
+                  f"{name} at S = {s}: not bit-equal to its plain version")
+        n += 1
+    log(f"long attention shapes: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
+    torch.cuda.empty_cache()
+
+
+
 def main() -> int:
     import torch
 
@@ -804,6 +870,9 @@ def main() -> int:
     t0 = time.time()
     entries += vit32_phase(qtt, batch, card, vit_err)
     log(f"vit_b_32 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    long_attention_phase(qtt, card, dev)
+    log(f"long attention phase {time.time() - t0:.1f} s")
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 is ResNet-50's, K5 ViT-B/32's; "
         "launches are each model's 4 served requests, K9's the one int8-scores request)")

@@ -17,9 +17,14 @@
 // _mha_rows_kernel (the exact two-pass softmax with the -80 row-max floor
 // and the 1e-37 normalizer floor), which runs one image per grid step and
 // keeps every (S, S) score block in VMEM. Here one block owns
-// (image, head, QT query rows): that head's K (then V) for all S keys
-// lives in shared memory, as does the QT x S score tile, so the scores never
-// reach device memory either. Pad query rows (row >= valid_len) come out
+// (image, head, QT query rows): the QT x S score tile lives in shared
+// memory, so the scores never reach device memory either, and that head's
+// K (then V) streams through shared memory in chunks of KCHUNK keys. Shared
+// memory is KCHUNK x D for the chunk, QT x D for q and QT x S for the
+// scores: 184 KB at S = 776, D = 64, and every S up to 1,120 fits for
+// D <= 80 (smem_bytes; the wrapper refuses larger shapes before launch).
+// Each score and each output sums its products in the same order whatever
+// the chunking. Pad query rows (row >= valid_len) come out
 // finite: without causal they attend to the valid keys; with causal every
 // key is masked, m = -80, ex = 0 and the output is 0 / 1e-37 = 0.
 //
@@ -75,16 +80,16 @@ __host__ __device__ __forceinline__ int keys_padded(int S) {
   return (S + KCHUNK - 1) / KCHUNK * KCHUNK;
 }
 
-// Copies rows [0, S) of one D-wide slice of the qkv rows into shared
-// memory (row stride D + DPAD), zero-filling rows [S, rows).
+// Copies rows [j0, j0 + KCHUNK) of one D-wide slice of the qkv rows into
+// shared memory (row stride D + DPAD), zero-filling rows from S on.
 template <typename TI>
-__device__ __forceinline__ void load_slice(const TI* __restrict__ src, int64_t ld, int S, int rows,
+__device__ __forceinline__ void load_chunk(const TI* __restrict__ src, int64_t ld, int S, int j0,
                                            int D, float* __restrict__ dst) {
   const int ds = D + DPAD;
-  for (int i = threadIdx.x; i < rows * D; i += NTHREADS) {
+  for (int i = threadIdx.x; i < KCHUNK * D; i += NTHREADS) {
     const int j = i / D;
     const int c = i - j * D;
-    dst[j * ds + c] = j < S ? to_f(src[(int64_t)j * ld + c]) : 0.0f;
+    dst[j * ds + c] = j0 + j < S ? to_f(src[(int64_t)(j0 + j) * ld + c]) : 0.0f;
   }
 }
 
@@ -96,8 +101,8 @@ __global__ void __launch_bounds__(NTHREADS)
   float* sm = reinterpret_cast<float*>(smem4);
   const int ds = D + DPAD;
   const int sk = keys_padded(S);
-  float* kv = sm;                      // [sk][ds]: K, then V
-  float* qs = kv + (size_t)sk * ds;    // [QT][ds]
+  float* kv = sm;                      // [KCHUNK][ds]: a chunk of K, then of V
+  float* qs = kv + KCHUNK * ds;        // [QT][ds]
   float* ps = qs + QT * ds;            // [QT][sk]: scores, then mm(ex)
   float* nrm = ps + QT * sk;           // [QT]
 
@@ -117,11 +122,12 @@ __global__ void __launch_bounds__(NTHREADS)
     if (q0 + r < S) v = mm_round<TI>(__fmul_rn(to_f(base[(int64_t)(q0 + r) * ld + c]), scale));
     qs[r * ds + c] = v;
   }
-  load_slice(base + E, ld, S, sk, D, kv);
-  __syncthreads();
 
   // scores: each thread RPW rows x KPL keys (key = chunk + lane + 32 * i)
   for (int j0 = 0; j0 < sk; j0 += KCHUNK) {
+    __syncthreads();  // every warp is done with the previous chunk
+    load_chunk(base + E, ld, S, j0, D, kv);
+    __syncthreads();
     float acc[RPW][KPL];
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr)
@@ -134,7 +140,7 @@ __global__ void __launch_bounds__(NTHREADS)
         qv[rr] = *reinterpret_cast<const float4*>(qs + (r0 + rr) * ds + k);
 #pragma unroll
       for (int i = 0; i < KPL; ++i) {
-        const float4 kv4 = *reinterpret_cast<const float4*>(kv + (j0 + lane + 32 * i) * ds + k);
+        const float4 kv4 = *reinterpret_cast<const float4*>(kv + (lane + 32 * i) * ds + k);
 #pragma unroll
         for (int rr = 0; rr < RPW; ++rr) {
           acc[rr][i] = fmaf(qv[rr].x, kv4.x, acc[rr][i]);
@@ -179,35 +185,41 @@ __global__ void __launch_bounds__(NTHREADS)
     sum = warp_sum(sum);
     if (lane == 0) nrm[r] = fmaxf(sum, 1e-37f);
   }
-  __syncthreads();  // every warp is done with K
 
-  load_slice(base + 2 * E, ld, S, sk, D, kv);
-  __syncthreads();
-
-  // out = (ex . v) / norm: each thread RPW rows x 2 neighbouring columns
+  // out = (ex . v) / norm: each thread RPW rows x 2 neighbouring columns,
+  // V streamed in chunks (every thread takes part in the loads, so lanes
+  // past D skip only the products and the stores)
   const int s4 = (S + 3) & ~3;  // ex is zero past S (and V rows too)
   for (int c0 = 0; c0 < D; c0 += 64) {
     const int c = c0 + 2 * lane;
-    if (c >= D) continue;
+    const bool active = c < D;
     float acc[RPW][2];
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) acc[rr][0] = acc[rr][1] = 0.0f;
-    for (int j = 0; j < s4; j += 4) {
-      float4 pv[RPW];
+    for (int j0 = 0; j0 < s4; j0 += KCHUNK) {
+      __syncthreads();  // every warp is done with K or the previous V chunk
+      load_chunk(base + 2 * E, ld, S, j0, D, kv);
+      __syncthreads();
+      if (!active) continue;
+      const int j1 = min(s4, j0 + KCHUNK);
+      for (int j = j0; j < j1; j += 4) {
+        float4 pv[RPW];
 #pragma unroll
-      for (int rr = 0; rr < RPW; ++rr)
-        pv[rr] = *reinterpret_cast<const float4*>(ps + (r0 + rr) * sk + j);
+        for (int rr = 0; rr < RPW; ++rr)
+          pv[rr] = *reinterpret_cast<const float4*>(ps + (r0 + rr) * sk + j);
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const float2 vv = *reinterpret_cast<const float2*>(kv + (j + t) * ds + c);
+        for (int t = 0; t < 4; ++t) {
+          const float2 vv = *reinterpret_cast<const float2*>(kv + (j - j0 + t) * ds + c);
 #pragma unroll
-        for (int rr = 0; rr < RPW; ++rr) {
-          const float p = t == 0 ? pv[rr].x : t == 1 ? pv[rr].y : t == 2 ? pv[rr].z : pv[rr].w;
-          acc[rr][0] = fmaf(p, vv.x, acc[rr][0]);
-          acc[rr][1] = fmaf(p, vv.y, acc[rr][1]);
+          for (int rr = 0; rr < RPW; ++rr) {
+            const float p = t == 0 ? pv[rr].x : t == 1 ? pv[rr].y : t == 2 ? pv[rr].z : pv[rr].w;
+            acc[rr][0] = fmaf(p, vv.x, acc[rr][0]);
+            acc[rr][1] = fmaf(p, vv.y, acc[rr][1]);
+          }
         }
       }
     }
+    if (!active) continue;
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) {
       const int row = q0 + r0 + rr;
@@ -220,9 +232,9 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+// Mirrored by quantize_tpu_torch/ops/attention.py: _mha_rows_smem.
 size_t smem_bytes(int S, int D) {
-  const int sk = keys_padded(S);
-  return sizeof(float) * ((size_t)sk * (D + DPAD) + (size_t)QT * (D + DPAD) + (size_t)QT * sk + QT);
+  return sizeof(float) * ((size_t)(KCHUNK + QT) * (D + DPAD) + (size_t)QT * keys_padded(S) + QT);
 }
 
 template <typename TI, typename TO>
@@ -241,8 +253,9 @@ int launch(const void* qkv, void* out, int B, int S, int H, int D, int valid, bo
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. D must be a multiple of 4. A
-// shape whose tiles exceed the shared memory of a block (S above ~550 at
-// D = 64) is refused by cudaFuncSetAttribute, and the error is returned.
+// shape whose tiles exceed the shared memory of a block (S above 1,120 at
+// D <= 80) is refused by cudaFuncSetAttribute, and the error is returned;
+// the wrapper refuses it before the call.
 extern "C" int qtt_mha_rows(const void* qkv, void* out, int B, int S, int H, int D, int valid,
                             int causal, float scale, int in_dtype, int out_dtype,
                             void* stream) {

@@ -22,15 +22,15 @@
 // cores as mma.sync.m16n8k32 s8 x s8 -> s32. Keys are padded to 32 and head
 // dims to 32 with zeros (zero weights); pad keys are masked to -1e30, so
 // they get ex8 = 0. Each warp takes 16 query rows at a time: it computes
-// their scores twice from the int8 tiles (once for the row max, once for
-// ex8, the recomputation is cheaper than an f32 score buffer in shared
-// memory), writes ex8 to its own shared tile and runs AV from there, so no
-// score reaches device memory.
-//
-// On the H100 at ViT shapes (S = 56 or 200, D = 64) the work is
-// 4*B*H*S*S*D int8 operations against a read of (B*S, 3E) and a write of
-// (B*S, E): bound by bytes. The kernel reads its input twice (absmax, then
-// quantize), which the L2 cache mostly absorbs.
+// their scores twice from the int8 tiles (once for the row max, once for ex8: the recomputation is
+// cheaper than an f32 score buffer in shared memory). The second pass goes
+// up to 256 keys at a time (all of them for S <= 256): their ex8 go to the
+// warp's 16 x 256 tile and straight into AV, so no score reaches device
+// memory and no S-long row is kept. Every sum is an exact integer sum, so
+// the order of the steps does not change the result. Shared memory is q8,
+// k8 and vT (224 bytes a key at D = 64) plus the warps' ex8 tiles: 195 KB
+// at S = 776, D = 64 (Layout; the wrapper refuses a shape that does not fit
+// before launch).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,19 +46,22 @@ __host__ __device__ __forceinline__ int round_up(int v, int m) { return (v + m -
 
 // Shared-memory layout of one (image, head) block, offsets in bytes. Row
 // strides are 16 bytes more than a multiple of 32, which keeps the 32-bit
-// fragment reads of eight rows on distinct banks.
+// fragment reads of eight rows on distinct banks. Mirrored by
+// quantize_tpu_torch/ops/attention.py: _mha_rows_int8_smem.
+constexpr int EXMAX = 256;       // keys per ex8 pass at most
 struct Layout {
-  int SP, DP, ldq, ldv, lde;
+  int SP, DP, ldq, ldv, exw, lde;
   size_t k8, vt, ex, red, total;
   __host__ __device__ Layout(int S, int D) {
     SP = round_up(S, 32);        // keys (and q rows) padded to the k32 step
     DP = round_up(D, 32);        // head dim padded to the k32 step
     ldq = DP + 16;               // q8 / k8 row stride
     ldv = SP + 16;               // vT row stride (one row per head-dim column)
-    lde = SP + 16;               // a warp's ex8 tile row stride
-    k8 = (size_t)SP * ldq;
+    exw = SP < EXMAX ? SP : EXMAX;  // keys per ex8 pass (a multiple of 32)
+    lde = exw + 16;              // a warp's ex8 tile row stride
+    k8 = (size_t)SP * ldq;       // q8 [SP][ldq] at 0
     vt = k8 + (size_t)SP * ldq;
-    ex = round_up((int)(vt + (size_t)D * ldv), 16);
+    ex = round_up((int)(vt + (size_t)D * ldv), 16);   // WARPS x ex8 [16][lde]
     red = round_up((int)(ex + (size_t)WARPS * 16 * lde), 16);
     total = red + sizeof(float) * 3 * WARPS;
   }
@@ -193,45 +196,55 @@ __global__ void __launch_bounds__(NTHREADS)
       m_hi = fmaxf(m_hi, __shfl_xor_sync(0xffffffffu, m_hi, o));
     }
 
-    // 3b. ex8 into the warp's tile, and the integer row sums
+    // 3b. up to 256 keys at a time: their ex8 into the warp's tile (and the
+    // integer row sums), then AV += ex8 . v8 over those keys; head-dim
+    // columns 64 at a time (one pass for D <= 64)
     int n_lo = 0, n_hi = 0;
-    for (int c0 = 0; c0 < L.SP; c0 += 8) {
-      int acc[4];
-      qk_tile(q8, k8, L, r0, c0, g, t, acc);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const bool hi = r >= 2;
-        const int col = c0 + 2 * t + (r & 1);
-        const float s = score(acc[r], ts, hi ? row_hi : row_lo, col, valid, causal);
-        const int e8 = (int)rintf(__fmul_rn(expf(__fsub_rn(s, hi ? m_hi : m_lo)), 127.0f));
-        ex[(g + (hi ? 8 : 0)) * L.lde + col] = (int8_t)e8;
-        if (hi) n_hi += e8; else n_lo += e8;
-      }
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      n_lo += __shfl_xor_sync(0xffffffffu, n_lo, o);
-      n_hi += __shfl_xor_sync(0xffffffffu, n_hi, o);
-    }
-    __syncwarp();
-
-    // 3c. out = (ex8 . v8) * (sv / max(norm, 1)), 64 head-dim columns at a time
-    const float f_lo = __fdiv_rn(sv, fmaxf((float)n_lo, 1.0f));
-    const float f_hi = __fdiv_rn(sv, fmaxf((float)n_hi, 1.0f));
+    float f_lo = 0.0f, f_hi = 0.0f;
     for (int d0 = 0; d0 < D; d0 += 64) {
       int acc[8][4];
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0;
-      for (int kk = 0; kk < L.SP; kk += 32) {
-        const int8_t* p = ex + g * L.lde + kk + t * 4;
-        const int a[4] = {ld32(p), ld32(p + 8 * L.lde), ld32(p + 16), ld32(p + 8 * L.lde + 16)};
+      for (int k0 = 0; k0 < L.SP; k0 += L.exw) {
+        const int kw = min(L.exw, L.SP - k0);  // keys in this pass, a multiple of 32
+        for (int c8 = 0; c8 < kw; c8 += 8) {
+          int sacc[4];
+          qk_tile(q8, k8, L, r0, k0 + c8, g, t, sacc);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          if (d0 + j * 8 >= D) break;  // warp-uniform: D is a multiple of 8
-          const int8_t* pb = vt + (d0 + j * 8 + g) * L.ldv + kk + t * 4;
-          const int b[2] = {ld32(pb), ld32(pb + 16)};
-          mma_s8(acc[j], a, b);
+          for (int r = 0; r < 4; ++r) {
+            const bool hi = r >= 2;
+            const int col = c8 + 2 * t + (r & 1);
+            const float s = score(sacc[r], ts, hi ? row_hi : row_lo, k0 + col, valid, causal);
+            const int e8 = (int)rintf(__fmul_rn(expf(__fsub_rn(s, hi ? m_hi : m_lo)), 127.0f));
+            ex[(g + (hi ? 8 : 0)) * L.lde + col] = (int8_t)e8;
+            if (d0 == 0) {
+              if (hi) n_hi += e8; else n_lo += e8;
+            }
+          }
         }
+        __syncwarp();
+        for (int kk = 0; kk < kw; kk += 32) {
+          const int8_t* p = ex + g * L.lde + kk + t * 4;
+          const int a[4] = {ld32(p), ld32(p + 8 * L.lde), ld32(p + 16), ld32(p + 8 * L.lde + 16)};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (d0 + j * 8 >= D) break;  // warp-uniform: D is a multiple of 8
+            const int8_t* pb = vt + (d0 + j * 8 + g) * L.ldv + k0 + kk + t * 4;
+            const int b[2] = {ld32(pb), ld32(pb + 16)};
+            mma_s8(acc[j], a, b);
+          }
+        }
+        __syncwarp();  // the next pass overwrites ex
+      }
+      if (d0 == 0) {  // the first pass has seen every key: the norms are complete
+#pragma unroll
+        for (int o = 1; o < 4; o <<= 1) {
+          n_lo += __shfl_xor_sync(0xffffffffu, n_lo, o);
+          n_hi += __shfl_xor_sync(0xffffffffu, n_hi, o);
+        }
+        // 3c. out = (ex8 . v8) * (sv / max(norm, 1))
+        f_lo = __fdiv_rn(sv, fmaxf((float)n_lo, 1.0f));
+        f_hi = __fdiv_rn(sv, fmaxf((float)n_hi, 1.0f));
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
@@ -248,7 +261,6 @@ __global__ void __launch_bounds__(NTHREADS)
         }
       }
     }
-    __syncwarp();  // the next query tile overwrites ex
   }
 }
 
@@ -269,8 +281,9 @@ int launch(const void* qkv, void* out, int B, int S, int H, int D, int valid, bo
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. D must be a multiple of 8. A
-// shape whose tiles exceed the shared memory of a block (S above ~700 at
-// D = 64) is refused by cudaFuncSetAttribute, and the error is returned.
+// shape whose tiles exceed the shared memory of a block (S above 928 at
+// D = 64, 672 at D = 80) is refused by cudaFuncSetAttribute, and the
+// error is returned; the wrapper refuses it before the call.
 extern "C" int qtt_mha_rows_int8(const void* qkv, void* out, int B, int S, int H, int D,
                                  int valid, int causal, float scale, int in_dtype, int out_dtype,
                                  void* stream) {

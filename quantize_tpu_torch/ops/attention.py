@@ -14,6 +14,12 @@ Pallas kernel's VMEM budget, goes to :func:`mha_oracle_rows` (JAX's
 K8, or to K9 with ``int8_scores`` (default: ``QTPU_ATTN_INT8=1`` in the
 environment, read at call time).
 
+Both kernels take every shape the dispatch sends them at the ViT family's
+widths (K8 up to S = 1,120 at head dims up to 80; K9 up to S = 928 at head
+dim 64 and 672 at 80, above the 776 and 456 the dispatch takes at ViT-B's
+and ViT-H/14's widths); a shape whose tiles do not fit in a block's shared
+memory raises ValueError before launch.
+
 * K8, :func:`mha_rows` (``csrc/mha_rows.cu``; :func:`mha_rows_plain` on CPU
   tensors), follows the Pallas ``_mha_rows_kernel`` exactly: q scaled in
   float32 and rounded to the product dtype (bf16 for a bf16 input),
@@ -36,6 +42,35 @@ import os
 import torch
 
 from . import _build
+
+# the shared memory one block may use on the H100 (227 KB)
+SMEM_PER_BLOCK = 232_448
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _mha_rows_smem(s: int, d: int) -> int:
+    """K8's shared memory per block (``csrc/mha_rows.cu: smem_bytes``): a
+    224-key chunk of K or V and the 32 query rows, D + 4 floats a row, and
+    the 32 x S score tile with S padded to 224."""
+    return 4 * ((224 + 32) * (d + 4) + 32 * _round_up(s, 224) + 32)
+
+
+def _mha_rows_int8_smem(s: int, d: int) -> int:
+    """K9's shared memory per block (``csrc/mha_rows_int8.cu: Layout``):
+    q8, k8 and the transposed v8 for all keys, and four warps' ex8 tiles of
+    16 rows x min(S, 256) keys."""
+    sp, dp = _round_up(s, 32), _round_up(d, 32)
+    ex = _round_up(2 * sp * (dp + 16) + d * (sp + 16), 16)
+    return _round_up(ex + 4 * 16 * (min(sp, 256) + 16), 16) + 4 * 3 * 4
+
+
+def _require_smem(what: str, nbytes: int, s: int, d: int) -> None:
+    if nbytes > SMEM_PER_BLOCK:
+        raise ValueError(f"{what}: S = {s} at head dim {d} needs {nbytes} bytes of shared "
+                         f"memory per block, above the limit of {SMEM_PER_BLOCK}")
 
 
 def _mha_ref(qkv: torch.Tensor, num_heads: int, causal: bool, out_dtype,
@@ -91,6 +126,7 @@ def mha_rows(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
     b, s, e, d = _split(qkv, num_heads, seq_len, "mha_rows")
     if d % 4:
         raise ValueError(f"mha_rows: head dim {d} must be a multiple of 4")
+    _require_smem("mha_rows", _mha_rows_smem(s, d), s, d)
     valid = int(valid_len) or s
     in_code, out_code = _build.dtype_code(qkv.dtype), _build.dtype_code(out_dtype)
     _build.require(qkv, "qkv", dev, qkv.dtype, (b * s, 3 * e))
@@ -165,6 +201,7 @@ def mha_rows_int8(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
     b, s, e, d = _split(qkv, num_heads, seq_len, "mha_rows_int8")
     if d % 8:
         raise ValueError(f"mha_rows_int8: head dim {d} must be a multiple of 8")
+    _require_smem("mha_rows_int8", _mha_rows_int8_smem(s, d), s, d)
     in_code, out_code = _build.dtype_code(qkv.dtype), _build.dtype_code(out_dtype)
     _build.require(qkv, "qkv", dev, qkv.dtype, (b * s, 3 * e))
     out = torch.empty((b * s, e), dtype=out_dtype, device=dev)

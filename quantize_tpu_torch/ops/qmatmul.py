@@ -14,8 +14,8 @@ tensors they run :func:`w8a8_gemm_plain` and :func:`w4a8_gemm_plain`.
 The weight-only product (:func:`quant_matmul_wo`) is float activations
 times int8 weights dequantized as ``(w + z)·s``: :func:`wo_gemm` launches
 ``csrc/wo_gemm.cu`` (the Pallas ``_wo_kernel``'s counterpart, dequantizing
-in the loader) on CUDA tensors and runs :func:`wo_gemm_plain` on CPU
-tensors.
+each int8 weight tile once in shared memory) on CUDA tensors and runs
+:func:`wo_gemm_plain` on CPU tensors.
 """
 from __future__ import annotations
 

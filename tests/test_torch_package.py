@@ -325,6 +325,30 @@ def test_cuda_wo_kernel_matches_its_plain_version(cuda_card, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 127, 14337])
+@pytest.mark.parametrize("n", [8, 1000, 3080])
+@pytest.mark.parametrize("k", [40, 3072])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wo_kernel_at_ragged_tile_edges(cuda_card, m, n, k, dtype):
+    """K5 where its 128 x 128 output tile and 64-deep K stage do not divide
+    the shape: M = 1, 127 and 14,337, N = 8, 1000 and 3,080 (the weight's
+    rows are then not 16-byte aligned, so the plain-load producer runs),
+    K = 40 and 3,072. Each output within the per-element limit."""
+    from quantize_tpu_torch.ops.qmatmul import wo_gemm_plain
+
+    g = torch.Generator().manual_seed(m + n + k)
+    x = (torch.randn(m, k, generator=g) * 2).to(dtype).cuda()
+    w = torch.randint(-8, 8, (k, n), generator=g, dtype=torch.int8).cuda()
+    w_s, w_z = (torch.rand(n, generator=g) * 0.01).cuda(), torch.randn(n, generator=g).cuda()
+    bias = torch.randn(n, generator=g).cuda() if (m + n) % 2 else None
+    got = wo_gemm(x, w, w_s, w_z, bias, torch.bfloat16)
+    want = wo_gemm_plain(x, w, w_s, w_z, bias, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    _assert_within_sum_order(got, want, x, w, w_s, w_z, bias, torch.bfloat16)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,s,h,d,valid,causal", [(4, 56, 12, 64, 50, False),
                                                   (2, 200, 12, 64, 197, False),
                                                   (3, 24, 2, 16, 17, True),

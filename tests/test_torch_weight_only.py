@@ -81,11 +81,13 @@ def pallas_backend():
     jqm.set_matmul_backend(prev)
 
 
-@pytest.mark.parametrize("m,k,n", [(37, 700, 1000), (300, 1030, 70), (5, 48, 24)])
+@pytest.mark.parametrize("m,k,n", [(37, 700, 1000), (300, 1030, 70), (5, 48, 24),
+                                   (127, 40, 1000), (1, 3072, 8)])
 @pytest.mark.parametrize("compute", ["float32", "bfloat16"])
 def test_wo_gemm_plain_matches_the_pallas_kernel(pallas_backend, m, k, n, compute):
     """Ragged M, N and K (K = 700 and 1030 are not multiples of the Pallas
-    block of 512; N = 1000 is the head's). f32 compute goes through JAX's
+    block of 512; N = 1000 is the head's; 127 x 40 x 1000 and 1 x 3072 x 8
+    are ragged at every edge of the CUDA kernel's 128 x 128 x 64 tile). f32 compute goes through JAX's
     ``quant_matmul_wo`` on the Pallas backend (which feeds ``_wo_call``
     float32); bf16 compute feeds ``_wo_call`` a bf16 x, which runs
     ``_wo_kernel``'s bf16 body."""
