@@ -1,5 +1,5 @@
-// Shared int8 tensor-core mainloop for the port's int8 kernels
-// (w8a8_gemm.cu, conv1x1_residual.cu, qconv2d.cu, w4a8_gemm.cu).
+// Shared int8 tensor-core mainloop for the port's mma.sync int8 kernels
+// (w8a8_gemm.cu, conv1x1_residual.cu, w4a8_gemm.cu).
 //
 // One block computes a BM x BN tile of C = A . W with int32 accumulation,
 // A (M, K) int8 row-major (or gathered on the fly from an NHWC image by

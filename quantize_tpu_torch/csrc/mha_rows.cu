@@ -21,10 +21,15 @@
 // memory, so the scores never reach device memory either, and that head's
 // K (then V) streams through shared memory in chunks of KCHUNK keys. Shared
 // memory is KCHUNK x D for the chunk, QT x D for q and QT x S for the
-// scores: 184 KB at S = 776, D = 64, and every S up to 1,120 fits for
-// D <= 80 (smem_bytes; the wrapper refuses larger shapes before launch).
+// scores. Two tilings, chosen per shape by the launcher (Tiling):
+// * wide: QT = 32 rows, KCHUNK = 224 keys (4 rows x 7 keys a thread), 184 KB
+//   at S = 776, D = 64; it takes every S up to 1,120 at D <= 80;
+// * narrow, for every shape the wide one does not fit: QT = 16 rows,
+//   KCHUNK = 64 keys (2 rows x 2 keys a thread), 165 KB at S = 1,280,
+//   D = 256, so every head dim up to 256 at every S the JAX dispatch
+//   admits fits (the wrapper refuses larger head dims).
 // Each score and each output sums its products in the same order whatever
-// the chunking. Pad query rows (row >= valid_len) come out
+// the tiling. Pad query rows (row >= valid_len) come out
 // finite: without causal they attend to the valid keys; with causal every
 // key is masked, m = -80, ex = 0 and the output is 0 / 1e-37 = 0.
 //
@@ -32,8 +37,9 @@
 // work is 4*B*H*S*S*D flops against a read of (B*S, 3E) and a write of
 // (B*S, E): bound by operations. The products run on the float32 CUDA cores
 // (both carries: bf16 operands are exact in float32, and the f32 carry must
-// not use TF32), register-blocked as 4 query rows x 7 keys per thread for
-// q.k and 4 rows x 2 columns for ex.v, fed by 16-byte shared-memory reads.
+// not use TF32), register-blocked as RPW query rows x KPL keys per thread
+// for q.k and RPW rows x 2 columns for ex.v, fed by 16-byte shared-memory
+// reads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -41,13 +47,24 @@
 
 namespace {
 
-constexpr int QT = 32;                 // query rows per block
 constexpr int WARPS = 8;
 constexpr int NTHREADS = WARPS * 32;
-constexpr int RPW = QT / WARPS;        // query rows per warp
-constexpr int KPL = 7;                 // keys per lane in one score chunk
-constexpr int KCHUNK = 32 * KPL;       // keys per score chunk
 constexpr int DPAD = 4;                // shared row padding (16-byte reads, no bank conflicts)
+constexpr size_t SMEM_LIMIT = 232448;  // shared memory a block may use (227 KB)
+
+// A tiling: RPW query rows per warp (QT = 8 * RPW per block) and KPL keys
+// per lane of a score chunk (KCHUNK = 32 * KPL keys)
+template <int RPW, int KPL>
+struct Tiling {
+  static constexpr int QT = WARPS * RPW;
+  static constexpr int KCHUNK = 32 * KPL;
+  static __host__ __device__ int keys_padded(int S) { return (S + KCHUNK - 1) / KCHUNK * KCHUNK; }
+  // Mirrored by quantize_tpu_torch/ops/attention.py: _mha_rows_smem.
+  static size_t smem_bytes(int S, int D) {
+    return sizeof(float) * ((size_t)(KCHUNK + QT) * (D + DPAD) + (size_t)QT * keys_padded(S) + QT);
+  }
+};
+using Wide = Tiling<4, 7>;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -76,13 +93,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__host__ __device__ __forceinline__ int keys_padded(int S) {
-  return (S + KCHUNK - 1) / KCHUNK * KCHUNK;
-}
-
 // Copies rows [j0, j0 + KCHUNK) of one D-wide slice of the qkv rows into
 // shared memory (row stride D + DPAD), zero-filling rows from S on.
-template <typename TI>
+template <int KCHUNK, typename TI>
 __device__ __forceinline__ void load_chunk(const TI* __restrict__ src, int64_t ld, int S, int j0,
                                            int D, float* __restrict__ dst) {
   const int ds = D + DPAD;
@@ -93,14 +106,17 @@ __device__ __forceinline__ void load_chunk(const TI* __restrict__ src, int64_t l
   }
 }
 
-template <typename TI, typename TO>
+template <typename TI, typename TO, int RPW, int KPL>
 __global__ void __launch_bounds__(NTHREADS)
     mha_rows_kernel(const TI* __restrict__ qkv, TO* __restrict__ out, int S, int H, int D,
                     int valid, bool causal, float scale) {
+  using TL = Tiling<RPW, KPL>;
+  constexpr int QT = TL::QT;
+  constexpr int KCHUNK = TL::KCHUNK;
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   const int ds = D + DPAD;
-  const int sk = keys_padded(S);
+  const int sk = TL::keys_padded(S);
   float* kv = sm;                      // [KCHUNK][ds]: a chunk of K, then of V
   float* qs = kv + KCHUNK * ds;        // [QT][ds]
   float* ps = qs + QT * ds;            // [QT][sk]: scores, then mm(ex)
@@ -126,7 +142,7 @@ __global__ void __launch_bounds__(NTHREADS)
   // scores: each thread RPW rows x KPL keys (key = chunk + lane + 32 * i)
   for (int j0 = 0; j0 < sk; j0 += KCHUNK) {
     __syncthreads();  // every warp is done with the previous chunk
-    load_chunk(base + E, ld, S, j0, D, kv);
+    load_chunk<KCHUNK>(base + E, ld, S, j0, D, kv);
     __syncthreads();
     float acc[RPW][KPL];
 #pragma unroll
@@ -198,7 +214,7 @@ __global__ void __launch_bounds__(NTHREADS)
     for (int rr = 0; rr < RPW; ++rr) acc[rr][0] = acc[rr][1] = 0.0f;
     for (int j0 = 0; j0 < s4; j0 += KCHUNK) {
       __syncthreads();  // every warp is done with K or the previous V chunk
-      load_chunk(base + 2 * E, ld, S, j0, D, kv);
+      load_chunk<KCHUNK>(base + 2 * E, ld, S, j0, D, kv);
       __syncthreads();
       if (!active) continue;
       const int j1 = min(s4, j0 + KCHUNK);
@@ -232,34 +248,39 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
-// Mirrored by quantize_tpu_torch/ops/attention.py: _mha_rows_smem.
-size_t smem_bytes(int S, int D) {
-  return sizeof(float) * ((size_t)(KCHUNK + QT) * (D + DPAD) + (size_t)QT * keys_padded(S) + QT);
+template <typename TI, typename TO, int RPW, int KPL>
+int launch_tiled(const void* qkv, void* out, int B, int S, int H, int D, int valid, bool causal,
+                 float scale, cudaStream_t stream) {
+  using TL = Tiling<RPW, KPL>;
+  const size_t smem = TL::smem_bytes(S, D);
+  cudaError_t err = cudaFuncSetAttribute(mha_rows_kernel<TI, TO, RPW, KPL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + TL::QT - 1) / TL::QT, H, B);
+  mha_rows_kernel<TI, TO, RPW, KPL><<<grid, NTHREADS, smem, stream>>>(
+      (const TI*)qkv, (TO*)out, S, H, D, valid, causal, scale);
+  return (int)cudaGetLastError();
 }
 
+// the wide tiling where it fits, else the narrow one
 template <typename TI, typename TO>
 int launch(const void* qkv, void* out, int B, int S, int H, int D, int valid, bool causal,
            float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(S, D);
-  cudaError_t err = cudaFuncSetAttribute(mha_rows_kernel<TI, TO>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + QT - 1) / QT, H, B);
-  mha_rows_kernel<TI, TO><<<grid, NTHREADS, smem, stream>>>((const TI*)qkv, (TO*)out, S, H, D,
-                                                             valid, causal, scale);
-  return (int)cudaGetLastError();
+  if (Wide::smem_bytes(S, D) <= SMEM_LIMIT)
+    return launch_tiled<TI, TO, 4, 7>(qkv, out, B, S, H, D, valid, causal, scale, stream);
+  return launch_tiled<TI, TO, 2, 2>(qkv, out, B, S, H, D, valid, causal, scale, stream);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. D must be a multiple of 4. A
-// shape whose tiles exceed the shared memory of a block (S above 1,120 at
-// D <= 80) is refused by cudaFuncSetAttribute, and the error is returned;
-// the wrapper refuses it before the call.
+// shape whose narrow tiles exceed the shared memory of a block (S above
+// 2,400 at D = 256) is refused by cudaFuncSetAttribute, and the error is
+// returned; the wrapper refuses it, and every D above 256, before the call.
 extern "C" int qtt_mha_rows(const void* qkv, void* out, int B, int S, int H, int D, int valid,
                             int causal, float scale, int in_dtype, int out_dtype,
                             void* stream) {
-  if (D % 4 != 0 || valid < 1 || valid > S || B > 65535 || H > 65535)
+  if (D % 4 != 0 || D > 256 || valid < 1 || valid > S || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const bool c = causal != 0;

@@ -37,11 +37,12 @@
 // forward over 73 launches, ~2.5 ms at 989 TFLOP/s) against ~0.2 GB moved
 // (A read once, the f32 output written once): bound by operations, at
 // 768 x 768 by the output's bytes.
-#include <cuda.h>  // CUtensorMap (types only; the encoder comes through the runtime)
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <cudaTypedefs.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
+
+using namespace qtt;
 
 namespace {
 
@@ -88,67 +89,6 @@ constexpr size_t smem_bytes() {
 }
 
 inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// -- mbarriers, cp.async and TMA --------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-// arrives, and the phase also waits for `bytes` of asynchronous copies
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// 16 bytes from global to shared; bytes past src_bytes (0 or 16) are zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-// the barrier sees this thread's arrival once its earlier cp.async are done
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// one TMA box of A (inner coordinate k, outer m) into shared memory; rows
-// and columns past the tensor arrive as zeros
-__device__ __forceinline__ void tma_load_a(void* dst, const CUtensorMap* map, int k, int m,
-                                           uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k), "r"(m), "r"(smem_addr(bar))
-      : "memory");
-}
 
 // -- layouts and conversions -----------------------------------------------------
 
@@ -238,15 +178,6 @@ __device__ __forceinline__ void dequant(const uint8_t* ws, uint8_t* bt, int ko, 
 }
 
 // -- the tensor-core product -----------------------------------------------------
-
-// The shared-memory descriptor of a B tile: start address, leading byte
-// offset 1 (unused by a swizzled K-major operand), stride byte offset 1,024
-// (8 rows of 128 bytes), 128-byte swizzle. A k16 step adds 32 bytes to the
-// start address (+2 in its 16-byte units).
-__device__ __forceinline__ uint64_t b_desc(const uint8_t* bt) {
-  return (uint64_t)((smem_addr(bt) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
 
 // D(64 x 256) = A(64 x 16, registers) . B(16 x 256, shared memory) (+ D if
 // accumulate): the first product of a tile clears the accumulators, so no
@@ -341,7 +272,7 @@ __device__ __forceinline__ void fill_a(int kt, const T* __restrict__ a, const CU
       mbar_arrive_expect_tx(&bars.full[st], AT::BYTES);
 #pragma unroll
       for (int b = 0; b < AT::BOXES; ++b)
-        tma_load_a(as + b * (BM * 128), a_map, k0 + b * AT::BOX_K, m0, &bars.full[st]);
+        tma_load_2d(as + b * (BM * 128), a_map, k0 + b * AT::BOX_K, m0, &bars.full[st]);
     }
     return;
   }
@@ -468,7 +399,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // the loaders are past this stage's W: refill it, STAGES steps ahead
     if (kt + STAGES < nk) fill_w<T>(kt + STAGES, w, N, K, n0, w_async, sm, bars, tid);
     // a k16 step is 32 bytes further into the swizzled rows (+2 in 16-byte units)
-    const uint64_t d0 = b_desc(sm + b * B_BYTES), d1 = d0 + 2, d2 = d0 + 4, d3 = d0 + 6;
+    const uint64_t d0 = sw128_desc(sm + b * B_BYTES), d1 = d0 + 2, d2 = d0 + 4, d3 = d0 + 6;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
     wgmma_m64n256k16(acc, af[0], d0, kt > 0);
     wgmma_m64n256k16(acc, af[1], d1, 1);
@@ -513,15 +444,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
 // (a row or base not 16-byte aligned) or the encoder is missing.
 template <typename T>
 bool a_tensor_map(CUtensorMap* map, const void* a, int M, int K) {
-  static PFN_cuTensorMapEncodeTiled encode = [] {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      fn = nullptr;
-    return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
-  }();
+  const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr || !aligned16(a) || ((int64_t)K * sizeof(T)) % 16 != 0) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)M};
   const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(T)};

@@ -35,8 +35,8 @@ from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, quant_conv2d, quant_conv2d_wo,
-                         s2d_block_padding, s2d_kernel, space_to_depth)
+from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, kmajor_weight, quant_conv2d,
+                         quant_conv2d_wo, s2d_block_padding, s2d_kernel, space_to_depth)
 from ..ops.layernorm import layernorm, layernorm_quant_int8
 from ..ops.qconv1x1 import conv1x1_residual
 from ..ops.qmatmul import (pack_int4_splithalf, quant_matmul_w4a8, quant_matmul_w8a8,
@@ -285,6 +285,29 @@ class QuantConv(_QuantLayerBase):
     def _contract(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv_nhwc(x, w, self.strides, self.padding, self.feature_group_count)
 
+    def _wz0(self) -> bool:
+        # zero == 0 exactly only for symmetric *signed* grids (unsigned
+        # symmetric packs with a +2^(b-1) shift folded into w_zero)
+        return bool(self.w_spec.symmetric and self.w_spec.qmin < 0)
+
+    def _s2d_stem(self) -> bool:
+        return (self.s2d and self.strides == (2, 2) and self._wz0()
+                and not isinstance(self.padding, str))
+
+    def put_var(self, collection: str, leaf: str, value: torch.Tensor) -> torch.Tensor:
+        out = super().put_var(collection, leaf, value)
+        if ((collection, leaf) == ("packed", "w_int") and self.a_spec.enabled
+                and not self.a_spec.per_channel):
+            # K3 reads the weight K-major: made here, once per packed weight
+            # (at pack or load time), as buffers outside the packed collection;
+            # for the stem also the space-to-depth weight and its copy
+            self.register_buffer("w_kmajor", kmajor_weight(out), persistent=False)
+            if self._s2d_stem():
+                w_s2d = s2d_kernel(out)
+                self.register_buffer("w_s2d", w_s2d, persistent=False)
+                self.register_buffer("w_s2d_kmajor", kmajor_weight(w_s2d), persistent=False)
+        return out
+
     def _store_weight(self, x: torch.Tensor, q_i8: torch.Tensor) -> None:
         if self.w_spec.n_bits <= 4 and q_i8.shape[2] % 2 == 0:
             raise _not_ported("int4 conv weight packing for an even input channel count (w_p4c)")
@@ -324,9 +347,7 @@ class QuantConv(_QuantLayerBase):
         a_scale, a_zero = act
         corr_a = self.get_var("packed", "corr_a") if self.has_var("packed", "corr_a") else None
         q_a, z_eff = quantize_act_int8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax)
-        # zero == 0 exactly only for symmetric *signed* grids (unsigned
-        # symmetric packs with a +2^(b-1) shift folded into w_zero)
-        wz0 = bool(w_spec.symmetric and w_spec.qmin < 0)
+        wz0 = self._wz0()
         pad_zero = (self.padding.upper() in ("VALID", "SAME")
                     if isinstance(self.padding, str)  # identical for 1x1/s1
                     else tuple(map(tuple, self.padding)) == ((0, 0), (0, 0)))
@@ -334,19 +355,20 @@ class QuantConv(_QuantLayerBase):
                 and self.strides == (1, 1)):
             return conv1x1_residual(q_a, z_eff, a_scale, w_int, w_scale, bias, residual,
                                     relu=fuse_relu, out_dtype=packed_carry_dtype())
-        x_sh, conv_kw = x, dict(strides=self.strides, padding=self.padding)
-        if self.s2d and self.strides == (2, 2) and wz0 and not isinstance(self.padding, str):
+        x_sh, conv_kw, w_km = x, dict(strides=self.strides, padding=self.padding), self.w_kmajor
+        if self._s2d_stem():
             kh, kw = w_int.shape[:2]
             bp = s2d_block_padding(kh, kw, list(self.padding), x.shape[1], x.shape[2])
             if bp is not None and corr_a is not None:
                 # exact rewrite: stride-1 conv over 2x2 depth-stacked input;
                 # the pack-time corr_a carries over (same output grid)
                 q_a = space_to_depth(q_a)
-                w_int = s2d_kernel(w_int)
+                w_int, w_km = self.w_s2d, self.w_s2d_kmajor
                 x_sh, conv_kw = q_a, dict(strides=(1, 1), padding=bp)
         out = quant_conv2d(x_sh, a_scale, a_zero, a_spec.qmin, a_spec.qmax, w_int, w_scale,
                            w_zero, bias, w_zero_is_zero=wz0, corr_a=corr_a,
-                           pre_q=(q_a, z_eff), out_dtype=packed_carry_dtype(), **conv_kw)
+                           pre_q=(q_a, z_eff), out_dtype=packed_carry_dtype(), w_km=w_km,
+                           **conv_kw)
         return _finish(out)
 
     def forward(self, x: torch.Tensor, mode: str = "fp32", residual=None,

@@ -11,6 +11,8 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
 * K7 :func:`~.layernorm.layernorm_quant_int8_rows` (``csrc/layernorm.cu``)
 * K8 :func:`~.attention.mha_rows` (``csrc/mha_rows.cu``)
 * K9 :func:`~.attention.mha_rows_int8` (``csrc/mha_rows_int8.cu``)
+* KQ :func:`~.qmatmul.quantize_act_int8` (``csrc/quantize_act.cu``; the
+  activation quantize, an XLA fusion in JAX)
 """
 from .attention import mha_fused_qkv, mha_fused_qkv_rows, mha_rows, mha_rows_int8
 from .layernorm import layernorm_quant_int8, layernorm_quant_int8_rows, layernorm_rows
@@ -30,6 +32,7 @@ KERNEL_WRAPPERS = {
     "mha_rows": mha_rows,
     "wo_gemm": wo_gemm,
     "mha_rows_int8": mha_rows_int8,
+    "quantize_act_int8": quantize_act_int8,
 }
 
 

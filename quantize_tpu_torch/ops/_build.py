@@ -30,7 +30,7 @@ _F = ctypes.c_float
 KERNELS = {
     "w8a8_gemm": ("w8a8_gemm", "qtt_w8a8_gemm", [_P] * 9 + [_I] * 4 + [_P]),
     "conv1x1_residual": ("conv1x1_residual", "qtt_conv1x1_residual", [_P] * 9 + [_I] * 6 + [_P]),
-    "qconv2d": ("qconv2d", "qtt_qconv2d", [_P] * 9 + [_I] * 15 + [_P]),
+    "qconv2d": ("qconv2d", "qtt_qconv2d", [_P] * 9 + [_I] * 16 + [_P]),
     "w4a8_gemm": ("w4a8_gemm", "qtt_w4a8_gemm", [_P] * 9 + [_I] * 4 + [_P]),
     "layernorm": ("layernorm", "qtt_layernorm", [_P] * 4 + [_I] * 2 + [_F] + [_I] * 2 + [_P]),
     "layernorm_quant_int8": ("layernorm", "qtt_layernorm_q",
@@ -39,6 +39,8 @@ KERNELS = {
     "wo_gemm": ("wo_gemm", "qtt_wo_gemm", [_P] * 6 + [_I] * 4 + [_P]),
     "mha_rows_int8": ("mha_rows_int8", "qtt_mha_rows_int8",
                       [_P] * 2 + [_I] * 6 + [_F] + [_I] * 2 + [_P]),
+    "quantize_act_int8": ("quantize_act", "qtt_quantize_act",
+                          [_P] * 4 + [ctypes.c_longlong] + [_I] * 3 + [_P]),
 }
 LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

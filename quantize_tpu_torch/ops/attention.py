@@ -14,11 +14,15 @@ Pallas kernel's VMEM budget, goes to :func:`mha_oracle_rows` (JAX's
 K8, or to K9 with ``int8_scores`` (default: ``QTPU_ATTN_INT8=1`` in the
 environment, read at call time).
 
-Both kernels take every shape the dispatch sends them at the ViT family's
-widths (K8 up to S = 1,120 at head dims up to 80; K9 up to S = 928 at head
-dim 64 and 672 at 80, above the 776 and 456 the dispatch takes at ViT-B's
-and ViT-H/14's widths); a shape whose tiles do not fit in a block's shared
-memory raises ValueError before launch.
+Both kernels take every shape the dispatch sends them at head dims up to
+256 (a multiple of 8, as the dispatch requires), in float32 and bf16,
+causal or not: their shared memory stays within a block's at every S the
+dispatch admits (:func:`_mha_rows_smem`, :func:`_mha_rows_int8_smem`;
+where all rows do not fit, K8 narrows its tiles and K9 takes q in 64-row
+groups and quantizes k and v chunk by chunk). A head dim above 256 raises
+ValueError naming it, as does a shape whose tiles would not fit, before
+launch; no model of the repository or of the public ViT and CLIP families
+has such a head dim.
 
 * K8, :func:`mha_rows` (``csrc/mha_rows.cu``; :func:`mha_rows_plain` on CPU
   tensors), follows the Pallas ``_mha_rows_kernel`` exactly: q scaled in
@@ -52,22 +56,50 @@ def _round_up(v: int, m: int) -> int:
 
 
 def _mha_rows_smem(s: int, d: int) -> int:
-    """K8's shared memory per block (``csrc/mha_rows.cu: smem_bytes``): a
-    224-key chunk of K or V and the 32 query rows, D + 4 floats a row, and
-    the 32 x S score tile with S padded to 224."""
-    return 4 * ((224 + 32) * (d + 4) + 32 * _round_up(s, 224) + 32)
+    """K8's shared memory per block (``csrc/mha_rows.cu: Tiling``): a chunk
+    of K or V and the query rows, D + 4 floats a row, and the query rows'
+    score tile with S padded to the chunk. The wide tiling (32 rows,
+    224-key chunks) where it fits, else the narrow one (16 rows, 64 keys)."""
+    def tiling(qt: int, kchunk: int) -> int:
+        return 4 * ((kchunk + qt) * (d + 4) + qt * _round_up(s, kchunk) + qt)
+
+    wide = tiling(32, 224)
+    return wide if wide <= SMEM_PER_BLOCK else tiling(16, 64)
+
+
+def _mha_rows_int8_layout(s: int, d: int, qg: int, kc: int) -> int:
+    """K9's shared memory for ``qg`` query rows and ``kc`` keys held at a
+    time (``csrc/mha_rows_int8.cu: Layout``): q8 and k8, the transposed v8,
+    four warps' ex8 tiles of 16 rows x min(kc, 256) keys and, when the keys
+    come in more than one chunk, the int32 partial AV sums."""
+    sp, dp = _round_up(s, 32), _round_up(d, 32)
+    ex = _round_up((qg + kc) * (dp + 16) + d * (kc + 16), 16)
+    acc = _round_up(ex + 4 * 16 * (min(kc, 256) + 16), 16)
+    red = _round_up(acc + (qg * d * 4 if kc < sp else 0), 16)
+    return red + 4 * 3 * 4
 
 
 def _mha_rows_int8_smem(s: int, d: int) -> int:
-    """K9's shared memory per block (``csrc/mha_rows_int8.cu: Layout``):
-    q8, k8 and the transposed v8 for all keys, and four warps' ex8 tiles of
-    16 rows x min(S, 256) keys."""
-    sp, dp = _round_up(s, 32), _round_up(d, 32)
-    ex = _round_up(2 * sp * (dp + 16) + d * (sp + 16), 16)
-    return _round_up(ex + 4 * 16 * (min(sp, 256) + 16), 16) + 4 * 3 * 4
+    """K9's shared memory per block: all rows resident where they fit, else
+    64-row query groups over key chunks of 256, 128, 64 or 32, the largest
+    that fits (``Layout::choose``)."""
+    sp = _round_up(s, 32)
+    choices = [(sp, sp)] + [(64, kc) for kc in (256, 128, 64, 32) if kc < sp]
+    for qg, kc in choices:
+        nbytes = _mha_rows_int8_layout(s, d, qg, kc)
+        if nbytes <= SMEM_PER_BLOCK:
+            break
+    return nbytes
+
+
+# the largest head dim the kernels take
+MAX_HEAD_DIM = 256
 
 
 def _require_smem(what: str, nbytes: int, s: int, d: int) -> None:
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: head dim {d} is above {MAX_HEAD_DIM}, the largest the "
+                         f"kernel takes")
     if nbytes > SMEM_PER_BLOCK:
         raise ValueError(f"{what}: S = {s} at head dim {d} needs {nbytes} bytes of shared "
                          f"memory per block, above the limit of {SMEM_PER_BLOCK}")

@@ -19,7 +19,7 @@ from typing import Tuple
 import torch
 
 from . import _build
-from .qmatmul import quantize_act_int8
+from .qmatmul import quantize_act_int8_plain
 
 
 def _ln_math(x32: torch.Tensor, g32: torch.Tensor, b32: torch.Tensor, eps: float) -> torch.Tensor:
@@ -87,9 +87,11 @@ def layernorm_quant_int8_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch
                                eps: float, a_scale: torch.Tensor, a_zero: torch.Tensor,
                                qmin: int, qmax: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of kernel K7 over (R, d) rows: :func:`_ln_math`, then
-    :func:`~quantize_tpu_torch.ops.qmatmul.quantize_act_int8`."""
+    the plain activation quantize
+    (:func:`~quantize_tpu_torch.ops.qmatmul.quantize_act_int8_plain`), so it
+    launches no kernel on the card either."""
     y = _ln_math(x.float(), scale.float(), bias.float(), eps)
-    return quantize_act_int8(y, a_scale, a_zero, qmin, qmax)
+    return quantize_act_int8_plain(y, a_scale, a_zero, qmin, qmax)
 
 
 def layernorm_quant_int8_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

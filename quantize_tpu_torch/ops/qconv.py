@@ -7,7 +7,12 @@ the int8 conv through XLA (``conv_general_dilated(int8, int8) -> int32``);
 stock PyTorch has no CUDA int8 convolution, so :func:`qconv2d_int8` launches
 the hand-written implicit-GEMM kernel ``csrc/qconv2d.cu`` on CUDA tensors
 and runs :func:`qconv2d_int8_plain` on CPU tensors. Layouts are NHWC
-activations and HWIO kernels, as in JAX.
+activations and HWIO kernels, as in JAX. The kernel (8-bit ``wgmma``) reads
+the weight as a K-major copy (:func:`kmajor_weight`), which a packed
+:class:`~quantize_tpu_torch.nn.layers.QuantConv` makes once, when its weight
+is packed or loaded, and keeps outside the packed variables; it takes Ci in
+multiples of 16: the wrapper zero-pads fewer channels (the space-to-depth
+stem's 12, ViT's patch embedding's 3), which adds nothing to the sums.
 
 The int8 conv pads with q = 0, but a padded position must contribute zero
 to the float result while a real q = 0 position contributes ``z_a·s_a·ŵ``;
@@ -90,9 +95,11 @@ def qconv2d_int8_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Te
                        w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
                        bias: Optional[torch.Tensor], strides: Sequence[int],
                        pads, corr_a: torch.Tensor, w_zero_is_zero: bool,
-                       out_dtype: torch.dtype) -> torch.Tensor:
+                       out_dtype: torch.dtype,
+                       w_km: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of kernel K3 (integer sums exact in float64), with the
-    epilogue in the order of ``quantize_tpu/ops/qconv.py:quant_conv2d``."""
+    epilogue in the order of ``quantize_tpu/ops/qconv.py:quant_conv2d``.
+    ``w_km``, the kernel's own copy of the weight, is not read."""
     acc = int8_conv_exact(q_a, w_int, strides, pads).float()
     corrected = acc + z_eff * corr_a
     if not w_zero_is_zero:
@@ -111,15 +118,26 @@ def qconv2d_int8_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Te
     return out.to(out_dtype)
 
 
+def kmajor_weight(w_int: torch.Tensor) -> torch.Tensor:
+    """The (Co, KH*KW*Ci') K-major copy of an HWIO int8 kernel, the layout
+    8-bit ``wgmma`` reads: row co holds ``w_int[..., co]`` flattened in
+    (kh, kw, ci) order, with Ci zero-padded to Ci', the next multiple of 16."""
+    kh, kw, ci, co = w_int.shape
+    ci_pad = -(-ci // 16) * 16
+    return F.pad(w_int, (0, 0, 0, ci_pad - ci)).reshape(kh * kw * ci_pad, co).t().contiguous()
+
+
 def qconv2d_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
                  w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
                  bias: Optional[torch.Tensor], strides: Sequence[int], pads,
                  corr_a: torch.Tensor, w_zero_is_zero: bool,
-                 out_dtype: torch.dtype) -> torch.Tensor:
+                 out_dtype: torch.dtype,
+                 w_km: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K3: int8 NHWC ``q_a`` (N, H, W, Ci) conv int8 HWIO ``w_int``
     with explicit ``pads`` ((top, bottom), (left, right)) and the W8A8
-    epilogue; ``corr_a`` is the (1, H', W', Co) f32 correction map. Returns
-    (N, H', W', Co) in ``out_dtype``."""
+    epilogue; ``corr_a`` is the (1, H', W', Co) f32 correction map.
+    ``w_km`` is ``kmajor_weight(w_int)`` made beforehand (made here when
+    None). Returns (N, H', W', Co) in ``out_dtype``."""
     dev = q_a.device
     if dev.type == "cpu":
         return qconv2d_int8_plain(q_a, z_eff, a_scale, w_int, w_scale, w_zero, bias,
@@ -142,13 +160,20 @@ def qconv2d_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
     _build.require(a_scale, "a_scale", dev, torch.float32, ())
     _build.require(z_eff, "z_eff", dev, torch.float32, ())
     out_code = _build.dtype_code(out_dtype)
+    ci_pad = -(-ci // 16) * 16
+    if w_km is None:
+        w_km = kmajor_weight(w_int)
+    _build.require(w_km, "w_km", dev, torch.int8, (co, kh * kw * ci_pad))
     out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=dev)
+    # zero channels up to a multiple of 16: the kernel gathers 16-byte pieces
+    # of one tap; the z_w terms count the real ci
+    x = F.pad(q_a, (0, ci_pad - ci)) if ci_pad != ci else q_a
     fn = _build.kernel_fn("qconv2d")
     with torch.cuda.device(dev):
-        err = fn(_build.ptr(q_a), _build.ptr(w_int), _build.ptr(corr_a),
+        err = fn(_build.ptr(x), _build.ptr(w_km), _build.ptr(corr_a),
                  _build.ptr(w_scale), _build.ptr(w_zero), _build.ptr(bias),
                  _build.ptr(a_scale), _build.ptr(z_eff), _build.ptr(out),
-                 n, h, w_sp, ci, oh, ow, co, kh, kw, sh, sw, pt, pl,
+                 n, h, w_sp, ci_pad, oh, ow, co, kh, kw, sh, sw, pt, pl, ci,
                  int(bool(w_zero_is_zero)), out_code, _build.current_stream(dev))
     _build.check(err, "qconv2d")
     qconv2d_int8.launches += 1
@@ -175,12 +200,14 @@ def quant_conv2d(
     corr_a: Optional[torch.Tensor] = None,
     pre_q: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     out_dtype: Optional[torch.dtype] = None,
+    w_km: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused W8A8 conv2d (per-out-channel weight scales, per-tensor act).
 
     ``pre_q``: the already-quantized input ``(q_int8, z_eff)`` (``x`` is
     then only read for its shape). ``out_dtype``: the dtype of the result
-    (the epilogue stays f32).
+    (the epilogue stays f32). ``w_km``: ``kmajor_weight(w_int)``, made once
+    by the caller that holds the weight.
     """
     if groups != 1:
         raise NotImplementedError(
@@ -205,7 +232,7 @@ def quant_conv2d(
         w_int.contiguous(), w_scale.float().reshape(-1), w_zero.float().reshape(-1),
         None if bias is None else bias.float(), tuple(strides), pads,
         corr_a.float().contiguous(), w_zero_is_zero,
-        torch.float32 if out_dtype is None else out_dtype)
+        torch.float32 if out_dtype is None else out_dtype, w_km)
     return out
 
 

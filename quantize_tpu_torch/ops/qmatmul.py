@@ -1,5 +1,6 @@
-"""Quantized matmuls: activation quantize, W8A8 (kernel K1), W4A8 over
-split-half int4 weights (kernel K4) and the weight-only product (kernel K5).
+"""Quantized matmuls: the activation quantize (kernel KQ), W8A8 (kernel K1),
+W4A8 over split-half int4 weights (kernel K4) and the weight-only product
+(kernel K5).
 
 PyTorch counterpart of ``quantize_tpu/ops/pallas/qmatmul.py``. Both JAX
 backends (the Pallas kernels and the XLA twins) compute
@@ -26,9 +27,10 @@ import torch
 from . import _build
 
 
-def quantize_act_int8(x: torch.Tensor, scale, zero, qmin: int, qmax: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float -> int8 with the unsigned grid shifted into int8 range.
+def quantize_act_int8_plain(x: torch.Tensor, scale, zero, qmin: int, qmax: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of kernel KQ: float -> int8 with the unsigned grid
+    shifted into int8 range.
 
     Returns ``(q_int8, effective_zero_f32)``. The grid index is computed in
     f32 with a true division (as JAX does), also for bf16 inputs: bf16's
@@ -41,6 +43,43 @@ def quantize_act_int8(x: torch.Tensor, scale, zero, qmin: int, qmax: int
         q = q - 128.0
         z_eff = z_eff + 128.0
     return q.to(torch.int8), z_eff
+
+
+def quantize_act_int8(x: torch.Tensor, scale, zero, qmin: int, qmax: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel KQ, the activation quantize of ``quantize_tpu/ops/pallas/
+    qmatmul.py:quantize_act_int8`` (an XLA fusion in JAX, no pallas_call):
+    ``x`` f32 or bf16 of any shape, per-tensor ``scale`` and ``zero``.
+    Returns ``(q_int8, z_eff)`` as :func:`quantize_act_int8_plain`.
+
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/quantize_act.cu`` (one pass, scale and zero read on the device,
+    no host sync) or raise.
+    """
+    dev = x.device
+    if dev.type == "cpu":
+        return quantize_act_int8_plain(x, scale, zero, qmin, qmax)
+    if dev.type != "cuda":
+        raise ValueError(f"quantize_act_int8: unsupported device {dev}")
+    scale = torch.as_tensor(scale, dtype=torch.float32, device=dev)
+    zero = torch.as_tensor(zero, dtype=torch.float32, device=dev)
+    if scale.numel() != 1 or zero.numel() != 1:
+        raise ValueError("quantize_act_int8: the kernel takes one per-tensor scale and zero, "
+                         f"got {scale.numel()} and {zero.numel()} values")
+    scale, zero = scale.reshape(()).contiguous(), zero.reshape(()).contiguous()
+    in_code = _build.dtype_code(x.dtype)
+    x = x.contiguous()
+    q = torch.empty(x.shape, dtype=torch.int8, device=dev)
+    fn = _build.kernel_fn("quantize_act_int8")
+    with torch.cuda.device(dev):
+        err = fn(_build.ptr(x), _build.ptr(q), _build.ptr(scale), _build.ptr(zero), x.numel(),
+                 int(qmin), int(qmax), in_code, _build.current_stream(dev))
+    _build.check(err, "quantize_act_int8")
+    quantize_act_int8.launches += 1
+    return q, (zero + 128.0 if qmin >= 0 else zero)
+
+
+quantize_act_int8.launches = 0
 
 
 def int8_matmul_exact(q_a: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:

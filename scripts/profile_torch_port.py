@@ -14,8 +14,8 @@ packed forwards with torch.profiler and prints device time per forward by
 kernel name and by group (the port's kernels, cuBLAS matrix products,
 torch elementwise kernels, other), the device's busy share of the traced
 wall time, and the device time under ranges this script marks around the
-port's calls: every ``quantize_act_int8`` (the torch activation quantize
-passes), every ``quant_matmul_wo`` (the weight-only products, kernel K5
+port's calls: every ``quantize_act_int8`` (the activation quantize, kernel
+KQ), every ``quant_matmul_wo`` (the weight-only products, kernel K5
 and the operand casts around it), every ``unpack_int4_splithalf`` (the
 per-call unpack of split-half int4 weights) and every
 ``quant_conv2d_wo`` (the weight-only patch conv). Needs a CUDA card and
@@ -32,9 +32,9 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PORT_KERNELS = ("w8a8_gemm_kernel", "conv1x1_res_kernel", "qconv2d_kernel", "w4a8_gemm_kernel",
-                "ln_kernel", "ln_q_kernel", "mha_rows_kernel", "wo_gemm_kernel",
-                "mha_rows_int8_kernel")
+PORT_KERNELS = ("w8a8_gemm_kernel", "conv1x1_res_kernel", "qconv2d_wgmma_kernel",
+                "w4a8_gemm_kernel", "ln_kernel", "ln_q_kernel", "mha_rows_kernel",
+                "wo_gemm_kernel", "mha_rows_int8_kernel", "quantize_act_kernel")
 RANGES = ("quantize_act_int8", "quant_matmul_wo", "unpack_int4_splithalf", "quant_conv2d_wo")
 
 

@@ -22,9 +22,10 @@ from quantize_tpu_torch.models.vit import VisionTransformer
 from quantize_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from quantize_tpu_torch.ops.attention import mha_rows, mha_rows_int8
 from quantize_tpu_torch.ops.layernorm import layernorm_quant_int8_rows, layernorm_rows
-from quantize_tpu_torch.ops.qconv import qconv2d_int8
+from quantize_tpu_torch.ops.qconv import kmajor_weight, qconv2d_int8
 from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual_gemm
-from quantize_tpu_torch.ops.qmatmul import pack_int4_splithalf, w4a8_gemm, w8a8_gemm, wo_gemm
+from quantize_tpu_torch.ops.qmatmul import (pack_int4_splithalf, quantize_act_int8, w4a8_gemm,
+                                            w8a8_gemm, wo_gemm)
 
 torch.set_num_threads(2)
 
@@ -67,7 +68,7 @@ def test_every_kernel_has_its_source_and_a_launch_counter():
     for name, (lib, sym, _) in _build.KERNELS.items():
         assert f"extern \"C\" int {sym}(" in (PORT / "csrc" / f"{lib}.cu").read_text(), name
     for fn in (w8a8_gemm, conv1x1_residual_gemm, qconv2d_int8, w4a8_gemm, layernorm_rows,
-               layernorm_quant_int8_rows, mha_rows, wo_gemm, mha_rows_int8):
+               layernorm_quant_int8_rows, mha_rows, wo_gemm, mha_rows_int8, quantize_act_int8):
         assert isinstance(fn.launches, int)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "quantize_tpu_torch/_build/" in gitignore
@@ -109,7 +110,7 @@ def test_cpu_tensors_take_the_plain_versions_without_counting():
     assert all(np.isfinite(o.float().numpy()).all() for o in outs)
 
 
-@pytest.mark.parametrize("which", [0, 1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("which", [0, 1, 2, 3, 4, 5, 6, 7, 8, 9])
 def test_other_devices_raise_instead_of_falling_back(which):
     a = _kernel_args("meta")
     z, s = a["scalars"]
@@ -129,6 +130,7 @@ def test_other_devices_raise_instead_of_falling_back(which):
         lambda: mha_rows(v["qkv"], 2, 8, False, torch.float32, 0),
         lambda: wo_gemm(v["x"], v["w8"], v["vec"], v["vec"], None, torch.bfloat16),
         lambda: mha_rows_int8(v["qkv"], 2, 8, False, torch.float32, 0),
+        lambda: quantize_act_int8(v["x"], s, z, 0, 255),
     ]
     with pytest.raises(ValueError, match="unsupported device"):
         calls[which]()
@@ -412,3 +414,154 @@ def test_resnext_runs_float_modes_and_raises_in_packed_grouped_conv():
         assert model(torch.from_numpy(x), mode="quant").shape == (1, 4)
         with pytest.raises(NotImplementedError, match="grouped"):
             model(torch.from_numpy(x), mode="packed")
+
+
+def test_kmajor_weight_is_the_transposed_kernel_made_once():
+    """K3 reads the HWIO kernel as (Co, KH*KW*Ci) rows, Ci zero-padded to a
+    multiple of 16. A packed QuantConv makes that copy once, when its weight
+    is packed or loaded, as a buffer outside the packed collection (for the
+    space-to-depth stem, of the rewritten weight); forwards reuse it and a
+    new weight replaces it."""
+    from quantize_tpu_torch.nn.layers import LayerQuantCfg, QuantConv
+    from quantize_tpu_torch.ops.qconv import s2d_kernel
+
+    g = torch.Generator().manual_seed(5)
+    w = torch.randint(-128, 128, (3, 3, 16, 24), generator=g).to(torch.int8)
+    w_km = kmajor_weight(w)
+    assert w_km.shape == (24, 144) and w_km.is_contiguous()
+    for kh, kw, ci, co in ((0, 0, 0, 0), (2, 1, 15, 23), (1, 2, 7, 5)):
+        assert int(w_km[co, (kh * 3 + kw) * 16 + ci]) == int(w[kh, kw, ci, co])
+    # Ci = 12 (the space-to-depth stem) pads to 16 channels of zeros
+    w12 = torch.randint(-128, 128, (4, 4, 12, 64), generator=g).to(torch.int8)
+    w_km = kmajor_weight(w12).reshape(64, 4, 4, 16)
+    assert torch.equal(w_km[..., :12], w12.permute(3, 0, 1, 2)) and not w_km[..., 12:].any()
+
+    quant = LayerQuantCfg(
+        weight={"n_bits": 8, "symmetric": True, "granularity": "channel",
+                "range": {"name": "minmax"}},
+        activation={"n_bits": 8, "symmetric": False, "range": {"name": "minmax"}})
+    conv = QuantConv(3, 8, (7, 7), (2, 2), padding=[(3, 3), (3, 3)], quant=quant, s2d=True,
+                     device="cpu")
+    conv.init_params(g)
+    x = torch.randn((2, 16, 16, 3), generator=g)
+    with torch.no_grad():
+        conv(x, mode="calibrate")
+        conv(x, mode="pack")
+        w_int = conv.get_var("packed", "w_int")
+        assert torch.equal(conv.w_kmajor, kmajor_weight(w_int))
+        assert torch.equal(conv.w_s2d_kmajor, kmajor_weight(s2d_kernel(w_int)))
+        assert "w_kmajor" not in conv.state_dict()
+        assert not any("kmajor" in leaf for _, leaf, _ in conv.own_vars())
+        made = conv.w_s2d_kmajor
+        out = conv(x, mode="packed")
+        assert conv.w_s2d_kmajor is made
+        assert torch.equal(conv(x, mode="packed"), out)
+        conv.put_var("packed", "w_int", w_int.neg())
+        assert torch.equal(conv.w_kmajor, kmajor_weight(w_int.neg()))
+        assert torch.equal(conv.w_s2d_kmajor, kmajor_weight(s2d_kernel(w_int.neg())))
+
+
+# -- KQ, the activation quantize, on the card --------------------------------
+
+KQ_SHAPES = [((32, 224, 224, 3), torch.float32), ((32, 56, 56, 256), torch.float32),
+             ((32, 7, 7, 2048), torch.bfloat16), ((32, 2048), torch.float32),
+             ((25600, 3072), torch.float32), ((25600, 3072), torch.bfloat16),
+             ((1,), torch.float32), ((17,), torch.bfloat16), ((1000003,), torch.float32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", KQ_SHAPES)
+@pytest.mark.parametrize("qmin,qmax", [(0, 255), (-128, 127)])
+def test_cuda_activation_quantize_is_bit_equal_to_its_plain_version(cuda_card, shape, dtype,
+                                                                    qmin, qmax):
+    """KQ at ResNet-50 (batch 32) and ViT-B/16 (batch 128, fc2 input) shapes
+    and odd lengths (the masked tail), values spread past both ends of the
+    grid and placed on its half-integers: every int8 value and z_eff equal."""
+    from quantize_tpu_torch.ops.qmatmul import quantize_act_int8_plain
+
+    g = torch.Generator(device="cuda").manual_seed(len(shape))
+    scale = torch.tensor(0.037, device="cuda")
+    zero = torch.tensor(-97.0 if qmin >= 0 else 3.0, device="cuda")
+    x = torch.randn(shape, generator=g, device="cuda") * 6
+    half = (torch.randint(-140, 140, shape, generator=g, device="cuda") + 0.5 + zero) * scale
+    x = torch.where(torch.rand(shape, generator=g, device="cuda") < 0.25, half, x).to(dtype)
+    reset_launch_counts()
+    q, z_eff = quantize_act_int8(x, scale, zero, qmin, qmax)
+    q_p, z_p = quantize_act_int8_plain(x, scale, zero, qmin, qmax)
+    torch.cuda.synchronize()
+    assert launch_counts()["quantize_act_int8"] == 1
+    assert q.dtype == torch.int8 and q.shape == x.shape
+    assert int((q != q_p).sum()) == 0
+    assert float(z_eff) == float(z_p)
+
+
+@pytest.mark.cuda
+def test_cuda_activation_quantize_unaligned_and_without_host_sync(cuda_card):
+    """A view that starts off a 16-byte boundary takes the kernel's
+    one-value path, bit-equal too; with scale and zero on the device the
+    call never synchronizes with the host."""
+    from quantize_tpu_torch.ops.qmatmul import quantize_act_int8_plain
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    base = torch.randn(4099, generator=g, device="cuda") * 4
+    x = base[3:]
+    scale, zero = torch.tensor(0.02, device="cuda"), torch.tensor(-128.0, device="cuda")
+    quantize_act_int8(x, scale, zero, 0, 255)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        q, _ = quantize_act_int8(x, scale, zero, 0, 255)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(q, quantize_act_int8_plain(x, scale, zero, 0, 255)[0])
+
+
+# -- K3 at ResNet-50's conv shapes ----------------------------------------------
+
+# (N, H, W, Ci), (KH, KW, Co), strides, padding: every ResNet-50 conv class,
+# then ragged cases
+K3_SHAPES = {
+    "stem_s2d_ci12": ((4, 112, 112, 12), (4, 4, 64), (1, 1), ((2, 1), (2, 1))),
+    "1x1_s1": ((4, 56, 56, 256), (1, 1, 64), (1, 1), "SAME"),
+    "3x3_s1": ((4, 56, 56, 64), (3, 3, 64), (1, 1), "SAME"),
+    "3x3_s1_c256": ((4, 14, 14, 256), (3, 3, 256), (1, 1), "SAME"),
+    "3x3_s2": ((4, 56, 56, 128), (3, 3, 128), (2, 2), "SAME"),
+    "downsample_1x1_s2": ((4, 56, 56, 256), (1, 1, 512), (2, 2), "SAME"),
+    "1x1_c2048": ((4, 7, 7, 512), (1, 1, 2048), (1, 1), "SAME"),
+    "co1000": ((3, 9, 11, 64), (3, 3, 1000), (1, 1), "SAME"),
+    "patch_ci3": ((2, 224, 224, 3), (16, 16, 768), (16, 16), "VALID"),
+    "ci16_co24": ((3, 10, 10, 16), (3, 3, 24), (2, 2), ((1, 1), (1, 1))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(K3_SHAPES))
+@pytest.mark.parametrize("wz0,out_dtype", [(True, torch.float32), (True, torch.bfloat16),
+                                           (False, torch.float32)])
+def test_cuda_qconv2d_is_bit_equal_to_its_plain_version(cuda_card, case, wz0, out_dtype):
+    """K3 against its plain version, bit for bit (at Ci 12 and 3 too, whose
+    channels the wrapper zero-pads to 16): exact int32 sums and the same
+    epilogue, with z_w = 0 (ResNet-50's weights) or not (its count uses the
+    real Ci), f32 or bf16 out."""
+    from quantize_tpu_torch.ops.qconv import (conv_zero_correction_map, qconv2d_int8_plain,
+                                              resolve_padding)
+
+    (n, h, w_sp, ci), (kh, kw, co), strides, padding = K3_SHAPES[case]
+    g = torch.Generator(device="cuda").manual_seed(len(case))
+    q = torch.randint(-128, 128, (n, h, w_sp, ci), generator=g, device="cuda").to(torch.int8)
+    w = torch.randint(-128, 128, (kh, kw, ci, co), generator=g, device="cuda").to(torch.int8)
+    pads = resolve_padding(padding, kh, kw, h, w_sp, strides)
+    corr = conv_zero_correction_map(w, h, w_sp, strides, pads)
+    f = dict(device="cuda")
+    z_eff, a_scale = torch.tensor(131.0, **f), torch.tensor(0.021, **f)
+    w_scale = torch.rand(co, generator=g, **f) * 1e-3
+    w_zero = torch.zeros(co, **f) if wz0 else torch.randint(-3, 4, (co,), generator=g, **f).float()
+    bias = torch.randn(co, generator=g, **f)
+    args = (q, z_eff, a_scale, w, w_scale, w_zero, bias, strides, pads, corr, wz0, out_dtype)
+    reset_launch_counts()
+    got = qconv2d_int8(*args)
+    want = qconv2d_int8_plain(*args)
+    torch.cuda.synchronize()
+    assert launch_counts()["qconv2d"] == 1
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
