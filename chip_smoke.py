@@ -35,15 +35,19 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    the quant simulation and within 5e-2 with a bf16 carry. One request is
    served again with ``QTPU_ATTN_INT8=1``: K9 12 and K8 0 per forward, the
    logits within 5e-2 of the default path.
-5. Long sequences: ViT-B/16 W4A8 as in phase 3 at ``image_size=384`` (S =
-   577 padded to 584, the usual fine-tuning resolution), calibrated on 4
-   batches of 8, then one request of 32 images at bf16 carry, counted as
-   above (K8 12 a forward); the logits finite and within 5e-2 of the f32
-   carry. K8 and K9 on that request's attention arguments, and on random
-   rows at the other shapes the JAX dispatch sends them that once exceeded
-   their shared memory (K8: S 488, 680 bf16 and 456 f32; K9: S 776 bf16;
-   E 768, 12 heads; both at head dim 128, S 856 bf16, E 512, 4 heads),
-   against their plain versions: K8 within its tolerance, K9 bit for bit.
+5. Long sequences and wide heads: ViT-B/16 W4A8 as in phase 3 at
+   ``image_size=384`` (S = 577 padded to 584, the usual fine-tuning
+   resolution), calibrated on 4 batches of 8, then one request of 32 images
+   at bf16 carry, counted as above (K8 12 a forward); the logits finite and
+   within 5e-2 of the f32 carry. K8 and K9 on that request's attention
+   arguments, and on random rows (4 images) at the other shapes the JAX
+   dispatch sends them that once exceeded their shared memory
+   (``LONG_SHAPES``: K8 at S 488, 680 bf16 and 456 f32, K9 at S 776 bf16,
+   E 768, 12 heads; both at head dim 128, S 856 bf16, E 512, 4 heads; both
+   at head dims 320 and 512 and at the widest heads the dispatch takes, S = 8
+   at head dim 65,528 in bf16 and 49,144 in float32), against their plain
+   versions: K8 within its tolerance, K9 bit for bit; the count of K9's
+   absmax pre-pass launches (its streamed layout) is printed.
 6. Kernels: every kernel is called on the very arguments the main paths
    give it (recorded at each main-path shape, f32 and bf16 carry; ResNet-50's
    four kernels on one request of 256 at each carry; K3 also at ViT's patch
@@ -134,6 +138,25 @@ VIT_PER_FWD = {"w4a8_gemm": 37, "layernorm_quant_int8": 24, "mha_rows": 12, "lay
                "qconv2d": 1, "wo_gemm": 12, "quantize_act_int8": 14}
 VIT32_PER_FWD = {"wo_gemm": 73, "layernorm": 25, "mha_rows": 12}
 VIT32_INT8_PER_FWD = {"wo_gemm": 73, "layernorm": 25, "mha_rows_int8": 12}
+# (kernel, S, valid rows, dtype, E, heads) of phase 5: the long sequences
+# (E 768, 12 heads), head dim 128 at S 856 (E 512, 4 heads), head dims 320
+# and 512, and the widest heads the dispatch takes (S = 8: 65,528 in bf16,
+# 49,144 in float32)
+LONG_SHAPES = (("mha_rows", 488, 485, "bfloat16", 768, 12),
+               ("mha_rows", 680, 677, "bfloat16", 768, 12),
+               ("mha_rows", 456, 453, "float32", 768, 12),
+               ("mha_rows", 856, 853, "bfloat16", 512, 4),
+               ("mha_rows_int8", 584, 577, "bfloat16", 768, 12),
+               ("mha_rows_int8", 776, 769, "bfloat16", 768, 12),
+               ("mha_rows_int8", 856, 853, "bfloat16", 512, 4),
+               ("mha_rows", 256, 253, "float32", 320, 1),
+               ("mha_rows_int8", 256, 253, "float32", 320, 1),
+               ("mha_rows", 400, 397, "bfloat16", 1024, 2),
+               ("mha_rows_int8", 400, 397, "bfloat16", 1024, 2),
+               ("mha_rows", 8, 5, "bfloat16", 65528, 1),
+               ("mha_rows_int8", 8, 5, "bfloat16", 65528, 1),
+               ("mha_rows", 8, 5, "float32", 49144, 1),
+               ("mha_rows_int8", 8, 5, "float32", 49144, 1))
 
 
 def log(*args):
@@ -301,8 +324,9 @@ def work(name: str, args) -> tuple:
     rows, three_e = qkv.shape
     b, e = rows // s, three_e // 3
     d, v = e // heads, valid or s
-    # q.k and ex.v over the valid rows and keys: K8 on the tensor cores of
-    # the product dtype (bf16) or the CUDA cores (float32), K9 in int8
+    # q.k and ex.v over the valid rows and keys at the card's peak for their
+    # type: K9 int8, K8 bf16 (the tensor cores) or float32 (the CUDA cores:
+    # the f32 carry takes no TF32)
     if name == "mha_rows_int8":
         peak = PEAK_INT8_OPS
     else:
@@ -747,8 +771,12 @@ def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
             int8_out = model(x0, mode="packed")
             torch.cuda.synchronize()
             int8_counts = launch_counts()
+            from quantize_tpu_torch.ops.attention import mha_rows_int8
+
+            prepass = mha_rows_int8.absmax_launches
             log(f"vit_b_32 with QTPU_ATTN_INT8=1: one request of {x0.shape[0]} with launches "
-                f"{int8_counts}")
+                f"{int8_counts}; K9's absmax pre-pass {prepass} (its resident layout needs "
+                f"none)")
             for name, n in int8_counts.items():
                 check(n == VIT32_INT8_PER_FWD.get(name, 0),
                       f"vit_b_32 int8 scores: {name} launched {n} times, expected "
@@ -795,6 +823,8 @@ def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
                 f"[{card}]")
         entries = kernel_entries(records[0], counts, max_err, ("wo_gemm",))
         entries += kernel_entries(int8_records[0], int8_counts, max_err, ("mha_rows_int8",))
+        # K9's streamed layout launches an absmax pre-pass of its own
+        entries[-1]["absmax_prepass_launches"] = prepass
         kernel_entries(records[0], counts, max_err, ("layernorm", "mha_rows"), "vit_b_32")
     del model, requests, outs, records, int8_records
     torch.cuda.empty_cache()
@@ -841,15 +871,15 @@ def long_attention_phase(qtt, card, dev) -> None:
     torch.cuda.empty_cache()
 
     rows = torch.Generator(device=dev).manual_seed(776)
-    for name, s, valid, dtype, e, heads in (("mha_rows", 488, 485, torch.bfloat16, 768, 12),
-                                            ("mha_rows", 680, 677, torch.bfloat16, 768, 12),
-                                            ("mha_rows", 456, 453, torch.float32, 768, 12),
-                                            ("mha_rows", 856, 853, torch.bfloat16, 512, 4),
-                                            ("mha_rows_int8", 584, 577, torch.bfloat16, 768, 12),
-                                            ("mha_rows_int8", 776, 769, torch.bfloat16, 768, 12),
-                                            ("mha_rows_int8", 856, 853, torch.bfloat16, 512, 4)):
+    from quantize_tpu_torch.ops import attention
+
+    attention.mha_rows_int8.absmax_launches = 0
+    for name, s, valid, dtype, e, heads in LONG_SHAPES:
+        dtype = getattr(torch, dtype)
         qkv = (torch.randn((4 * s, 3 * e), generator=rows, device=dev) * 2).to(dtype)
         args = (qkv, heads, s, False, dtype, valid)
+        check(attention.kernel_takes(qkv, heads, s, False, valid),
+              f"{name} at S = {s}, E {e}, {heads} heads: the dispatch does not take it")
         max_err[name] = max(max_err.get(name, 0.0), compare(name, args))
         if name == "mha_rows_int8":
             check(bool(torch.equal(kernel_fn(name)(*args), plain_fn(name)(*args))),
@@ -858,7 +888,9 @@ def long_attention_phase(qtt, card, dev) -> None:
             kernel_entries({name: {_sig(args): [args, 1]}}, {name: 0}, max_err, (name,),
                            "head dim 128")
         n += 1
-    log(f"long attention shapes: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
+    log(f"long attention shapes: {n} kernel-vs-plain comparisons passed; max abs err {max_err}; "
+        f"K9's absmax pre-pass launched {attention.mha_rows_int8.absmax_launches} times "
+        f"(streamed layout)")
     torch.cuda.empty_cache()
 
 

@@ -39,6 +39,7 @@ KERNEL_WRAPPERS = {
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    mha_rows_int8.absmax_launches = 0
 
 
 def launch_counts() -> dict:

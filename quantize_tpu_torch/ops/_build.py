@@ -38,7 +38,7 @@ KERNELS = {
     "mha_rows": ("mha_rows", "qtt_mha_rows", [_P] * 2 + [_I] * 6 + [_F] + [_I] * 2 + [_P]),
     "wo_gemm": ("wo_gemm", "qtt_wo_gemm", [_P] * 6 + [_I] * 4 + [_P]),
     "mha_rows_int8": ("mha_rows_int8", "qtt_mha_rows_int8",
-                      [_P] * 2 + [_I] * 6 + [_F] + [_I] * 2 + [_P]),
+                      [_P] * 3 + [_I] * 6 + [_F] + [_I] * 3 + [_P]),
     "quantize_act_int8": ("quantize_act", "qtt_quantize_act",
                           [_P] * 4 + [ctypes.c_longlong] + [_I] * 3 + [_P]),
 }

@@ -14,15 +14,18 @@ Pallas kernel's VMEM budget, goes to :func:`mha_oracle_rows` (JAX's
 K8, or to K9 with ``int8_scores`` (default: ``QTPU_ATTN_INT8=1`` in the
 environment, read at call time).
 
-Both kernels take every shape the dispatch sends them at head dims up to
-256 (a multiple of 8, as the dispatch requires), in float32 and bf16,
-causal or not: their shared memory stays within a block's at every S the
-dispatch admits (:func:`_mha_rows_smem`, :func:`_mha_rows_int8_smem`;
-where all rows do not fit, K8 narrows its tiles and K9 takes q in 64-row
-groups and quantizes k and v chunk by chunk). A head dim above 256 raises
-ValueError naming it, as does a shape whose tiles would not fit, before
-launch; no model of the repository or of the public ViT and CLIP families
-has such a head dim.
+Both kernels take every shape the dispatch sends them, in float32 and
+bf16, causal or not, at every head dim it admits (a multiple of 8, up to
+65,528 at S = 8): their shared memory does not depend on S or the head dim
+(:func:`_mha_rows_smem`, :func:`_mha_rows_int8_layout` mirror the kernels'
+layouts). Both stream keys in chunks of 64 through tiles of 64 x 64, run
+QK^T in head-dim chunks of 64 and split a wide head across blocks by output
+columns (K8 above head dim 128, K9 above 64). K9 keeps heads resident in
+shared memory where two blocks fit an SM (:data:`K9_RESIDENT_LIMIT`; ViT-B/32's
+S = 56 at head dim 64) and otherwise launches an absmax pre-pass before its
+streamed blocks. A shape the kernels cannot take (a head dim not a multiple
+of 8, more than 65,535 images or heads) raises ValueError naming it before
+launch; the dispatch sends none.
 
 * K8, :func:`mha_rows` (``csrc/mha_rows.cu``; :func:`mha_rows_plain` on CPU
   tensors), follows the Pallas ``_mha_rows_kernel`` exactly: q scaled in
@@ -30,7 +33,11 @@ has such a head dim.
   f32-summed scores, masking by ``min(sc, -1e30)``, the row max floored at
   -80, the normalizer floored at 1e-37, the exp weights rounded to the
   product dtype before the AV product while the normalizer sums them in
-  float32, and ``1/sum`` applied to the (S, D) output.
+  float32, and ``1/sum`` applied to the (S, D) output. Each product is an
+  fmaf chain on the CUDA cores in the plain version's order (head dims for
+  a score, keys for an output): the tensor cores' sums, in another order,
+  flip bf16 roundings of the exp weights, and TF32 misses the float32
+  check.
 * K9, :func:`mha_rows_int8` (``csrc/mha_rows_int8.cu``;
   :func:`mha_rows_int8_plain` on CPU tensors), follows the Pallas
   ``_mha_rows_int8_kernel``: q, k and v quantized to int8 with one
@@ -49,60 +56,67 @@ from . import _build
 
 # the shared memory one block may use on the H100 (227 KB)
 SMEM_PER_BLOCK = 232_448
+# K9 keeps heads resident where two such blocks fit an SM, in blocks of 8 warps
+K9_RESIDENT_LIMIT = 113 * 1024
+K9_RESIDENT_WARPS = 8
+# query rows, keys, head dims and output columns of the kernels' tiles
+TILE = 64
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
 
 
-def _mha_rows_smem(s: int, d: int) -> int:
-    """K8's shared memory per block (``csrc/mha_rows.cu: Tiling``): a chunk
-    of K or V and the query rows, D + 4 floats a row, and the query rows'
-    score tile with S padded to the chunk. The wide tiling (32 rows,
-    224-key chunks) where it fits, else the narrow one (16 rows, 64 keys)."""
-    def tiling(qt: int, kchunk: int) -> int:
-        return 4 * ((kchunk + qt) * (d + 4) + qt * _round_up(s, kchunk) + qt)
+def _mha_rows_smem(s: int, d: int, itemsize: int) -> int:
+    """K8's shared memory per block (``csrc/mha_rows.cu: smem_bytes``): the
+    float32 q tile (rows of 64 + 4 floats, or 128 + 4 where the head dim is
+    above 64), the mm(ex) tile (rows of 72), for bf16 input a float32 64 x 64
+    K or V tile, and two raw slots of a 64 x 64 K or V tile (rows of 68
+    floats or 72 bf16); 64 query rows where S <= 64 or the head dim is
+    above 64, else 128. Bounded whatever S and the head dim: at most 107,520
+    bytes."""
+    slices = 2 if d > TILE else 1
+    rows = 64 if s <= TILE or d > TILE else 128
+    wide = itemsize != 4
+    floats = rows * (slices * TILE + 4 + TILE + 8) + (TILE * (TILE + 4) if wide else 0)
+    return 4 * floats + itemsize * 2 * TILE * (TILE + (8 if wide else 4))
 
-    wide = tiling(32, 224)
-    return wide if wide <= SMEM_PER_BLOCK else tiling(16, 64)
+
+# K9's streamed layout: int8 tiles of 64 x 80 bytes for q8, k8, vT and the
+# four warps' ex8 rows (``csrc/mha_rows_int8.cu: STREAMED_SMEM``)
+K9_STREAMED_SMEM = 4 * TILE * (TILE + 16)
 
 
-def _mha_rows_int8_layout(s: int, d: int, qg: int, kc: int) -> int:
-    """K9's shared memory for ``qg`` query rows and ``kc`` keys held at a
-    time (``csrc/mha_rows_int8.cu: Layout``): q8 and k8, the transposed v8,
-    four warps' ex8 tiles of 16 rows x min(kc, 256) keys and, when the keys
-    come in more than one chunk, the int32 partial AV sums."""
+def _mha_rows_int8_layout(s: int, d: int, itemsize: int):
+    """K9's layout and shared memory per block (``csrc/mha_rows_int8.cu``):
+    ``(True, bytes)`` for the resident layout (``Resident``: q8, k8, the
+    transposed v8, eight warps' 16 x 64 ex8 tiles, the block reduction and
+    two buffers of a head's raw q, k and v rows) where it fits in
+    :data:`K9_RESIDENT_LIMIT`, else ``(False, K9_STREAMED_SMEM)``: the
+    absmax pre-pass and 64 x 64 int8 tiles, whatever S and D."""
     sp, dp = _round_up(s, 32), _round_up(d, 32)
-    ex = _round_up((qg + kc) * (dp + 16) + d * (kc + 16), 16)
-    acc = _round_up(ex + 4 * 16 * (min(kc, 256) + 16), 16)
-    red = _round_up(acc + (qg * d * 4 if kc < sp else 0), 16)
-    return red + 4 * 3 * 4
+    ex = _round_up(2 * sp * (dp + 16) + d * (sp + 16), 16)
+    red = _round_up(ex + K9_RESIDENT_WARPS * 16 * (TILE + 16), 16)
+    raw = _round_up(red + K9_RESIDENT_WARPS * 3 * 4, 16)
+    resident = raw + 2 * 3 * s * d * itemsize
+    if resident <= K9_RESIDENT_LIMIT:
+        return True, resident
+    return False, K9_STREAMED_SMEM
 
 
-def _mha_rows_int8_smem(s: int, d: int) -> int:
-    """K9's shared memory per block: all rows resident where they fit, else
-    64-row query groups over key chunks of 256, 128, 64 or 32, the largest
-    that fits (``Layout::choose``)."""
-    sp = _round_up(s, 32)
-    choices = [(sp, sp)] + [(64, kc) for kc in (256, 128, 64, 32) if kc < sp]
-    for qg, kc in choices:
-        nbytes = _mha_rows_int8_layout(s, d, qg, kc)
-        if nbytes <= SMEM_PER_BLOCK:
-            break
-    return nbytes
+def _mha_rows_int8_smem(s: int, d: int, itemsize: int) -> int:
+    """K9's shared memory per block at (S, head dim, input item size)."""
+    return _mha_rows_int8_layout(s, d, itemsize)[1]
 
 
-# the largest head dim the kernels take
-MAX_HEAD_DIM = 256
-
-
-def _require_smem(what: str, nbytes: int, s: int, d: int) -> None:
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"{what}: head dim {d} is above {MAX_HEAD_DIM}, the largest the "
-                         f"kernel takes")
-    if nbytes > SMEM_PER_BLOCK:
-        raise ValueError(f"{what}: S = {s} at head dim {d} needs {nbytes} bytes of shared "
-                         f"memory per block, above the limit of {SMEM_PER_BLOCK}")
+def _require_launchable(what: str, b: int, d: int, heads: int) -> None:
+    """Raise ValueError, before launch, for a shape the kernels do not take:
+    a head dim that is not a multiple of 8, or more than 65,535 images or
+    heads (a grid dimension). Every shape the dispatch admits passes."""
+    if d % 8:
+        raise ValueError(f"{what}: head dim {d} must be a multiple of 8")
+    if b > 65535 or heads > 65535:
+        raise ValueError(f"{what}: {b} images x {heads} heads: at most 65,535 of each")
 
 
 def _mha_ref(qkv: torch.Tensor, num_heads: int, causal: bool, out_dtype,
@@ -156,9 +170,7 @@ def mha_rows(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
     if dev.type != "cuda":
         raise ValueError(f"mha_rows: unsupported device {dev}")
     b, s, e, d = _split(qkv, num_heads, seq_len, "mha_rows")
-    if d % 4:
-        raise ValueError(f"mha_rows: head dim {d} must be a multiple of 4")
-    _require_smem("mha_rows", _mha_rows_smem(s, d), s, d)
+    _require_launchable("mha_rows", b, d, num_heads)
     valid = int(valid_len) or s
     in_code, out_code = _build.dtype_code(qkv.dtype), _build.dtype_code(out_dtype)
     _build.require(qkv, "qkv", dev, qkv.dtype, (b * s, 3 * e))
@@ -231,23 +243,28 @@ def mha_rows_int8(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
     if dev.type != "cuda":
         raise ValueError(f"mha_rows_int8: unsupported device {dev}")
     b, s, e, d = _split(qkv, num_heads, seq_len, "mha_rows_int8")
-    if d % 8:
-        raise ValueError(f"mha_rows_int8: head dim {d} must be a multiple of 8")
-    _require_smem("mha_rows_int8", _mha_rows_int8_smem(s, d), s, d)
+    _require_launchable("mha_rows_int8", b, d, num_heads)
+    resident, _ = _mha_rows_int8_layout(s, d, qkv.element_size())
     in_code, out_code = _build.dtype_code(qkv.dtype), _build.dtype_code(out_dtype)
     _build.require(qkv, "qkv", dev, qkv.dtype, (b * s, 3 * e))
     out = torch.empty((b * s, e), dtype=out_dtype, device=dev)
+    # the streamed layout's (B, H, 3) absmax scales, written by its pre-pass
+    scales = None if resident else torch.empty((b, num_heads, 3), dtype=torch.float32, device=dev)
     fn = _build.kernel_fn("mha_rows_int8")
     with torch.cuda.device(dev):
-        err = fn(_build.ptr(qkv), _build.ptr(out), b, s, num_heads, d, int(valid_len) or s,
-                 int(bool(causal)), 1.0 / (d ** 0.5), in_code, out_code,
-                 _build.current_stream(dev))
+        err = fn(_build.ptr(qkv), _build.ptr(out), _build.ptr(scales), b, s, num_heads, d,
+                 int(valid_len) or s, int(bool(causal)), 1.0 / (d ** 0.5), in_code, out_code,
+                 int(resident), _build.current_stream(dev))
     _build.check(err, "mha_rows_int8")
     mha_rows_int8.launches += 1
+    if not resident:
+        mha_rows_int8.absmax_launches += 1
     return out
 
 
 mha_rows_int8.launches = 0
+# launches of the streamed layout's absmax pre-pass (a second kernel of the call)
+mha_rows_int8.absmax_launches = 0
 
 
 # ---------------------------------------------------------------------------
