@@ -23,9 +23,13 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    (S = 197 padded to 200), random weights from seed 0: init, calibration
    on 4 batches of 32, pack, then 4 requests of batch 128 in
    ``mode="packed"`` at f32 carry, counted as above: K4 37, K7 24, K8 12,
-   K5 12 (the weight-only out-projections), K6 1, K3 1, KQ 14 per forward. The
-   logits must be finite, within 5e-2 of the quant simulation and within
-   5e-2 with a bf16 carry.
+   K5 12 (the weight-only out-projections), K6 1, K3 1, KQ 14 per forward,
+   every K4 launch on its wgmma route (the launches by route are printed).
+   The logits must be finite, within 5e-2 of the quant simulation and
+   within 5e-2 with a bf16 carry. Then K4 alone on random operands at the
+   shapes no model here gives it (``W4A8_SHAPES``: M of 128, 200 and 333,
+   N = 1000, K/2 not a multiple of 64 with z_w != 0, and K = 200 on the
+   mma.sync route), each on the route its shape selects, bit for bit.
 4. ViT-B/32 weight-only W4 (``configs/runners/ptq/weight_quantize/
    mse_channel.yaml`` at 4 bits: symmetric per-channel weights with the MSE
    range search, activations at 32 bits), 1000 classes, 224x224 (S = 50
@@ -38,9 +42,10 @@ Phases (any failure exits non-zero; the last line is printed only on success):
 5. Long sequences and wide heads: ViT-B/16 W4A8 as in phase 3 at
    ``image_size=384`` (S = 577 padded to 584, the usual fine-tuning
    resolution), calibrated on 4 batches of 8, then one request of 32 images
-   at bf16 carry, counted as above (K8 12 a forward); the logits finite and
-   within 5e-2 of the f32 carry. K8 and K9 on that request's attention
-   arguments, and on random rows (4 images) at the other shapes the JAX
+   at bf16 carry, counted as above (K8 12 a forward, K4 on its wgmma route);
+   the logits finite and within 5e-2 of the f32 carry. K4 on that
+   request's arguments at both carries, bit for bit; K8 and K9 on its
+   attention arguments, and on random rows (4 images) at the other shapes the JAX
    dispatch sends them that once exceeded their shared memory
    (``LONG_SHAPES``: K8 at S 488, 680 bf16 and 456 f32, K9 at S 776 bf16,
    E 768, 12 heads; both at head dim 128, S 856 bf16, E 512, 4 heads; both
@@ -69,7 +74,9 @@ Phases (any failure exits non-zero; the last line is printed only on success):
 7. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
-   beside its bound, its plain version and the nearest library call.
+   beside its bound, its plain version and the nearest library call (K4
+   also beside ``torch._int_mm`` alone; K6 and K8 also summed over a
+   ViT-B/32 forward).
 
 Before the last line it prints one JSON object with a ``kernels`` list and
 the card's name and power limit; the last line is the ``{"ok": true, ...}``
@@ -159,6 +166,15 @@ LONG_SHAPES = (("mha_rows", 488, 485, "bfloat16", 768, 12),
                ("mha_rows_int8", 8, 5, "float32", 49144, 1))
 
 
+# (M, K, N, z_w == 0, route) of the K4 phase: ragged M (128, 200, 333), N =
+# 1000, K/2 not a multiple of 64 (K 96, 160) with z_w != 0, and K = 200 on
+# the mma.sync route
+W4A8_SHAPES = ((128, 768, 1000, True, "wgmma"), (200, 768, 1000, False, "wgmma"),
+               (200, 96, 1000, False, "wgmma"), (333, 160, 2304, False, "wgmma"),
+               (25600, 3072, 768, False, "wgmma"), (200, 200, 1000, False, "mma_sync"),
+               (200, 200, 1000, True, "mma_sync"))
+
+
 def log(*args):
     print(*args, flush=True)
 
@@ -193,6 +209,9 @@ class _Recording:
         entry = self.calls.setdefault(_sig(args), [args, 0])
         entry[1] += 1
         return self.orig(*args)
+
+    def __getattr__(self, name):  # the wrapper's other counters (K4's routes)
+        return getattr(self.orig, name)
 
     @property
     def launches(self):
@@ -281,9 +300,11 @@ def work(name: str, args) -> tuple:
     """(operations, their peak rate, bytes moved once) of one kernel call:
     each input read once, each output written once."""
     if name in ("w8a8_gemm", "w4a8_gemm"):
-        q, _, _, w, cs, ws, wz, bias, _ = args
+        q, _, _, w, cs, ws, wz, bias = args[:8]
+        if w is None:  # K4 given only the K-major copy of its packed weight: the same bytes
+            w = args[9]
         m, k = q.shape
-        n = w.shape[1]
+        n = cs.shape[0]
         return 2 * m * n * k, PEAK_INT8_OPS, sum(map(_nbytes, (q, w, cs, ws, wz, bias))) + m * n * 4
     if name == "conv1x1_residual":
         q, _, _, w, cs, ws, bias, res, _, out_dtype = args
@@ -357,13 +378,11 @@ def library_call(name: str, args):
     if name in ("w8a8_gemm", "conv1x1_residual", "w4a8_gemm"):
         q, z, a_s, w = args[:4]
         if name == "w4a8_gemm":
-            from quantize_tpu_torch.ops.qmatmul import unpack_int4_splithalf
-
-            w = unpack_int4_splithalf(w).contiguous()
+            w = unpacked_w4(args)
         if q.shape[0] <= 16 or q.shape[1] % 8 or w.shape[1] % 8:
             return None
         if name != "conv1x1_residual":
-            _, _, _, _, cs, ws, _, bias, _ = args
+            _, _, _, _, cs, ws, _, bias = args[:8]
             return lambda: (a_s * ws) * (torch._int_mm(q, w).float() + z * cs) + bias
         _, _, _, _, cs, ws, bias, res, relu, out_dtype = args
         return lambda: torch.relu((a_s * ws) * (torch._int_mm(q, w).float() + z * cs)
@@ -408,6 +427,22 @@ def library_call(name: str, args):
     q, k, v = qkv.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
     mask = (torch.arange(s, device=qkv.device) < (valid or s)).reshape(1, 1, 1, s)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=False)
+
+
+def unpacked_w4(args):
+    """K4's weight (K, N) int8, unpacked from ``w_p4`` or its K-major copy."""
+    from quantize_tpu_torch.ops.qmatmul import unpack_int4_splithalf
+
+    w_p4 = args[3] if args[3] is not None else args[9].t()
+    return unpack_int4_splithalf(w_p4).contiguous()
+
+
+def int_mm_ms(args) -> float:
+    """``torch._int_mm`` alone on K4's arguments (the unpacked weight)."""
+    import torch
+
+    q, w = args[0], unpacked_w4(args)
+    return cuda_ms(lambda: torch._int_mm(q, w), reps=5, inner=10)
 
 
 def plain_fn(name: str):
@@ -529,7 +564,7 @@ def describe(name: str, args) -> str:
         return (f"M={args[0].shape[0]} K={args[0].shape[1]} N={args[1].shape[1]} "
                 f"x={str(args[0].dtype).replace('torch.', '')}")
     extra = f" out={str(args[9]).replace('torch.', '')}" if name == "conv1x1_residual" else ""
-    return f"M={args[0].shape[0]} K={args[0].shape[1]} N={args[3].shape[1]}{extra}"
+    return f"M={args[0].shape[0]} K={args[0].shape[1]} N={args[4].shape[0]}{extra}"
 
 
 def rel(a, b) -> float:
@@ -558,6 +593,17 @@ def serve(model, requests, per_fwd: dict, label: str) -> tuple:
         check(tuple(out.shape) == (requests[0].shape[0], 1000) and bool(torch.isfinite(out).all()),
               f"{label}: packed logits not finite or of the wrong shape")
     return outs, counts
+
+
+def check_k4_routes(counts: dict, label: str) -> dict:
+    """Every K4 launch of the run just served took the wgmma route."""
+    from quantize_tpu_torch.ops.qmatmul import w4a8_gemm
+
+    routes = dict(w4a8_gemm.route_launches)
+    log(f"{label}: K4 launches by route {routes}")
+    check(routes == {"wgmma": counts["w4a8_gemm"], "mma_sync": 0},
+          f"{label}: not every K4 launch took the wgmma route: {routes}")
+    return routes
 
 
 def kernel_entries(serve_calls: dict, counts: dict, max_err: dict, names, label: str = "") -> list:
@@ -690,6 +736,7 @@ def vit_phase(qtt, batch, card) -> tuple:
     requests = [batch(128) for _ in range(4)]
     with torch.inference_mode():
         outs, counts = serve(model, requests, VIT_PER_FWD, "vit_b_16")
+        routes = check_k4_routes(counts, "vit_b_16")
         x0, packed = requests[0], outs[0]
         sim = model(x0, mode="quant")
         with qtt.packed_carry(torch.bfloat16):
@@ -733,6 +780,10 @@ def vit_phase(qtt, batch, card) -> tuple:
             log(f"time: vit_b_16 {label}: {ms:.3f} ms per batch of 128, {128e3 / ms:.1f} img/s "
                 f"[{card}]")
         entries = kernel_entries(serve_calls, counts, max_err, names)
+        entries[0]["launches_by_route"] = routes
+        for args, per_fwd in serve_calls["w4a8_gemm"].values():
+            log(f"  torch._int_mm alone at {describe('w4a8_gemm', args)}: {int_mm_ms(args):.4f} ms "
+                f"(x{per_fwd}/fwd)")
         # K5, K9 and KQ at ViT-B/16's shapes, outside the JSON
         kernel_entries({**serve_calls, "mha_rows_int8": attn_calls}, counts, max_err,
                        ("wo_gemm", "mha_rows_int8", "quantize_act_int8"), "vit_b_16")
@@ -825,7 +876,10 @@ def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
         entries += kernel_entries(int8_records[0], int8_counts, max_err, ("mha_rows_int8",))
         # K9's streamed layout launches an absmax pre-pass of its own
         entries[-1]["absmax_prepass_launches"] = prepass
-        kernel_entries(records[0], counts, max_err, ("layernorm", "mha_rows"), "vit_b_32")
+        for e in kernel_entries(records[0], counts, max_err, ("layernorm", "mha_rows"), "vit_b_32"):
+            log(f"per forward at vit_b_32: {e['name']} {e['ms']:.4f} ms ({e['launches'] // 4} "
+                f"launches), bound {e['bound_ms']:.4f} ms, library {e['library_ms']:.4f} ms "
+                f"[{card}]")
     del model, requests, outs, records, int8_records
     torch.cuda.empty_cache()
     return entries
@@ -855,7 +909,9 @@ def long_attention_phase(qtt, card, dev) -> None:
     with torch.inference_mode():
         with qtt.packed_carry(torch.bfloat16):
             (out,), counts = serve(model, [request], VIT_PER_FWD, "vit_b_16@384 bf16 carry")
-        f32 = model(request, mode="packed")
+        check_k4_routes(counts, "vit_b_16@384 bf16 carry")
+        with Recorder() as rec_f32:
+            f32 = model(request, mode="packed")
         r_f32 = rel(out, f32)
         log(f"vit_b_16@384 agreement: bf16 carry vs f32 {r_f32:.3e} (<= 5e-2)")
         check(r_f32 <= 5e-2, "vit_b_16@384 agreement failed")
@@ -866,8 +922,10 @@ def long_attention_phase(qtt, card, dev) -> None:
             f"{32e3 / ms:.1f} img/s [{card}]")
         calls = {"mha_rows": rec.calls["mha_rows"], "mha_rows_int8": rec.calls["mha_rows"]}
         n = check_kernels([calls], ("mha_rows", "mha_rows_int8"), max_err)
+        # K4 at the 384 shapes, both carries
+        n += check_kernels([rec.calls, rec_f32.calls], ("w4a8_gemm",), max_err)
         kernel_entries(calls, counts, max_err, ("mha_rows",), "vit_b_16@384")
-    del model, request, out, f32, rec, calls
+    del model, request, out, f32, rec, rec_f32, calls
     torch.cuda.empty_cache()
 
     rows = torch.Generator(device=dev).manual_seed(776)
@@ -893,6 +951,35 @@ def long_attention_phase(qtt, card, dev) -> None:
         f"(streamed layout)")
     torch.cuda.empty_cache()
 
+
+def w4a8_phase(dev) -> int:
+    """K4 on random operands at the shapes no model of the phases above
+    gives it (``W4A8_SHAPES``), each on the route its shape selects, bit for
+    bit against the plain version."""
+    import torch
+    from quantize_tpu_torch.ops.qmatmul import pack_int4_splithalf, w4a8_gemm, w4a8_gemm_plain
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for m, k, n, wz0, route in W4A8_SHAPES:
+        q = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-8, 8, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        w_zero = torch.zeros(n, device=dev) if wz0 else torch.randn(n, generator=gen, device=dev)
+        args = (q, torch.tensor(131.5, device=dev), torch.tensor(0.02, device=dev),
+                pack_int4_splithalf(w), w.sum(0, dtype=torch.int32),
+                torch.rand(n, generator=gen, device=dev) * 0.01, w_zero,
+                torch.randn(n, generator=gen, device=dev), wz0)
+        for r in w4a8_gemm.route_launches:
+            w4a8_gemm.route_launches[r] = 0
+        got = w4a8_gemm(*args)
+        want = w4a8_gemm_plain(*args)
+        torch.cuda.synchronize()
+        took = [r for r, c in w4a8_gemm.route_launches.items() if c]
+        equal = bool(torch.equal(got, want))
+        log(f"  w4a8_gemm M={m} K={k} N={n} z_w {'= 0' if wz0 else '!= 0'}: route {took}, "
+            f"bit-equal {equal}, max abs err {float((got - want).abs().max()):.3e}")
+        check(took == [route], f"w4a8_gemm at M={m} K={k} N={n}: route {took}, expected {route}")
+        check(equal, f"w4a8_gemm at M={m} K={k} N={n}: not bit-equal to its plain version")
+    return len(W4A8_SHAPES)
 
 
 def main() -> int:
@@ -943,6 +1030,9 @@ def main() -> int:
     vit_entries, vit_err = vit_phase(qtt, batch, card)
     entries += vit_entries
     log(f"vit_b_16 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    n = w4a8_phase(dev)
+    log(f"w4a8 phase: {n} kernel-vs-plain comparisons passed, {time.time() - t0:.1f} s")
     t0 = time.time()
     entries += vit32_phase(qtt, batch, card, vit_err)
     log(f"vit_b_32 phase {time.time() - t0:.1f} s")

@@ -22,7 +22,7 @@ from torch import nn
 
 from ..ops.attention import mha_fused_qkv, mha_fused_qkv_rows
 from ..ops.layernorm import layernorm, layernorm_quant_int8
-from ..ops.qmatmul import quant_matmul_w4a8, quant_matmul_w8a8
+from ..ops.qmatmul import _w4a8_route, quant_matmul_w4a8, quant_matmul_w8a8
 from ..utils.config import dict_merge
 from .layers import FP32, LayerQuantCfg, QuantDense
 from .precision import packed_carry_dtype
@@ -65,7 +65,6 @@ def _fused_qkv_packed(x: torch.Tensor, mods: Sequence[QuantDense], pre_norm=None
     w_key = "w_p4" if p4 else "w_int"
     if any(w_key not in b or "a_scale" not in b for b in bufs):
         return None
-    w = torch.cat([b[w_key] for b in bufs], dim=1)
 
     def cat(key):
         return torch.cat([b[key].reshape(-1) for b in bufs])
@@ -76,10 +75,28 @@ def _fused_qkv_packed(x: torch.Tensor, mods: Sequence[QuantDense], pre_norm=None
     pre_q = None
     if pre_norm is not None:
         pre_q = layernorm_quant_int8(x, *pre_norm, a_scale, a_zero, a_spec.qmin, a_spec.qmax)
-    fn = quant_matmul_w4a8 if p4 else quant_matmul_w8a8
-    qkv = fn(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax, w, cat("w_scale"), cat("w_zero"),
-             cat("bias"), cat("col_sum"), w_zero_is_zero=wz0, pre_q=pre_q)
+    if p4:
+        w, w_km = fused_w4_operands(bufs, x.device, x.shape[-1])
+        qkv = quant_matmul_w4a8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax, w, cat("w_scale"),
+                                cat("w_zero"), cat("bias"), cat("col_sum"), w_zero_is_zero=wz0,
+                                pre_q=pre_q, w_km=w_km)
+    else:
+        qkv = quant_matmul_w8a8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax,
+                                torch.cat([b["w_int"] for b in bufs], dim=1), cat("w_scale"),
+                                cat("w_zero"), cat("bias"), cat("col_sum"), w_zero_is_zero=wz0,
+                                pre_q=pre_q)
     return qkv.to(packed_carry_dtype())
+
+
+def fused_w4_operands(bufs: Sequence[dict], device: torch.device, k: int):
+    """``(w_p4, w_km)`` of the fused q/k/v int4 weight, of which only what K4
+    reads on ``device`` is made: the K-major copies concatenated along dim 0
+    (the other None) where the kernel takes the wgmma route, else the packed
+    weights along dim 1 (the mma.sync route and the plain version read
+    them)."""
+    if device.type == "cuda" and _w4a8_route(k) == "wgmma":
+        return None, torch.cat([b["w_p4_kmajor"] for b in bufs], dim=0)
+    return torch.cat([b["w_p4"] for b in bufs], dim=1), None
 
 
 class QuantMultiheadAttention(nn.Module):

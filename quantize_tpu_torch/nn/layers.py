@@ -39,8 +39,9 @@ from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, kmajor_weight, qua
                          quant_conv2d_wo, s2d_block_padding, s2d_kernel, space_to_depth)
 from ..ops.layernorm import layernorm, layernorm_quant_int8
 from ..ops.qconv1x1 import conv1x1_residual
-from ..ops.qmatmul import (pack_int4_splithalf, quant_matmul_w4a8, quant_matmul_w8a8,
-                           quant_matmul_wo, quantize_act_int8, unpack_int4_splithalf)
+from ..ops.qmatmul import (kmajor_packed, pack_int4_splithalf, quant_matmul_w4a8,
+                           quant_matmul_w8a8, quant_matmul_wo, quantize_act_int8,
+                           unpack_int4_splithalf)
 from ..quant.fakequant import fake_quant
 from ..quant.qspec import QuantSpec, _freeze
 from .precision import packed_carry_dtype
@@ -192,6 +193,16 @@ class QuantDense(_QuantLayerBase):
     def _use_p4(self, k: int) -> bool:
         return self.w_spec.enabled and self.w_spec.n_bits <= 4 and k % 2 == 0
 
+    def put_var(self, collection: str, leaf: str, value: torch.Tensor) -> torch.Tensor:
+        out = super().put_var(collection, leaf, value)
+        if ((collection, leaf) == ("packed", "w_p4") and self.a_spec.enabled
+                and not self.a_spec.per_channel):
+            # K4's wgmma route reads the packed weight K-major: made here,
+            # once per packed weight (at pack or load time), as a buffer
+            # outside the packed collection
+            self.register_buffer("w_p4_kmajor", kmajor_packed(out), persistent=False)
+        return out
+
     def _store_weight(self, x: torch.Tensor, q_i8: torch.Tensor) -> None:
         if self._use_p4(q_i8.shape[0]):
             self.put_var("packed", "w_p4", pack_int4_splithalf(q_i8))
@@ -228,10 +239,15 @@ class QuantDense(_QuantLayerBase):
                 # out of the kernel, the normalized tensor never stored
                 pre_q = layernorm_quant_int8(x, *pre_norm, a_scale, a_zero,
                                              a_spec.qmin, a_spec.qmax)
-            fn, w_key = (quant_matmul_w4a8, "w_p4") if p4 else (quant_matmul_w8a8, "w_int")
-            return fn(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax, self.get_var("packed", w_key),
-                      w_scale, w_zero, bias, self.get_var("packed", "col_sum"),
-                      w_zero_is_zero=wz0, pre_q=pre_q)
+            col_sum = self.get_var("packed", "col_sum")
+            if p4:
+                return quant_matmul_w4a8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax,
+                                         self.get_var("packed", "w_p4"), w_scale, w_zero, bias,
+                                         col_sum, w_zero_is_zero=wz0, pre_q=pre_q,
+                                         w_km=self.w_p4_kmajor)
+            return quant_matmul_w8a8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax,
+                                     self.get_var("packed", "w_int"), w_scale, w_zero, bias,
+                                     col_sum, w_zero_is_zero=wz0, pre_q=pre_q)
         # weight-only (or per-channel activations): float activations times
         # the dequantized weight
         w_int = (unpack_int4_splithalf(self.get_var("packed", "w_p4")) if p4
@@ -248,6 +264,8 @@ class QuantDense(_QuantLayerBase):
         for name in ("w_int", "w_p4", "col_sum", "a_scale", "a_zero"):
             if self.has_var("packed", name):
                 out[name] = self.get_var("packed", name)
+        if hasattr(self, "w_p4_kmajor"):
+            out["w_p4_kmajor"] = self.w_p4_kmajor
         return out
 
     def forward(self, x: torch.Tensor, mode: str = "fp32", pre_norm=None) -> torch.Tensor:

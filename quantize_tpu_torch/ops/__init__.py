@@ -5,7 +5,8 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
 * K1 :func:`~.qmatmul.w8a8_gemm` (``csrc/w8a8_gemm.cu``)
 * K2 :func:`~.qconv1x1.conv1x1_residual_gemm` (``csrc/conv1x1_residual.cu``)
 * K3 :func:`~.qconv.qconv2d_int8` (``csrc/qconv2d.cu``)
-* K4 :func:`~.qmatmul.w4a8_gemm` (``csrc/w4a8_gemm.cu``)
+* K4 :func:`~.qmatmul.w4a8_gemm` (``csrc/w4a8_gemm.cu``; its launches by
+  route in ``w4a8_gemm.route_launches``)
 * K5 :func:`~.qmatmul.wo_gemm` (``csrc/wo_gemm.cu``)
 * K6 :func:`~.layernorm.layernorm_rows` (``csrc/layernorm.cu``)
 * K7 :func:`~.layernorm.layernorm_quant_int8_rows` (``csrc/layernorm.cu``)
@@ -18,7 +19,7 @@ from .attention import mha_fused_qkv, mha_fused_qkv_rows, mha_rows, mha_rows_int
 from .layernorm import layernorm_quant_int8, layernorm_quant_int8_rows, layernorm_rows
 from .qconv import qconv2d_int8, quant_conv2d, quant_conv2d_wo
 from .qconv1x1 import conv1x1_residual, conv1x1_residual_gemm
-from .qmatmul import (pack_int4_splithalf, quant_matmul_w4a8, quant_matmul_w8a8,
+from .qmatmul import (kmajor_packed, pack_int4_splithalf, quant_matmul_w4a8, quant_matmul_w8a8,
                       quant_matmul_wo, quantize_act_int8, unpack_int4_splithalf, w4a8_gemm,
                       w8a8_gemm, wo_gemm)
 
@@ -40,6 +41,8 @@ def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     mha_rows_int8.absmax_launches = 0
+    for route in w4a8_gemm.route_launches:
+        w4a8_gemm.route_launches[route] = 0
 
 
 def launch_counts() -> dict:
@@ -48,7 +51,7 @@ def launch_counts() -> dict:
 
 __all__ = [
     "KERNEL_WRAPPERS", "conv1x1_residual", "conv1x1_residual_gemm", "launch_counts",
-    "layernorm_quant_int8", "layernorm_quant_int8_rows", "layernorm_rows",
+    "kmajor_packed", "layernorm_quant_int8", "layernorm_quant_int8_rows", "layernorm_rows",
     "mha_fused_qkv", "mha_fused_qkv_rows", "mha_rows", "mha_rows_int8", "pack_int4_splithalf",
     "qconv2d_int8", "quant_conv2d", "quant_conv2d_wo", "quant_matmul_w4a8", "quant_matmul_w8a8",
     "quant_matmul_wo", "quantize_act_int8", "reset_launch_counts", "unpack_int4_splithalf",

@@ -10,7 +10,12 @@ backends (the Pallas kernels and the XLA twins) compute
 over int8 A and int8 (or int4) W with int32 accumulation. Here
 :func:`w8a8_gemm` launches the hand-written CUDA kernel ``csrc/w8a8_gemm.cu``
 and :func:`w4a8_gemm` launches ``csrc/w4a8_gemm.cu`` on CUDA tensors; on CPU
-tensors they run :func:`w8a8_gemm_plain` and :func:`w4a8_gemm_plain`.
+tensors they run :func:`w8a8_gemm_plain` and :func:`w4a8_gemm_plain`. K4
+has two routes, chosen from the shape before launch (:func:`_w4a8_route`):
+a warp-specialized ``wgmma`` kernel over the weights' K-major copy
+(:func:`kmajor_packed`, made once at pack time) where K is a multiple of 32,
+and the ``mma.sync`` kernel over the packed (K/2, N) weights for every
+other even K.
 
 The weight-only product (:func:`quant_matmul_wo`) is float activations
 times int8 weights dequantized as ``(w + z)·s``: :func:`wo_gemm` launches
@@ -171,39 +176,95 @@ def unpack_int4_splithalf(p: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=0).to(torch.int8)
 
 
+def kmajor_packed(w_p4: torch.Tensor) -> torch.Tensor:
+    """The (N, K/2) K-major copy of split-half packed weights (K/2, N), the
+    layout the ``wgmma`` route of kernel K4 reads (8-bit ``wgmma`` reads
+    both operands K-major)."""
+    return w_p4.t().contiguous()
+
+
+# K4's wgmma route (``csrc/w4a8_gemm.cu``, namespace wg4): 128 rows a block,
+# stages of 64 packed rows (A: two halves of 128 rows x 64 bytes; W: two
+# halves of BN rows x 64 bytes), a 4-stage ring
+W4A8_BM, W4A8_HALF, W4A8_STAGES = 128, 64, 4
+
+
+def _w4a8_tile(n: int) -> Tuple[int, int]:
+    """``(BN, shared-memory bytes)`` of K4's wgmma route for N output
+    columns (``csrc/w4a8_gemm.cu: Tile<BN>::SMEM``): the ring (or the int32
+    tile staged over it, rows of BN * 4 + 16 bytes), the full and empty
+    barriers, four float32 column vectors, the row sums and 1,024 bytes of
+    alignment slack. At most 202,304 bytes, whatever N."""
+    bn = 256 if n > 128 else 128 if n > 64 else 64
+    stage = 2 * W4A8_BM * W4A8_HALF + 2 * bn * W4A8_HALF
+    body = max(W4A8_STAGES * stage, W4A8_BM * (bn * 4 + 16))
+    return bn, body + 2 * W4A8_STAGES * 8 + 4 * bn * 4 + W4A8_BM * 4 + 1024
+
+
+def _w4a8_route(k: int, aligned: bool = True) -> str:
+    """Which kernel of ``csrc/w4a8_gemm.cu`` takes an (M, K) x (K/2, N)
+    launch, chosen from the shape before launch: ``"wgmma"`` where K is a
+    positive multiple of 32 (A's TMA view (M, 2, K/2) needs strides of
+    16-byte multiples) below 2^17 (its int32 sums are 16 A.W) and A and the
+    K-major copy are 16-byte ``aligned``, else ``"mma_sync"`` (every other
+    even K)."""
+    if k % 2:
+        raise ValueError(f"w4a8_gemm: K = {k} must be even")
+    if 0 < k < 1 << 17 and k % 32 == 0 and aligned:
+        return "wgmma"
+    return "mma_sync"
+
+
 def w4a8_gemm_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
-                    w_p4: torch.Tensor, col_sum: torch.Tensor, w_scale: torch.Tensor,
+                    w_p4: Optional[torch.Tensor], col_sum: torch.Tensor, w_scale: torch.Tensor,
                     w_zero: torch.Tensor, bias: Optional[torch.Tensor],
-                    w_zero_is_zero: bool) -> torch.Tensor:
+                    w_zero_is_zero: bool, w_km: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain version of kernel K4: unpack, then K1's exact sums and epilogue
-    (``_w4a8_kernel``'s epilogue is ``_w8a8_kernel``'s)."""
+    (``_w4a8_kernel``'s epilogue is ``_w8a8_kernel``'s). The weight is
+    ``w_p4``, or ``w_km.t()`` where only the K-major copy is given."""
+    w_p4 = w_km.t() if w_p4 is None else w_p4
     return w8a8_gemm_plain(q_a, z_eff, a_scale, unpack_int4_splithalf(w_p4), col_sum,
                            w_scale, w_zero, bias, w_zero_is_zero)
 
 
 def w4a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
-              w_p4: torch.Tensor, col_sum: torch.Tensor, w_scale: torch.Tensor,
+              w_p4: Optional[torch.Tensor], col_sum: torch.Tensor, w_scale: torch.Tensor,
               w_zero: torch.Tensor, bias: Optional[torch.Tensor],
-              w_zero_is_zero: bool) -> torch.Tensor:
+              w_zero_is_zero: bool, w_km: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K4: int8 (M, K) x split-half int4 (K/2, N) -> f32 (M, N) with
     the W8A8 epilogue. ``col_sum`` is the pack-time int32 column sum of the
     unpacked weight; the other arguments are as :func:`w8a8_gemm`'s.
+    ``w_km`` is ``kmajor_packed(w_p4)`` made beforehand; either weight may
+    be None, not both.
 
-    CPU tensors take :func:`w4a8_gemm_plain`; CUDA tensors launch the kernel
-    (``csrc/w4a8_gemm.cu``) or raise.
+    CPU tensors take :func:`w4a8_gemm_plain`; CUDA tensors launch one of the
+    two kernels of ``csrc/w4a8_gemm.cu`` (:func:`_w4a8_route`; the launches
+    of each are counted in ``w4a8_gemm.route_launches``), making the copy
+    the route reads where it was not given, or raise.
     """
+    if w_p4 is None and w_km is None:
+        raise ValueError("w4a8_gemm: needs w_p4 or its K-major copy w_km")
     dev = q_a.device
     if dev.type == "cpu":
         return w4a8_gemm_plain(q_a, z_eff, a_scale, w_p4, col_sum, w_scale, w_zero,
-                               bias, w_zero_is_zero)
+                               bias, w_zero_is_zero, w_km)
     if dev.type != "cuda":
         raise ValueError(f"w4a8_gemm: unsupported device {dev}")
     m, k = q_a.shape
-    if k % 2:
-        raise ValueError(f"w4a8_gemm: K = {k} must be even")
-    n = w_p4.shape[1]
+    n = w_p4.shape[1] if w_p4 is not None else w_km.shape[0]
+    aligned = q_a.data_ptr() % 16 == 0 and (w_km is None or w_km.data_ptr() % 16 == 0)
+    route = _w4a8_route(k, aligned)
+    if route == "wgmma":
+        if w_km is None:
+            w_km = kmajor_packed(w_p4)
+        _build.require(w_km, "w_km", dev, torch.int8, (n, k // 2))
+        w_p4 = None
+    else:
+        if w_p4 is None:
+            w_p4 = w_km.t().contiguous()
+        _build.require(w_p4, "w_p4", dev, torch.int8, (k // 2, n))
+        w_km = None
     _build.require(q_a, "q_a", dev, torch.int8, (m, k))
-    _build.require(w_p4, "w_p4", dev, torch.int8, (k // 2, n))
     _build.require(col_sum, "col_sum", dev, torch.int32, (n,))
     for name, t in (("w_scale", w_scale), ("w_zero", w_zero)):
         _build.require(t, name, dev, torch.float32, (n,))
@@ -214,16 +275,19 @@ def w4a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     fn = _build.kernel_fn("w4a8_gemm")
     with torch.cuda.device(dev):
-        err = fn(_build.ptr(q_a), _build.ptr(w_p4), _build.ptr(col_sum),
+        err = fn(_build.ptr(q_a), _build.ptr(w_p4), _build.ptr(w_km), _build.ptr(col_sum),
                  _build.ptr(w_scale), _build.ptr(w_zero), _build.ptr(bias),
                  _build.ptr(a_scale), _build.ptr(z_eff), _build.ptr(out),
-                 m, n, k, int(bool(w_zero_is_zero)), _build.current_stream(dev))
-    _build.check(err, "w4a8_gemm")
+                 m, n, k, int(bool(w_zero_is_zero)), int(route == "wgmma"),
+                 _build.current_stream(dev))
+    _build.check(err, f"w4a8_gemm ({route})")
     w4a8_gemm.launches += 1
+    w4a8_gemm.route_launches[route] += 1
     return out
 
 
 w4a8_gemm.launches = 0
+w4a8_gemm.route_launches = {"wgmma": 0, "mma_sync": 0}
 
 
 def _quantized_input(x: torch.Tensor, a_scale, a_zero, a_qmin: int, a_qmax: int, pre_q):
@@ -248,19 +312,25 @@ def quant_matmul_w4a8(
     col_sum_w: Optional[torch.Tensor] = None,
     w_zero_is_zero: bool = False,
     pre_q=None,
+    w_km: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fused W4A8 matmul over split-half packed weights ((K/2, N) int8).
-    ``x``: (..., K) float (read only for its shape when ``pre_q`` is given)."""
+    ``x``: (..., K) float (read only for its shape when ``pre_q`` is given).
+    ``w_km``: the weights' K-major copy (:func:`kmajor_packed`), made once by
+    the caller; ``w_packed`` may then be None."""
     lead = x.shape[:-1]
-    n = w_packed.shape[1]
+    n = w_packed.shape[1] if w_packed is not None else w_km.shape[0]
     q_a, z_eff = _quantized_input(x, a_scale, a_zero, a_qmin, a_qmax, pre_q)
     if col_sum_w is None:
-        col_sum_w = unpack_int4_splithalf(w_packed).sum(dim=0, dtype=torch.int32)
+        w_p4 = w_packed if w_packed is not None else w_km.t()
+        col_sum_w = unpack_int4_splithalf(w_p4).sum(dim=0, dtype=torch.int32)
     a_scale = torch.as_tensor(a_scale, dtype=torch.float32, device=q_a.device).reshape(())
-    out = w4a8_gemm(q_a.contiguous(), z_eff.reshape(()), a_scale, w_packed.contiguous(),
+    # positional arguments: chip_smoke.py records the kernels' calls by them
+    out = w4a8_gemm(q_a.contiguous(), z_eff.reshape(()), a_scale,
+                    None if w_packed is None else w_packed.contiguous(),
                     col_sum_w.to(torch.int32), w_scale.float().reshape(-1),
                     w_zero.float().reshape(-1), None if bias is None else bias.float(),
-                    w_zero_is_zero)
+                    w_zero_is_zero, w_km)
     return out.reshape(*lead, n)
 
 

@@ -216,26 +216,66 @@ def _assert_within_bf16_ulps(got, want, ulps):
     assert bool(((g - w).abs() <= ulps * ulp).all()), float((g - w).abs().max())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(24, 32, 16), (300, 96, 80), (1000, 768, 2304),
-                                   (100, 40, 70), (130, 3072, 768)])
-@pytest.mark.parametrize("wz0", [True, False])
-def test_cuda_w4a8_kernel_is_bit_equal_to_its_plain_version(cuda_card, shape, wz0):
-    """K4 on the card: exact integer sums and the same epilogue, so equal
-    bit for bit; K/2 = 20 and 48 leave a tail past the 32-row step."""
-    from quantize_tpu_torch.ops.qmatmul import w4a8_gemm_plain
+# (M, K, N): K/2 = 16, 20, 48 and 80 leave a tail past the 32-row mma.sync
+# step or the 64-row wgmma stage; ViT-B/16's fused qkv, fc1, fc2 at batch 128
+# and its head at M = 128 and 200; K = 40 and 200 take the mma.sync route
+W4A8_SHAPES = [(24, 32, 16), (300, 96, 80), (1000, 768, 2304), (100, 40, 70), (130, 3072, 768),
+               (25600, 768, 2304), (25600, 768, 3072), (25600, 3072, 768), (128, 768, 1000),
+               (200, 768, 1000), (200, 160, 1000), (333, 96, 256), (200, 200, 1000)]
 
-    m, k, n = shape
+
+def _w4a8_args(m, k, n, wz0):
     g = torch.Generator().manual_seed(k)
     q = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8)
     w = torch.randint(-8, 8, (k, n), generator=g, dtype=torch.int8)
     args = [q, torch.tensor(131.5), torch.tensor(0.02), pack_int4_splithalf(w),
             w.sum(0, dtype=torch.int32), torch.rand(n, generator=g) * 0.01,
             torch.zeros(n) if wz0 else torch.randn(n, generator=g), torch.randn(n, generator=g)]
-    args = [t.cuda() for t in args]
+    return [t.cuda() for t in args]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", W4A8_SHAPES)
+@pytest.mark.parametrize("wz0", [True, False])
+def test_cuda_w4a8_kernel_is_bit_equal_to_its_plain_version(cuda_card, shape, wz0):
+    """K4 on the card: exact integer sums and the same epilogue, so equal
+    bit for bit, on the route its shape selects (K a multiple of 32: the
+    wgmma kernel, the wrapper making the K-major copy)."""
+    from quantize_tpu_torch.ops.qmatmul import w4a8_gemm_plain
+
+    m, k, n = shape
+    args = _w4a8_args(m, k, n, wz0)
+    reset_launch_counts()
     got = w4a8_gemm(*args, wz0)
     want = w4a8_gemm_plain(*args, wz0)
     torch.cuda.synchronize()
+    route = "wgmma" if k % 32 == 0 else "mma_sync"
+    assert w4a8_gemm.route_launches == {"wgmma": 0, "mma_sync": 0, route: 1}
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", ["w_km only", "both", "misaligned A"])
+def test_cuda_w4a8_routes_by_shape_and_alignment(cuda_card, given):
+    """The K-major copy alone, or beside the packed weight, takes the wgmma
+    route; an A that is not 16-byte aligned takes the mma.sync route (the
+    wrapper makes the packed weight from the copy); every one bit-equal."""
+    from quantize_tpu_torch.ops.qmatmul import kmajor_packed, w4a8_gemm_plain
+
+    m, k, n = 200, 768, 1000
+    args = _w4a8_args(m, k, n, False)
+    w_km = kmajor_packed(args[3])
+    want = w4a8_gemm_plain(*args, False)
+    if given == "misaligned A":
+        buf = torch.empty(m * k + 1, dtype=torch.int8, device="cuda")
+        args[0] = buf[1:].view(m, k).copy_(args[0])
+    if given != "both":
+        args[3] = None
+    reset_launch_counts()
+    got = w4a8_gemm(*args, False, w_km)
+    torch.cuda.synchronize()
+    route = "mma_sync" if given == "misaligned A" else "wgmma"
+    assert w4a8_gemm.route_launches == {"wgmma": 0, "mma_sync": 0, route: 1}
     assert torch.equal(got, want)
 
 

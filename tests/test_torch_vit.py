@@ -38,7 +38,7 @@ from quantize_tpu_torch import convert
 from quantize_tpu_torch.models import MODELS
 from quantize_tpu_torch.models.vit import MLPBlock, VisionTransformer
 from quantize_tpu_torch.nn.attention import QuantMultiheadAttention
-from quantize_tpu_torch.nn.layers import LayerQuantCfg, QuantConv
+from quantize_tpu_torch.nn.layers import LayerQuantCfg, QuantConv, QuantDense
 from quantize_tpu_torch.ops import launch_counts
 
 torch.set_num_threads(2)
@@ -104,7 +104,7 @@ def case(request):
         with qtt.packed_carry(carry):
             out[("packed", carry)] = (_packed_port(tm, x), want)
     out["launches_unchanged"] = launch_counts() == before
-    out["model"], out["x"] = tm, x
+    out["model"], out["x"], out["deploy"] = tm, x, deploy
     return out
 
 
@@ -178,6 +178,50 @@ def test_fused_qkv_matches_per_projection(case, monkeypatch):
     monkeypatch.setattr(port_attention, "_fused_qkv_packed", lambda *a, **k: None)
     separate = _packed_port(case["model"], case["x"])
     np.testing.assert_allclose(separate, fused, rtol=1e-5, atol=1e-5)
+
+
+def _assert_kmajor_copies(model):
+    """Each int4 W4A8 QuantDense holds K4's K-major copy of its packed
+    weight as a non-persistent buffer outside the packed collection; the
+    weight-only out-projections (K5) hold none."""
+    dense = [m for m in model.modules() if isinstance(m, QuantDense) and m.has_var("packed", "w_p4")]
+    w4a8 = [m for m in dense if m.a_spec.enabled]
+    assert len(dense) == 2 * 6 + 1 and len(w4a8) == 2 * 5 + 1  # q, k, v, fc1, fc2; the head
+    assert not any(hasattr(m, "w_p4_kmajor") for m in dense if not m.a_spec.enabled)
+    for m in w4a8:
+        w_p4 = m.get_var("packed", "w_p4")
+        assert m.w_p4_kmajor.is_contiguous() and torch.equal(m.w_p4_kmajor, w_p4.t())
+        assert "w_p4_kmajor" not in m.state_dict()
+        assert not any("kmajor" in leaf for _, leaf, _ in m.own_vars())
+
+
+def test_kmajor_copy_is_made_at_pack_and_at_load(case):
+    """After ``pack_model`` and after loading JAX's deploy variables into a
+    fresh model; the loaded model's packed logits equal JAX's at f32 carry."""
+    _assert_kmajor_copies(case["model"])
+    fresh = VisionTransformer(ctx=qtt.QuantCtx(CFG), device="cpu", **_vit_kw(case["hidden"]))
+    convert.from_jax_variables(fresh, case["deploy"])
+    _assert_kmajor_copies(fresh)
+    assert "kmajor" not in str(sorted(convert.flatten(convert.to_numpy(fresh)["packed"])))
+    got = _packed_port(fresh, case["x"])
+    assert np.array_equal(got, case[("packed", "float32")][1])
+
+
+def test_packed_logits_bit_equal_through_the_kmajor_copy(case, monkeypatch):
+    """The fused q/k/v as the wgmma route receives it (the K-major copies
+    alone): packed logits still bit-equal to JAX's at f32 carry."""
+    fused = port_attention.fused_w4_operands
+    seen = []
+
+    def as_on_the_card(bufs, device, k):
+        w, w_km = fused(bufs, torch.device("cuda"), k)
+        seen.append(w is None and w_km is not None)
+        return w, w_km
+
+    monkeypatch.setattr(port_attention, "fused_w4_operands", as_on_the_card)
+    got = _packed_port(case["model"], case["x"])
+    assert seen == [True, True]
+    assert np.array_equal(got, case[("packed", "float32")][1])
 
 
 def test_mlp_gelu_is_tanh_in_packed_mode_and_erf_elsewhere(case, monkeypatch):
