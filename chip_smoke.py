@@ -14,9 +14,14 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    requests of batch 256 served in ``mode="packed"`` with the fused residual
    tail on. The launch counters are zeroed just before the requests and read
    just after: K3 37, K2 16, K1 1 and KQ (the activation quantize) 54 per
-   forward. The outputs must be finite,
+   forward, every K2 launch on its wgmma route (the launches by route are
+   printed; also in the bf16-carry request). The outputs must be finite,
    within 2e-2 of the quant simulation, within 1e-3 of the unfused path and
-   within 5e-2 with a bf16 carry (relative to max|logits|).
+   within 5e-2 with a bf16 carry (relative to max|logits|). Then K2 alone on
+   random operands at the shapes no model here gives it (``CONV1X1_SHAPES``:
+   M = 147, N = 1000, K = 48, the wide tails' K = 1024 and 2048, mixed
+   residual/output dtypes, no ReLU or bias, and K = 40 and a bf16 N = 28 on
+   the mma.sync route), each on the route its shape selects, bit for bit.
 3. ViT-B/16 W4A8 (``bench.py``'s headline with 4-bit weights: int4
    symmetric per-channel MinMax weights, the out-projections' ranges MSE,
    int8 asymmetric per-tensor MinMax activations), 1000 classes, 224x224
@@ -60,7 +65,8 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    ViT-B/32's and at ViT-B/16's attention arguments; KQ at every ResNet-50
    and ViT-B/16 call) and held against its plain PyTorch version: K3, K4
    and KQ bit for bit (KQ: 0 int8 values differ, z_eff equal; the count is
-   printed); K1 and K2 within rtol 1e-5 / atol 1e-4 in f32, one bf16 ulp;
+   printed); K2 bit for bit; K1 within rtol 1e-5 / atol 1e-4 in f32, one
+   bf16 ulp;
    K5 within
    2^-18 * sum|a*w| + 2^-23 * |out| per output, a limit that does not grow
    with K (the reading is printed beside the control: the same product with
@@ -74,9 +80,9 @@ Phases (any failure exits non-zero; the last line is printed only on success):
 7. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
-   beside its bound, its plain version and the nearest library call (K4
-   also beside ``torch._int_mm`` alone; K6 and K8 also summed over a
-   ViT-B/32 forward).
+   beside its bound, its plain version and the nearest library call (K2
+   also at bf16 carry; K4 also beside ``torch._int_mm`` alone; K6 and K8
+   also summed over a ViT-B/32 forward).
 
 Before the last line it prints one JSON object with a ``kernels`` list and
 the card's name and power limit; the last line is the ``{"ok": true, ...}``
@@ -173,6 +179,23 @@ W4A8_SHAPES = ((128, 768, 1000, True, "wgmma"), (200, 768, 1000, False, "wgmma")
                (200, 96, 1000, False, "wgmma"), (333, 160, 2304, False, "wgmma"),
                (25600, 3072, 768, False, "wgmma"), (200, 200, 1000, False, "mma_sync"),
                (200, 200, 1000, True, "mma_sync"))
+
+
+# (M, K, N, residual dtype, output dtype, relu, bias, route) of the K2 phase:
+# ragged M (147 = 3 x 49 rows), N = 1000, K = 48 (a multiple of 16, not of
+# 32), the wide tails' long K loops (WideResNet-50-2's last stage at batch
+# 256, K = 1024, and K = 2048), mixed residual/output dtypes without ReLU or
+# bias, and the mma.sync route: K = 40 (not a multiple of 16) and N = 28 in
+# bf16 (56-byte rows)
+CONV1X1_SHAPES = ((147, 256, 1024, "float32", "float32", True, True, "wgmma"),
+                  (200, 512, 1000, "bfloat16", "bfloat16", True, True, "wgmma"),
+                  (300, 48, 256, "float32", "float32", True, True, "wgmma"),
+                  (12544, 1024, 2048, "float32", "float32", True, True, "wgmma"),
+                  (12544, 2048, 2048, "bfloat16", "bfloat16", True, True, "wgmma"),
+                  (147, 64, 256, "float32", "bfloat16", False, False, "wgmma"),
+                  (147, 64, 256, "bfloat16", "float32", True, False, "wgmma"),
+                  (300, 40, 256, "float32", "float32", True, True, "mma_sync"),
+                  (147, 64, 28, "bfloat16", "bfloat16", True, True, "mma_sync"))
 
 
 def log(*args):
@@ -307,7 +330,8 @@ def work(name: str, args) -> tuple:
         n = cs.shape[0]
         return 2 * m * n * k, PEAK_INT8_OPS, sum(map(_nbytes, (q, w, cs, ws, wz, bias))) + m * n * 4
     if name == "conv1x1_residual":
-        q, _, _, w, cs, ws, bias, res, _, out_dtype = args
+        # the K-major copy (args[10]) holds the same bytes as w: counted once
+        q, _, _, w, cs, ws, bias, res, _, out_dtype = args[:10]
         m, k = q.shape
         n = w.shape[1]
         return (2 * m * n * k, PEAK_INT8_OPS,
@@ -384,7 +408,7 @@ def library_call(name: str, args):
         if name != "conv1x1_residual":
             _, _, _, _, cs, ws, _, bias = args[:8]
             return lambda: (a_s * ws) * (torch._int_mm(q, w).float() + z * cs) + bias
-        _, _, _, _, cs, ws, bias, res, relu, out_dtype = args
+        _, _, _, _, cs, ws, bias, res, relu, out_dtype = args[:10]
         return lambda: torch.relu((a_s * ws) * (torch._int_mm(q, w).float() + z * cs)
                                   + bias + res.float()).to(out_dtype)
     if name == "qconv2d":
@@ -536,7 +560,7 @@ def compare(name: str, args) -> float:
               and bool((groups <= 2.05 * sv[:, None, :] * (1 + 2.0 ** -7)).all()),
               f"{name}: kernel disagrees with its plain version beyond ex8 flips")
         return err
-    if name in ("w4a8_gemm", "qconv2d"):
+    if name in ("w4a8_gemm", "qconv2d", "conv1x1_residual"):
         ok = bool(torch.equal(got, want))
     elif got.dtype == torch.bfloat16:
         ok = _ulps_bf16(g, w) <= (2 if name == "mha_rows" else 1)
@@ -595,14 +619,13 @@ def serve(model, requests, per_fwd: dict, label: str) -> tuple:
     return outs, counts
 
 
-def check_k4_routes(counts: dict, label: str) -> dict:
-    """Every K4 launch of the run just served took the wgmma route."""
-    from quantize_tpu_torch.ops.qmatmul import w4a8_gemm
-
-    routes = dict(w4a8_gemm.route_launches)
-    log(f"{label}: K4 launches by route {routes}")
-    check(routes == {"wgmma": counts["w4a8_gemm"], "mma_sync": 0},
-          f"{label}: not every K4 launch took the wgmma route: {routes}")
+def check_routes(name: str, n: int, label: str) -> dict:
+    """Every one of the ``n`` launches of kernel ``name`` (K2 or K4) since
+    the counts were zeroed took its wgmma route."""
+    routes = dict(kernel_fn(name).route_launches)
+    log(f"{label}: {name} launches by route {routes}")
+    check(routes == {"wgmma": n, "mma_sync": 0},
+          f"{label}: not every {name} launch took the wgmma route: {routes}")
     return routes
 
 
@@ -657,6 +680,7 @@ def check_kernels(calls_list, names, max_err: dict) -> int:
 
 def resnet_phase(qtt, batch, card) -> tuple:
     import torch
+    from quantize_tpu_torch.ops import reset_launch_counts
 
     t0 = time.time()
     model = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
@@ -670,12 +694,17 @@ def resnet_phase(qtt, batch, card) -> tuple:
     requests = [batch(256) for _ in range(4)]
     with torch.inference_mode(), qtt.fused_residual(True):
         outs, counts = serve(model, requests, RESNET_PER_FWD, "resnet50")
+        routes = check_routes("conv1x1_residual", counts["conv1x1_residual"], "resnet50")
         x0, packed = requests[0], outs[0]
         sim = model(x0, mode="quant")
         with qtt.fused_residual(False):
             unfused = model(x0, mode="packed")
+        reset_launch_counts()
         with qtt.packed_carry(torch.bfloat16):
             packed_bf16 = model(x0, mode="packed")
+        torch.cuda.synchronize()
+        check_routes("conv1x1_residual", RESNET_PER_FWD["conv1x1_residual"],
+                     "resnet50 bf16 carry")
         r_sim, r_fuse, r_bf16 = rel(packed, sim), rel(packed, unfused), rel(packed_bf16, packed)
         log(f"resnet50 agreement (relative to max|logits|): packed vs quant-sim {r_sim:.3e} "
             f"(<= 2e-2), fused vs unfused {r_fuse:.3e} (<= 1e-3), bf16 carry vs f32 {r_bf16:.3e} "
@@ -708,6 +737,11 @@ def resnet_phase(qtt, batch, card) -> tuple:
         entries = kernel_entries(records[0], counts, max_err,
                                  ("w8a8_gemm", "conv1x1_residual", "qconv2d",
                                   "quantize_act_int8"))
+        entries[1]["launches_by_route"] = routes
+        # K2 at bf16 carry, outside the JSON
+        for e in kernel_entries(records[1], counts, max_err, ("conv1x1_residual",), "bf16 carry"):
+            log(f"per forward at bf16 carry: {e['name']} {e['ms']:.4f} ms, bound "
+                f"{e['bound_ms']:.4f} ms, library {e['library_ms']:.4f} ms [{card}]")
     del model, requests, outs, records
     torch.cuda.empty_cache()
     return entries
@@ -736,7 +770,7 @@ def vit_phase(qtt, batch, card) -> tuple:
     requests = [batch(128) for _ in range(4)]
     with torch.inference_mode():
         outs, counts = serve(model, requests, VIT_PER_FWD, "vit_b_16")
-        routes = check_k4_routes(counts, "vit_b_16")
+        routes = check_routes("w4a8_gemm", counts["w4a8_gemm"], "vit_b_16")
         x0, packed = requests[0], outs[0]
         sim = model(x0, mode="quant")
         with qtt.packed_carry(torch.bfloat16):
@@ -909,7 +943,7 @@ def long_attention_phase(qtt, card, dev) -> None:
     with torch.inference_mode():
         with qtt.packed_carry(torch.bfloat16):
             (out,), counts = serve(model, [request], VIT_PER_FWD, "vit_b_16@384 bf16 carry")
-        check_k4_routes(counts, "vit_b_16@384 bf16 carry")
+        check_routes("w4a8_gemm", counts["w4a8_gemm"], "vit_b_16@384 bf16 carry")
         with Recorder() as rec_f32:
             f32 = model(request, mode="packed")
         r_f32 = rel(out, f32)
@@ -982,6 +1016,39 @@ def w4a8_phase(dev) -> int:
     return len(W4A8_SHAPES)
 
 
+def conv1x1_phase(dev) -> int:
+    """K2 on random operands at the shapes no model of the phases above
+    gives it (``CONV1X1_SHAPES``), each on the route its shape selects, bit
+    for bit against the plain version; the per-launch time of each."""
+    import torch
+    from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual_gemm, conv1x1_residual_plain
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for m, k, n, res_dt, out_dt, relu, with_bias, route in CONV1X1_SHAPES:
+        q = torch.randint(-128, 128, (m, k), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=gen, device=dev, dtype=torch.int8)
+        res = (torch.randn((m, n), generator=gen, device=dev) * 4).to(getattr(torch, res_dt))
+        args = (q, torch.tensor(131.5, device=dev), torch.tensor(0.0123, device=dev), w,
+                w.sum(0, dtype=torch.int32), torch.rand(n, generator=gen, device=dev) * 0.01,
+                torch.randn(n, generator=gen, device=dev) if with_bias else None, res, relu,
+                getattr(torch, out_dt), w.t().contiguous())
+        for r in conv1x1_residual_gemm.route_launches:
+            conv1x1_residual_gemm.route_launches[r] = 0
+        got = conv1x1_residual_gemm(*args)
+        want = conv1x1_residual_plain(*args)
+        torch.cuda.synchronize()
+        took = [r for r, c in conv1x1_residual_gemm.route_launches.items() if c]
+        equal = bool(torch.equal(got, want))
+        ms = cuda_ms(lambda: conv1x1_residual_gemm(*args), reps=3, inner=5)
+        log(f"  conv1x1_residual M={m} K={k} N={n} {res_dt} -> {out_dt} relu={relu} "
+            f"bias={with_bias}: route {took}, bit-equal {equal}, max abs err "
+            f"{float((got.float() - want.float()).abs().max()):.3e}, {ms:.4f} ms")
+        check(took == [route], f"conv1x1_residual at M={m} K={k} N={n}: route {took}, "
+              f"expected {route}")
+        check(equal, f"conv1x1_residual at M={m} K={k} N={n}: not bit-equal to its plain version")
+    return len(CONV1X1_SHAPES)
+
+
 def main() -> int:
     import torch
 
@@ -1026,6 +1093,9 @@ def main() -> int:
     t0 = time.time()
     entries = resnet_phase(qtt, batch, card)
     log(f"resnet50 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    n = conv1x1_phase(dev)
+    log(f"conv1x1 phase: {n} kernel-vs-plain comparisons passed, {time.time() - t0:.1f} s")
     t0 = time.time()
     vit_entries, vit_err = vit_phase(qtt, batch, card)
     entries += vit_entries

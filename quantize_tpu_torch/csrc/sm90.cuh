@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's warp-specialized
-// kernels (wo_gemm.cu, qconv2d.cu, w4a8_gemm.cu): mbarriers, cp.async with
-// a barrier arrival, TMA loads, the 128- and 64-byte-swizzled wgmma
+// kernels (wo_gemm.cu, qconv2d.cu, w4a8_gemm.cu, conv1x1_residual.cu):
+// mbarriers, cp.async with a barrier arrival, TMA loads and stores, the
+// 128- and 64-byte-swizzled wgmma
 // shared-memory descriptors, the int8 wgmma instructions and the
 // tensor-map encoder.
 #pragma once
@@ -47,6 +48,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// mbar_wait that traps after `limit` tries: a lost arrival becomes a fault
+// instead of a hung card
+__device__ __forceinline__ void mbar_wait_bounded(uint64_t* bar, uint32_t parity,
+                                                  long long limit = 1ll << 26) {
+  const uint32_t addr = smem_addr(bar);
+  for (long long i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == limit) __trap();
+  }
+}
+
 // 16 bytes from global to shared; bytes past src_bytes (0 or 16) are zeros
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
@@ -69,6 +89,31 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_addr(bar))
       : "memory");
+}
+
+// one TMA box of a 2-D map from shared memory to global memory (inner
+// coordinate c0, outer c1), in this thread's bulk group; what lies past the
+// tensor is not written. The generic-proxy writes of the box must be
+// fenced (fence.proxy.async.shared::cta) before it is issued.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// closes this thread's current bulk group (the TMA stores issued so far)
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// returns once at most N of this thread's bulk groups are still reading
+// their shared-memory source (the source may then be overwritten)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // one TMA box of a 3-D map (coordinates innermost first) into shared memory

@@ -179,9 +179,6 @@ constexpr int NTHREADS = CONSUMERS + PRODUCERS;
 constexpr int A_HALF = BM * HALF;  // one half of a stage's A, 8 KB
 constexpr int A_BYTES = 2 * A_HALF;
 constexpr int MAX_GRID_Y = 65535;
-// a barrier wait that has not completed after this many tries is a fault
-// (a lost arrival): the kernel traps instead of hanging the card
-constexpr long long SPIN_LIMIT = 1ll << 26;
 
 template <int BN>
 struct Tile {
@@ -196,22 +193,6 @@ struct Tile {
   // z_w / bias of the tile's columns, the row sums, alignment slack
   static constexpr size_t SMEM = BODY + 2 * STAGES * 8 + 4 * BN * 4 + BM * 4 + 1024;
 };
-
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_addr(bar);
-  for (long long i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i == SPIN_LIMIT) __trap();
-  }
-}
 
 // the 4 low (high) nibbles of a word as 4 int8, each 16 times its signed
 // value: a nibble moved to the top of its byte keeps its sign
@@ -290,7 +271,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // stage kt of the ring from the packed words r, and A's TMA
     auto produce = [&](int kt, const int4 (&r)[CH]) {
       const int st = kt % STAGES;
-      bar_wait(&empty[st], ((kt / STAGES) & 1) ^ 1);
+      mbar_wait_bounded(&empty[st], ((kt / STAGES) & 1) ^ 1);
       uint8_t* stage = sm + st * TT::STAGE;
       if (lt == 0) {
         mbar_arrive_expect_tx(&full[st], A_BYTES);
@@ -333,7 +314,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   int rsum = 0;
   for (int kt = 0; kt < nk; ++kt) {
     const int st = kt % STAGES;
-    bar_wait(&full[st], (kt / STAGES) & 1);
+    mbar_wait_bounded(&full[st], (kt / STAGES) & 1);
     const uint8_t* stage = sm + st * TT::STAGE;
     if (!wz0) {
       // the row's four chunks in any order; starting at (rrow >> 1) & 3

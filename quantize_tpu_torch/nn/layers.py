@@ -316,7 +316,7 @@ class QuantConv(_QuantLayerBase):
         out = super().put_var(collection, leaf, value)
         if ((collection, leaf) == ("packed", "w_int") and self.a_spec.enabled
                 and not self.a_spec.per_channel):
-            # K3 reads the weight K-major: made here, once per packed weight
+            # K3 and K2 read the weight K-major: made here, once per packed weight
             # (at pack or load time), as buffers outside the packed collection;
             # for the stem also the space-to-depth weight and its copy
             self.register_buffer("w_kmajor", kmajor_weight(out), persistent=False)
@@ -372,7 +372,8 @@ class QuantConv(_QuantLayerBase):
         if (residual is not None and wz0 and pad_zero and self.kernel_size == (1, 1)
                 and self.strides == (1, 1)):
             return conv1x1_residual(q_a, z_eff, a_scale, w_int, w_scale, bias, residual,
-                                    relu=fuse_relu, out_dtype=packed_carry_dtype())
+                                    relu=fuse_relu, out_dtype=packed_carry_dtype(),
+                                    w_km=self.w_kmajor)
         x_sh, conv_kw, w_km = x, dict(strides=self.strides, padding=self.padding), self.w_kmajor
         if self._s2d_stem():
             kh, kw = w_int.shape[:2]

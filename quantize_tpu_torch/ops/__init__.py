@@ -3,7 +3,8 @@ launches it on CUDA tensors (counting launches in ``<wrapper>.launches``)
 and a plain PyTorch version that the wrapper runs on CPU tensors:
 
 * K1 :func:`~.qmatmul.w8a8_gemm` (``csrc/w8a8_gemm.cu``)
-* K2 :func:`~.qconv1x1.conv1x1_residual_gemm` (``csrc/conv1x1_residual.cu``)
+* K2 :func:`~.qconv1x1.conv1x1_residual_gemm` (``csrc/conv1x1_residual.cu``;
+  its launches by route in ``conv1x1_residual_gemm.route_launches``)
 * K3 :func:`~.qconv.qconv2d_int8` (``csrc/qconv2d.cu``)
 * K4 :func:`~.qmatmul.w4a8_gemm` (``csrc/w4a8_gemm.cu``; its launches by
   route in ``w4a8_gemm.route_launches``)
@@ -41,8 +42,9 @@ def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     mha_rows_int8.absmax_launches = 0
-    for route in w4a8_gemm.route_launches:
-        w4a8_gemm.route_launches[route] = 0
+    for routes in (w4a8_gemm.route_launches, conv1x1_residual_gemm.route_launches):
+        for route in routes:
+            routes[route] = 0
 
 
 def launch_counts() -> dict:

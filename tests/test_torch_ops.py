@@ -26,8 +26,8 @@ from quantize_tpu_torch import convert
 from quantize_tpu_torch.nn.layers import LayerQuantCfg, QuantConv, QuantDense
 from quantize_tpu_torch.ops import launch_counts, ref
 from quantize_tpu_torch.ops.qconv import (conv_zero_correction_map, int8_conv_exact,
-                                          quant_conv2d, resolve_padding, s2d_block_padding,
-                                          s2d_kernel, space_to_depth)
+                                          kmajor_weight, quant_conv2d, resolve_padding,
+                                          s2d_block_padding, s2d_kernel, space_to_depth)
 from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual
 from quantize_tpu_torch.ops.qmatmul import (int8_matmul_exact, quant_matmul_w8a8,
                                             quantize_act_int8)
@@ -103,11 +103,26 @@ def test_w8a8_plain_matches_oracle():
 # K2: conv1x1_residual
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("shape,k,co", [((2, 8, 8), 64, 256), ((1, 7, 7), 512, 128),
-                                        ((3, 5, 6), 48, 96)])
+K2_SHAPES = [((2, 8, 8), 64, 256), ((1, 7, 7), 512, 128), ((3, 5, 6), 48, 96)]
+
+
+@pytest.mark.parametrize("shape,k,co", K2_SHAPES)
 @pytest.mark.parametrize("relu", [True, False])
 @pytest.mark.parametrize("res_dtype", ["float32", "bfloat16"])
 def test_conv1x1_residual_plain_matches_jax(shape, k, co, relu, res_dtype):
+    _check_conv1x1_residual(shape, k, co, relu, res_dtype, with_kmajor=False)
+
+
+@pytest.mark.parametrize("shape,k,co", K2_SHAPES + [((2, 3, 5), 24, 40)])
+@pytest.mark.parametrize("relu", [True, False])
+@pytest.mark.parametrize("res_dtype", ["float32", "bfloat16"])
+def test_conv1x1_residual_with_the_kmajor_copy_matches_jax(shape, k, co, relu, res_dtype):
+    """The K-major copy (what K2's wgmma route reads; K = 24 carries zero
+    columns past K) beside the weight gives JAX's output."""
+    _check_conv1x1_residual(shape, k, co, relu, res_dtype, with_kmajor=True)
+
+
+def _check_conv1x1_residual(shape, k, co, relu, res_dtype, with_kmajor):
     rng = np.random.default_rng(0)
     n, h, w_sp = shape
     q_a = rng.integers(-128, 128, size=(n, h, w_sp, k)).astype(np.int8)
@@ -121,8 +136,9 @@ def test_conv1x1_residual_plain_matches_jax(shape, k, co, relu, res_dtype):
         res_j, res_t = res_j.astype(jnp.bfloat16), res_t.to(torch.bfloat16)
     want = jax_conv1x1_residual(jnp.asarray(q_a), z_eff, a_scale, jnp.asarray(w_int),
                                 jnp.asarray(w_scale), jnp.asarray(bias), res_j, relu=relu)
+    w_km = kmajor_weight(_t(w_int)) if with_kmajor else None
     got = conv1x1_residual(_t(q_a), _t(z_eff), _t(a_scale), _t(w_int), _t(w_scale), _t(bias),
-                           res_t, relu=relu)
+                           res_t, relu=relu, w_km=w_km)
     assert got.dtype == res_t.dtype and tuple(got.shape) == want.shape
     np.testing.assert_allclose(_f32(got), np.asarray(want, np.float32), rtol=RTOL, atol=ATOL)
 

@@ -605,3 +605,82 @@ def test_cuda_qconv2d_is_bit_equal_to_its_plain_version(cuda_card, case, wz0, ou
     assert launch_counts()["qconv2d"] == 1
     assert got.dtype == out_dtype and got.shape == want.shape
     assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+# -- K2 on both of its routes -------------------------------------------------------
+
+# (M, K, N, residual dtype, output dtype, relu, bias, route): ResNet-50's four
+# tail shapes at batch 256, each carry; then ragged M (147 = 3 x 49 rows), N =
+# 1000 (not a multiple of the 128-column tile), K = 48, mixed residual/output
+# dtypes, no ReLU and no bias, and the mma.sync route (K = 40; N = 28 in bf16)
+K2_CASES = [(m, k, n, dt, dt, True, True, "wgmma")
+            for m, k, n in ((802816, 64, 256), (200704, 128, 512), (50176, 256, 1024),
+                            (12544, 512, 2048))
+            for dt in (torch.float32, torch.bfloat16)] + [
+    (147, 256, 1024, torch.float32, torch.float32, True, True, "wgmma"),
+    (147, 512, 1000, torch.bfloat16, torch.bfloat16, True, True, "wgmma"),
+    (300, 48, 1000, torch.float32, torch.float32, True, True, "wgmma"),
+    (147, 64, 256, torch.float32, torch.bfloat16, True, True, "wgmma"),
+    (147, 64, 256, torch.bfloat16, torch.float32, True, True, "wgmma"),
+    (49, 128, 512, torch.float32, torch.float32, False, False, "wgmma"),
+    (300, 40, 256, torch.float32, torch.float32, True, True, "mma_sync"),
+    (147, 64, 28, torch.bfloat16, torch.bfloat16, True, False, "mma_sync"),
+]
+
+
+def _k2_args(m, k, n, res_dtype, out_dtype, relu, with_bias):
+    g = torch.Generator(device="cuda").manual_seed(m + k + n)
+    f = dict(device="cuda")
+    q = torch.randint(-128, 128, (m, k), generator=g, dtype=torch.int8, **f)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8, **f)
+    res = (torch.randn((m, n), generator=g, **f) * 4).to(res_dtype)
+    return [q, torch.tensor(-57.25, **f), torch.tensor(0.0123, **f), w,
+            w.sum(0, dtype=torch.int32), torch.rand(n, generator=g, **f) * 0.01,
+            torch.randn(n, generator=g, **f) if with_bias else None, res, relu, out_dtype,
+            w.t().contiguous()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", K2_CASES)
+def test_cuda_conv1x1_residual_is_bit_equal_on_its_route(cuda_card, case):
+    """K2 on the card against its plain version, bit for bit (exact int32
+    sums, the same epilogue in the same rounding order), z_eff != 0, on the
+    route its shape selects, given the K-major copy as the model gives it."""
+    from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual_plain
+
+    *shape, route = case
+    args = _k2_args(*shape)
+    reset_launch_counts()
+    got = conv1x1_residual_gemm(*args)
+    want = conv1x1_residual_plain(*args)
+    torch.cuda.synchronize()
+    assert conv1x1_residual_gemm.route_launches == {"wgmma": 0, "mma_sync": 0, route: 1}
+    assert got.dtype == args[9] and got.shape == want.shape
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", ["no copy", "misaligned residual", "misaligned A"])
+def test_cuda_conv1x1_residual_routes_by_operands(cuda_card, given):
+    """The (K, N) weight without its K-major copy takes the wgmma route (the
+    wrapper makes the copy); a residual or an A that is not 16-byte aligned
+    takes the mma.sync route; every one bit-equal."""
+    from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual_plain
+
+    m, k, n = 300, 256, 1024
+    args = _k2_args(m, k, n, torch.float32, torch.float32, True, True)
+    want = conv1x1_residual_plain(*args)
+    if given == "no copy":
+        args[10] = None
+    elif given == "misaligned residual":
+        buf = torch.empty(m * n + 1, device="cuda")
+        args[7] = buf[1:].view(m, n).copy_(args[7])
+    else:
+        buf = torch.empty(m * k + 1, dtype=torch.int8, device="cuda")
+        args[0] = buf[1:].view(m, k).copy_(args[0])
+    reset_launch_counts()
+    got = conv1x1_residual_gemm(*args)
+    torch.cuda.synchronize()
+    route = "wgmma" if given == "no copy" else "mma_sync"
+    assert conv1x1_residual_gemm.route_launches == {"wgmma": 0, "mma_sync": 0, route: 1}
+    assert torch.equal(got, want)
