@@ -22,7 +22,7 @@ from torch import nn
 
 from ..ops.attention import mha_fused_qkv, mha_fused_qkv_rows
 from ..ops.layernorm import layernorm, layernorm_quant_int8
-from ..ops.qmatmul import _w4a8_route, quant_matmul_w4a8, quant_matmul_w8a8
+from ..ops.qmatmul import _w4a8_route, _w8a8_route, quant_matmul_w4a8, quant_matmul_w8a8
 from ..utils.config import dict_merge
 from .layers import FP32, LayerQuantCfg, QuantDense
 from .precision import packed_carry_dtype
@@ -81,11 +81,19 @@ def _fused_qkv_packed(x: torch.Tensor, mods: Sequence[QuantDense], pre_norm=None
                                 cat("w_zero"), cat("bias"), cat("col_sum"), w_zero_is_zero=wz0,
                                 pre_q=pre_q, w_km=w_km)
     else:
-        qkv = quant_matmul_w8a8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax,
-                                torch.cat([b["w_int"] for b in bufs], dim=1), cat("w_scale"),
+        w, w_km = fused_w8_operands(bufs, x.device, x.shape[-1])
+        qkv = quant_matmul_w8a8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax, w, cat("w_scale"),
                                 cat("w_zero"), cat("bias"), cat("col_sum"), w_zero_is_zero=wz0,
-                                pre_q=pre_q)
+                                pre_q=pre_q, w_km=w_km)
     return qkv.to(packed_carry_dtype())
+
+
+def fused_w8_operands(bufs: Sequence[dict], device: torch.device, k: int):
+    """``(w_int, w_km)`` of the fused q/k/v int8 weight, of which only what K1
+    reads on ``device`` is made, as :func:`fused_w4_operands` does for K4."""
+    if device.type == "cuda" and _w8a8_route(k) == "wgmma":
+        return None, torch.cat([b["w_kmajor"] for b in bufs], dim=0)
+    return torch.cat([b["w_int"] for b in bufs], dim=1), None
 
 
 def fused_w4_operands(bufs: Sequence[dict], device: torch.device, k: int):

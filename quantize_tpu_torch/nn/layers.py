@@ -195,12 +195,13 @@ class QuantDense(_QuantLayerBase):
 
     def put_var(self, collection: str, leaf: str, value: torch.Tensor) -> torch.Tensor:
         out = super().put_var(collection, leaf, value)
-        if ((collection, leaf) == ("packed", "w_p4") and self.a_spec.enabled
+        if (collection == "packed" and leaf in ("w_p4", "w_int") and self.a_spec.enabled
                 and not self.a_spec.per_channel):
-            # K4's wgmma route reads the packed weight K-major: made here,
+            # K4's and K1's wgmma routes read the weight K-major: made here,
             # once per packed weight (at pack or load time), as a buffer
             # outside the packed collection
-            self.register_buffer("w_p4_kmajor", kmajor_packed(out), persistent=False)
+            name = "w_p4_kmajor" if leaf == "w_p4" else "w_kmajor"
+            self.register_buffer(name, kmajor_packed(out), persistent=False)
         return out
 
     def _store_weight(self, x: torch.Tensor, q_i8: torch.Tensor) -> None:
@@ -247,7 +248,8 @@ class QuantDense(_QuantLayerBase):
                                          w_km=self.w_p4_kmajor)
             return quant_matmul_w8a8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax,
                                      self.get_var("packed", "w_int"), w_scale, w_zero, bias,
-                                     col_sum, w_zero_is_zero=wz0, pre_q=pre_q)
+                                     col_sum, w_zero_is_zero=wz0, pre_q=pre_q,
+                                     w_km=self.w_kmajor)
         # weight-only (or per-channel activations): float activations times
         # the dequantized weight
         w_int = (unpack_int4_splithalf(self.get_var("packed", "w_p4")) if p4
@@ -264,8 +266,9 @@ class QuantDense(_QuantLayerBase):
         for name in ("w_int", "w_p4", "col_sum", "a_scale", "a_zero"):
             if self.has_var("packed", name):
                 out[name] = self.get_var("packed", name)
-        if hasattr(self, "w_p4_kmajor"):
-            out["w_p4_kmajor"] = self.w_p4_kmajor
+        for name in ("w_p4_kmajor", "w_kmajor"):
+            if hasattr(self, name):
+                out[name] = getattr(self, name)
         return out
 
     def forward(self, x: torch.Tensor, mode: str = "fp32", pre_norm=None) -> torch.Tensor:
@@ -338,6 +341,10 @@ class QuantConv(_QuantLayerBase):
     def _packed_forward(self, x: torch.Tensor, residual=None,
                         fuse_relu: bool = False) -> torch.Tensor:
         w_spec, a_spec = self.w_spec, self.a_spec
+        if self.has_var("packed", "awq_recip"):
+            # JAX folds 1/awq into the dequantized weight (quantize_tpu
+            # nn/layers.py:427-443); without it the output would be wrong
+            raise _not_ported("the AWQ packed conv")
         bias = self.get_var("packed", "bias")
 
         def _finish(out):

@@ -2,7 +2,8 @@
 launches it on CUDA tensors (counting launches in ``<wrapper>.launches``)
 and a plain PyTorch version that the wrapper runs on CPU tensors:
 
-* K1 :func:`~.qmatmul.w8a8_gemm` (``csrc/w8a8_gemm.cu``)
+* K1 :func:`~.qmatmul.w8a8_gemm` (``csrc/w8a8_gemm.cu``; its launches by
+  route in ``w8a8_gemm.route_launches``)
 * K2 :func:`~.qconv1x1.conv1x1_residual_gemm` (``csrc/conv1x1_residual.cu``;
   its launches by route in ``conv1x1_residual_gemm.route_launches``)
 * K3 :func:`~.qconv.qconv2d_int8` (``csrc/qconv2d.cu``)
@@ -10,7 +11,8 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
   route in ``w4a8_gemm.route_launches``)
 * K5 :func:`~.qmatmul.wo_gemm` (``csrc/wo_gemm.cu``)
 * K6 :func:`~.layernorm.layernorm_rows` (``csrc/layernorm.cu``)
-* K7 :func:`~.layernorm.layernorm_quant_int8_rows` (``csrc/layernorm.cu``)
+* K7 :func:`~.layernorm.layernorm_quant_int8_rows` (``csrc/layernorm.cu``; its
+  launches by route in ``layernorm_quant_int8_rows.route_launches``)
 * K8 :func:`~.attention.mha_rows` (``csrc/mha_rows.cu``)
 * K9 :func:`~.attention.mha_rows_int8` (``csrc/mha_rows_int8.cu``)
 * KQ :func:`~.qmatmul.quantize_act_int8` (``csrc/quantize_act.cu``; the
@@ -42,7 +44,8 @@ def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
     mha_rows_int8.absmax_launches = 0
-    for routes in (w4a8_gemm.route_launches, conv1x1_residual_gemm.route_launches):
+    for routes in (w4a8_gemm.route_launches, conv1x1_residual_gemm.route_launches,
+                   layernorm_quant_int8_rows.route_launches, w8a8_gemm.route_launches):
         for route in routes:
             routes[route] = 0
 

@@ -28,13 +28,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 KERNELS = {
-    "w8a8_gemm": ("w8a8_gemm", "qtt_w8a8_gemm", [_P] * 9 + [_I] * 4 + [_P]),
+    "w8a8_gemm": ("w8a8_gemm", "qtt_w8a8_gemm", [_P] * 10 + [_I] * 6 + [_P]),
     "conv1x1_residual": ("conv1x1_residual", "qtt_conv1x1_residual", [_P] * 10 + [_I] * 7 + [_P]),
     "qconv2d": ("qconv2d", "qtt_qconv2d", [_P] * 9 + [_I] * 16 + [_P]),
     "w4a8_gemm": ("w4a8_gemm", "qtt_w4a8_gemm", [_P] * 10 + [_I] * 5 + [_P]),
     "layernorm": ("layernorm", "qtt_layernorm", [_P] * 4 + [_I] * 2 + [_F] + [_I] * 2 + [_P]),
     "layernorm_quant_int8": ("layernorm", "qtt_layernorm_q",
-                             [_P] * 6 + [_I] * 2 + [_F] + [_I] * 3 + [_P]),
+                             [_P] * 6 + [_I] * 2 + [_F] + [_I] * 4 + [_P]),
     "mha_rows": ("mha_rows", "qtt_mha_rows", [_P] * 2 + [_I] * 6 + [_F] + [_I] * 2 + [_P]),
     "wo_gemm": ("wo_gemm", "qtt_wo_gemm", [_P] * 6 + [_I] * 4 + [_P]),
     "mha_rows_int8": ("mha_rows_int8", "qtt_mha_rows_int8",

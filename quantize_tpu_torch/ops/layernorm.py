@@ -11,6 +11,11 @@ with the two row sums taken in float64 and rounded to float32 once and
 independent of the summation order, so kernel and plain version agree bit
 for bit; the JAX package sums in float32 and uses ``rsqrt``, so the port
 differs from it by float32 reassociation (one or two ulp of the statistics).
+
+K7 has two routes, chosen from the shape before launch (:func:`_ln_q_route`)
+and counted in ``layernorm_quant_int8_rows.route_launches``: the ``vector``
+kernel holds a row in registers (d a multiple of 128 up to 2,048, as every
+ViT and CLIP width of the zoo), the ``scalar`` kernel takes every other d.
 """
 from __future__ import annotations
 
@@ -83,6 +88,23 @@ def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: flo
     return out.reshape(*lead, d)
 
 
+# K7's vector route (csrc/layernorm.cu: ln_q_vec_kernel): a row of d = 128 * nv
+# elements in registers, nv loads of four elements a lane, nv <= 16
+LN_Q_VEC_MAX_D = 2048
+
+
+def _ln_q_route(d: int, dtype: torch.dtype, aligned: bool = True) -> str:
+    """Which kernel of ``csrc/layernorm.cu`` takes a K7 launch over rows of
+    ``d`` elements of ``dtype`` (float32 or bfloat16; others raise), chosen
+    before launch: ``"vector"`` where d is a positive multiple of 128 up to
+    2,048 and x is ``aligned`` to the kernel's four-element loads (16 bytes
+    in float32, 8 in bf16), else ``"scalar"``."""
+    _build.dtype_code(dtype)
+    if 0 < d <= LN_Q_VEC_MAX_D and d % 128 == 0 and aligned:
+        return "vector"
+    return "scalar"
+
+
 def layernorm_quant_int8_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                eps: float, a_scale: torch.Tensor, a_zero: torch.Tensor,
                                qmin: int, qmax: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,7 +121,8 @@ def layernorm_quant_int8_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.
                               qmin: int, qmax: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K7 on (R, d) rows; ``a_scale`` and ``a_zero`` are 0-d float32
     tensors. Returns ``(q int8 (R, d), z_eff)`` with ``z_eff`` a 0-d tensor
-    on the device (no host sync)."""
+    on the device (no host sync). CUDA tensors launch the kernel of
+    ``csrc/layernorm.cu`` that :func:`_ln_q_route` picks, or raise."""
     dev = x.device
     if dev.type == "cpu":
         return layernorm_quant_int8_plain(x, scale, bias, eps, a_scale, a_zero, qmin, qmax)
@@ -112,19 +135,24 @@ def layernorm_quant_int8_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.
     _build.require(bias, "bias", dev, torch.float32, (d,))
     _build.require(a_scale, "a_scale", dev, torch.float32, ())
     _build.require(a_zero, "a_zero", dev, torch.float32, ())
+    aligned = (x.data_ptr() % (4 * x.element_size()) == 0
+               and scale.data_ptr() % 16 == 0 and bias.data_ptr() % 16 == 0)
+    route = _ln_q_route(d, x.dtype, aligned)
     q = torch.empty((r, d), dtype=torch.int8, device=dev)
     fn = _build.kernel_fn("layernorm_quant_int8")
     with torch.cuda.device(dev):
         err = fn(_build.ptr(x), _build.ptr(scale), _build.ptr(bias), _build.ptr(a_scale),
                  _build.ptr(a_zero), _build.ptr(q), r, d, float(eps), int(qmin), int(qmax),
-                 in_code, _build.current_stream(dev))
-    _build.check(err, "layernorm_quant_int8")
+                 in_code, int(route == "vector"), _build.current_stream(dev))
+    _build.check(err, f"layernorm_quant_int8 ({route})")
     layernorm_quant_int8_rows.launches += 1
+    layernorm_quant_int8_rows.route_launches[route] += 1
     z_eff = a_zero + 128.0 if qmin >= 0 else a_zero.clone()
     return q, z_eff
 
 
 layernorm_quant_int8_rows.launches = 0
+layernorm_quant_int8_rows.route_launches = {"vector": 0, "scalar": 0}
 
 
 def layernorm_quant_int8(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,

@@ -10,12 +10,14 @@ backends (the Pallas kernels and the XLA twins) compute
 over int8 A and int8 (or int4) W with int32 accumulation. Here
 :func:`w8a8_gemm` launches the hand-written CUDA kernel ``csrc/w8a8_gemm.cu``
 and :func:`w4a8_gemm` launches ``csrc/w4a8_gemm.cu`` on CUDA tensors; on CPU
-tensors they run :func:`w8a8_gemm_plain` and :func:`w4a8_gemm_plain`. K4
-has two routes, chosen from the shape before launch (:func:`_w4a8_route`):
-a warp-specialized ``wgmma`` kernel over the weights' K-major copy
-(:func:`kmajor_packed`, made once at pack time) where K is a multiple of 32,
-and the ``mma.sync`` kernel over the packed (K/2, N) weights for every
-other even K.
+tensors they run :func:`w8a8_gemm_plain` and :func:`w4a8_gemm_plain`. Both
+have two routes, chosen from the shape before launch (:func:`_w8a8_route`,
+:func:`_w4a8_route`): a warp-specialized ``wgmma`` kernel over the weights'
+K-major copy (:func:`kmajor_packed`, made once at pack time) where K is a
+multiple of 16 (K1) or 32 (K4), and the ``mma.sync`` kernel over the
+(K, N) or packed (K/2, N) weights for every other K. K1's ``wgmma`` route
+splits the K loop across a cluster of CTAs where the output has too few
+tiles to fill the card (:func:`_w8a8_split`).
 
 The weight-only product (:func:`quant_matmul_wo`) is float activations
 times int8 weights dequantized as ``(w + z)·s``: :func:`wo_gemm` launches
@@ -93,11 +95,44 @@ def int8_matmul_exact(q_a: torch.Tensor, w_int: torch.Tensor) -> torch.Tensor:
     return q_a.double() @ w_int.double()
 
 
+# K1's wgmma route (``csrc/w8a8_gemm.cu``, namespace wg1): 128 x 128 output
+# tiles, stages of 128 K bytes, K split across clusters of at most 8 CTAs
+W8A8_BM, W8A8_BN, W8A8_BK, W8A8_MAX_SPLIT = 128, 128, 128, 8
+
+
+def _w8a8_route(k: int, aligned: bool = True) -> str:
+    """Which kernel of ``csrc/w8a8_gemm.cu`` takes an (M, K) x (K, N) launch,
+    chosen from the shape before launch: ``"wgmma"`` where K is a positive
+    multiple of 16 (the TMA maps of A and the K-major copy need rows of
+    16-byte multiples) below 2^17 (the int32 sums) and both are 16-byte
+    ``aligned``, else ``"mma_sync"``. M and N are any: TMA zero-fills the
+    tiles past them."""
+    if 0 < k < 1 << 17 and k % 16 == 0 and aligned:
+        return "wgmma"
+    return "mma_sync"
+
+
+def _w8a8_split(m: int, n: int, k: int, sms: int) -> int:
+    """How many CTAs of a cluster share one output tile of K1's wgmma route,
+    each summing a slice of the K stages: the largest S of 1, 2, 4, 8 with
+    tiles x S at most the card's ``sms`` and at least 4 stages for each CTA
+    (so that its ring still runs ahead). Large M takes S = 1."""
+    tiles = -(-m // W8A8_BM) * -(-n // W8A8_BN)
+    nk = -(-k // W8A8_BK)
+    s = 1
+    while s < W8A8_MAX_SPLIT and tiles * 2 * s <= sms and nk // (2 * s) >= 4:
+        s *= 2
+    return s
+
+
 def w8a8_gemm_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
-                    w_int: torch.Tensor, col_sum: torch.Tensor, w_scale: torch.Tensor,
+                    w_int: Optional[torch.Tensor], col_sum: torch.Tensor, w_scale: torch.Tensor,
                     w_zero: torch.Tensor, bias: Optional[torch.Tensor],
-                    w_zero_is_zero: bool) -> torch.Tensor:
-    """Plain version of kernel K1 (exact integer sums in float64)."""
+                    w_zero_is_zero: bool, w_km: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of kernel K1 (exact integer sums in float64). The
+    weight is ``w_int``, or ``w_km.t()`` where only the K-major copy is
+    given."""
+    w_int = w_km.t() if w_int is None else w_int
     k = q_a.shape[-1]
     acc = int8_matmul_exact(q_a, w_int).float()
     corrected = acc + z_eff * col_sum.float()[None, :]
@@ -110,26 +145,45 @@ def w8a8_gemm_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tenso
 
 
 def w8a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
-              w_int: torch.Tensor, col_sum: torch.Tensor, w_scale: torch.Tensor,
+              w_int: Optional[torch.Tensor], col_sum: torch.Tensor, w_scale: torch.Tensor,
               w_zero: torch.Tensor, bias: Optional[torch.Tensor],
-              w_zero_is_zero: bool) -> torch.Tensor:
+              w_zero_is_zero: bool, w_km: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K1: int8 (M, K) x int8 (K, N) -> f32 (M, N) with the W8A8
     epilogue. ``z_eff`` and ``a_scale`` are 0-d f32 tensors; ``col_sum``
-    int32 (N,); ``w_scale``, ``w_zero``, ``bias`` f32 (N,).
+    int32 (N,); ``w_scale``, ``w_zero``, ``bias`` f32 (N,). ``w_km`` is the
+    weight's K-major copy (N, K), made beforehand; either weight may be
+    None, not both.
 
-    CPU tensors take :func:`w8a8_gemm_plain`; CUDA tensors launch the kernel
-    (``csrc/w8a8_gemm.cu``) or raise.
+    CPU tensors take :func:`w8a8_gemm_plain`; CUDA tensors launch one of the
+    two kernels of ``csrc/w8a8_gemm.cu`` (:func:`_w8a8_route`; the launches
+    of each are counted in ``w8a8_gemm.route_launches``), making the copy
+    the route reads where it was not given, or raise.
     """
+    if w_int is None and w_km is None:
+        raise ValueError("w8a8_gemm: needs w_int or its K-major copy w_km")
     dev = q_a.device
     if dev.type == "cpu":
         return w8a8_gemm_plain(q_a, z_eff, a_scale, w_int, col_sum, w_scale, w_zero,
-                               bias, w_zero_is_zero)
+                               bias, w_zero_is_zero, w_km)
     if dev.type != "cuda":
         raise ValueError(f"w8a8_gemm: unsupported device {dev}")
     m, k = q_a.shape
-    n = w_int.shape[1]
+    n = w_int.shape[1] if w_int is not None else w_km.shape[0]
+    aligned = q_a.data_ptr() % 16 == 0 and (w_km is None or w_km.data_ptr() % 16 == 0)
+    route = _w8a8_route(k, aligned)
+    split = 1
+    if route == "wgmma":
+        if w_km is None:
+            w_km = w_int.t().contiguous()
+        _build.require(w_km, "w_km", dev, torch.int8, (n, k))
+        w_int = None
+        split = _w8a8_split(m, n, k, torch.cuda.get_device_properties(dev).multi_processor_count)
+    else:
+        if w_int is None:
+            w_int = w_km.t().contiguous()
+        _build.require(w_int, "w_int", dev, torch.int8, (k, n))
+        w_km = None
     _build.require(q_a, "q_a", dev, torch.int8, (m, k))
-    _build.require(w_int, "w_int", dev, torch.int8, (k, n))
     _build.require(col_sum, "col_sum", dev, torch.int32, (n,))
     for name, t in (("w_scale", w_scale), ("w_zero", w_zero)):
         _build.require(t, name, dev, torch.float32, (n,))
@@ -140,16 +194,19 @@ def w8a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     fn = _build.kernel_fn("w8a8_gemm")
     with torch.cuda.device(dev):
-        err = fn(_build.ptr(q_a), _build.ptr(w_int), _build.ptr(col_sum),
+        err = fn(_build.ptr(q_a), _build.ptr(w_int), _build.ptr(w_km), _build.ptr(col_sum),
                  _build.ptr(w_scale), _build.ptr(w_zero), _build.ptr(bias),
                  _build.ptr(a_scale), _build.ptr(z_eff), _build.ptr(out),
-                 m, n, k, int(bool(w_zero_is_zero)), _build.current_stream(dev))
-    _build.check(err, "w8a8_gemm")
+                 m, n, k, int(bool(w_zero_is_zero)), int(route == "wgmma"), split,
+                 _build.current_stream(dev))
+    _build.check(err, f"w8a8_gemm ({route})")
     w8a8_gemm.launches += 1
+    w8a8_gemm.route_launches[route] += 1
     return out
 
 
 w8a8_gemm.launches = 0
+w8a8_gemm.route_launches = {"wgmma": 0, "mma_sync": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -176,11 +233,12 @@ def unpack_int4_splithalf(p: torch.Tensor) -> torch.Tensor:
     return torch.cat([lo, hi], dim=0).to(torch.int8)
 
 
-def kmajor_packed(w_p4: torch.Tensor) -> torch.Tensor:
-    """The (N, K/2) K-major copy of split-half packed weights (K/2, N), the
-    layout the ``wgmma`` route of kernel K4 reads (8-bit ``wgmma`` reads
-    both operands K-major)."""
-    return w_p4.t().contiguous()
+def kmajor_packed(w: torch.Tensor) -> torch.Tensor:
+    """The K-major copy (N, K') of an int8 weight (K', N): of split-half
+    packed weights (K/2, N), the layout the ``wgmma`` route of kernel K4
+    reads, or of a W8A8 weight (K, N), K1's (8-bit ``wgmma`` reads both
+    operands K-major)."""
+    return w.t().contiguous()
 
 
 # K4's wgmma route (``csrc/w4a8_gemm.cu``, namespace wg4): 128 rows a block,
@@ -433,16 +491,22 @@ def quant_matmul_w8a8(
     col_sum_w: Optional[torch.Tensor] = None,
     w_zero_is_zero: bool = False,
     pre_q=None,
+    w_km: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Fused W8A8 matmul. ``x``: (..., K) float; ``w_int``: (K, N) int8."""
+    """Fused W8A8 matmul. ``x``: (..., K) float; ``w_int``: (K, N) int8.
+    ``w_km``: the weight's K-major copy (:func:`kmajor_packed`), made once by
+    the caller; ``w_int`` may then be None."""
     lead = x.shape[:-1]
-    n = w_int.shape[1]
+    n = w_int.shape[1] if w_int is not None else w_km.shape[0]
     q_a, z_eff = _quantized_input(x, a_scale, a_zero, a_qmin, a_qmax, pre_q)
     if col_sum_w is None:
-        col_sum_w = w_int.sum(dim=0, dtype=torch.int32)
+        w = w_int if w_int is not None else w_km.t()
+        col_sum_w = w.sum(dim=0, dtype=torch.int32)
     a_scale = torch.as_tensor(a_scale, dtype=torch.float32, device=q_a.device).reshape(())
-    out = w8a8_gemm(q_a.contiguous(), z_eff.reshape(()), a_scale, w_int.contiguous(),
+    # positional arguments: chip_smoke.py records the kernels' calls by them
+    out = w8a8_gemm(q_a.contiguous(), z_eff.reshape(()), a_scale,
+                    None if w_int is None else w_int.contiguous(),
                     col_sum_w.to(torch.int32), w_scale.float().reshape(-1),
                     w_zero.float().reshape(-1), None if bias is None else bias.float(),
-                    w_zero_is_zero)
+                    w_zero_is_zero, w_km)
     return out.reshape(*lead, n)

@@ -32,9 +32,10 @@ from collections import defaultdict
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-PORT_KERNELS = ("w8a8_gemm_kernel", "conv1x1_res_kernel", "conv1x1_res_wgmma_kernel",
-                "qconv2d_wgmma_kernel",
+PORT_KERNELS = ("w8a8_gemm_kernel", "w8a8_wgmma_kernel", "conv1x1_res_kernel",
+                "conv1x1_res_wgmma_kernel", "qconv2d_wgmma_kernel",
                 "w4a8_gemm_kernel", "w4a8_wgmma_kernel", "ln_kernel", "ln_q_kernel",
+                "ln_q_vec_kernel",
                 "mha_rows_kernel", "wo_gemm_kernel", "mha_rows_int8_kernel", "mha_rows_int8_streamed_kernel",
                 "absmax_kernel", "quantize_act_kernel")
 RANGES = ("quantize_act_int8", "quant_matmul_wo", "unpack_int4_splithalf", "quant_conv2d_wo")

@@ -165,6 +165,35 @@ def test_quant_conv2d_wo_raises_for_awq_and_groups():
             tqconv.quant_conv2d_wo(torch.zeros(1, 2, 2, 4), w, torch.ones(4), torch.zeros(4), **kw)
 
 
+def test_awq_packed_conv_loaded_from_jax_raises():
+    """A W4 weight-only AWQ conv packed by the JAX package carries
+    ``packed/awq_recip``, which JAX folds into the dequantized weight. The
+    port does not: its packed conv must raise rather than run without it."""
+    from quantize_tpu.nn.layers import LayerQuantCfg as JaxLayerQuantCfg
+    from quantize_tpu.nn.layers import QuantConv as JaxQuantConv
+    from quantize_tpu_torch.nn.layers import LayerQuantCfg, QuantConv
+
+    weight = {"n_bits": 4, "symmetric": True, "signed": True, "granularity": "channel",
+              "range": {"name": "awq", "grid": 8}}
+    x = np.random.default_rng(7).normal(size=(2, 8, 8, 3)).astype(np.float32)  # odd Ci: w_int
+    jm = JaxQuantConv(features=16, kernel_size=(3, 3),
+                      quant=JaxLayerQuantCfg(weight=weight, activation={"n_bits": 32}))
+    variables = dict(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), mode="calibrate"))
+    variables.pop("taps", None)
+    _, upd = jm.apply(variables, jnp.asarray(x), mode="calibrate", mutable=["qobs", "qparams"])
+    variables.update(upd)
+    _, upd = jm.apply(variables, jnp.asarray(x), mode="pack", mutable=["packed"])
+    deploy = jax.device_get({**variables, **upd})
+    assert {"awq_recip", "w_int"} <= set(deploy["packed"])
+
+    tm = QuantConv(3, 16, kernel_size=(3, 3),
+                   quant=LayerQuantCfg(weight=weight, activation={"n_bits": 32}), device="cpu")
+    convert.from_jax_variables(tm, deploy)
+    assert tm.has_var("packed", "awq_recip")
+    with pytest.raises(NotImplementedError, match="the AWQ packed conv"):
+        tm(torch.from_numpy(x), mode="packed")
+
+
 # ---------------------------------------------------------------------------
 # A tiny ViT, weight-only W4
 # ---------------------------------------------------------------------------
