@@ -28,7 +28,26 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    cluster of 8 CTAs; K = 40 on the mma.sync route), each on the route its
    shape selects, bit for bit, with its time beside its bound and the
    library call's.
-3. ViT-B/16 W4A8 (``bench.py``'s headline with 4-bit weights: int4
+3. The PTQ runner through the CLI (``quantize_tpu_torch.cli.main``, in-process,
+   on the card, into a temporary directory): ``RUNNER_CFG``, the CPU config
+   as users run it (TestCNN, 32 x 32 synthetic images: 160 calibration
+   images at batch 64, the last batch padded, 256 val and 256 test at batch
+   128), then the same config at ResNet-50's full width
+   (``model.name=resnet50``, 224 x 224: the model and quant sections of
+   ``ptq_rn50_w8a8_in1k_16shots.yaml``, the synthetic set for ImageNet).
+   Each reaches a test top-1 in [0, 100] and writes its checkpoints, config
+   and log; a fresh runner loaded from ``ckpt_best.pkl`` gives bit-equal
+   quant-mode test logits; that model is packed on one padded train batch
+   and serves the test split, counted as above (TestCNN: K3 2, K1 2, KQ 4
+   per forward; ResNet-50: K3 37, K2 16, K1 1, KQ 54, K2 and K1 on their
+   wgmma routes), its logits within 2e-2 of the quant-mode logits, and every
+   kernel call of one packed test batch bit-equal to its plain version (the
+   10-class head, N = 10, and TestCNN's shapes are new). Printed with the
+   card's name and power limit: the wall time from config to test result,
+   the new shapes' per-launch kernel times beside their bounds, and at
+   ResNet-50 the CUDA-event medians of a calibration step (64), a quant-mode
+   eval batch (128) and a packed eval batch (128).
+4. ViT-B/16 W4A8 (``bench.py``'s headline with 4-bit weights: int4
    symmetric per-channel MinMax weights, the out-projections' ranges MSE,
    int8 asymmetric per-tensor MinMax activations), 1000 classes, 224x224
    (S = 197 padded to 200), random weights from seed 0: init, calibration
@@ -43,7 +62,7 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    shapes no model here gives it (``W4A8_SHAPES``: M of 128, 200 and 333,
    N = 1000, K/2 not a multiple of 64 with z_w != 0, and K = 200 on the
    mma.sync route), each on the route its shape selects, bit for bit.
-4. ViT-B/32 weight-only W4 (``configs/runners/ptq/weight_quantize/
+5. ViT-B/32 weight-only W4 (``configs/runners/ptq/weight_quantize/
    mse_channel.yaml`` at 4 bits: symmetric per-channel weights with the MSE
    range search, activations at 32 bits), 1000 classes, 224x224 (S = 50
    padded to 56), random weights from seed 0: init, calibration on 4
@@ -52,7 +71,7 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    the quant simulation and within 5e-2 with a bf16 carry. One request is
    served again with ``QTPU_ATTN_INT8=1``: K9 12 and K8 0 per forward, the
    logits within 5e-2 of the default path.
-5. Long sequences and wide heads: ViT-B/16 W4A8 as in phase 3 at
+6. Long sequences and wide heads: ViT-B/16 W4A8 as in phase 4 at
    ``image_size=384`` (S = 577 padded to 584, the usual fine-tuning
    resolution), calibrated on 4 batches of 8, then one request of 32 images
    at bf16 carry, counted as above (K8 12 a forward, K4 on its wgmma route,
@@ -67,7 +86,7 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    at head dim 65,528 in bf16 and 49,144 in float32), against their plain
    versions: K8 within its tolerance, K9 bit for bit; the count of K9's
    absmax pre-pass launches (its streamed layout) is printed.
-6. Kernels: every kernel is called on the very arguments the main paths
+7. Kernels: every kernel is called on the very arguments the main paths
    give it (recorded at each main-path shape, f32 and bf16 carry; ResNet-50's
    four kernels on one request of 256 at each carry; K3 also at ViT's patch
    embedding; K5 at both ViTs'; K9 at
@@ -85,7 +104,7 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    flips (one exp rounding moves one ex8 by a step and one row of one head
    by at most 2.05 * sv) on at most 1e-3 of the (row, head) groups (the
    count is printed).
-7. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+8. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
    beside its bound, its plain version and the nearest library call (K2
@@ -114,7 +133,7 @@ PEAK_BYTES = 3.35e12
 # K5 against its plain version, per output and at every K: |diff| <=
 # 2^-18 * sum|a*w| + 2^-23 * |out| (the second term is the rounding of
 # acc + bias). Summing the same float32 products in another order stays
-# below it; skipping the bf16 rounding of an f32 activation does not (phase 5)
+# below it; skipping the bf16 rounding of an f32 activation does not (phase 6)
 WO_LIMIT = 2.0 ** -18
 
 _ACT = {"n_bits": 8, "symmetric": False, "granularity": "layer", "range": {"name": "minmax"}}
@@ -157,11 +176,22 @@ KERNEL_INFO = {
                           "fusion, not a pallas_call)"),
 }
 RESNET_PER_FWD = {"qconv2d": 37, "conv1x1_residual": 16, "w8a8_gemm": 1, "quantize_act_int8": 54}
+# TestCNN: conv1 and conv2 (K3, Ci 3 and 16), fc1 and fc2 (K1, N 32 and 10),
+# each after its activation quantize (KQ); BN folded, no residual
+TESTCNN_PER_FWD = {"qconv2d": 2, "w8a8_gemm": 2, "quantize_act_int8": 4}
+# the runner phase: the CPU config as users run it (TestCNN, 32 x 32), then
+# the same config at ResNet-50's full width, as ptq_rn50_w8a8_in1k_16shots.yaml
+# sets its model and quant sections, on 224 x 224 synthetic images
+RUNNER_CFG = "configs/runners/ptq/minmax/ptq_rn18_w8a8_synthetic.yaml"
+RUNNER_RUNS = (("testcnn", [], TESTCNN_PER_FWD),
+               ("resnet50@224", ["model.name=resnet50", "train_dataset.image_size=224",
+                                 "val_dataset.image_size=224", "test_dataset.image_size=224"],
+                RESNET_PER_FWD))
 VIT_PER_FWD = {"w4a8_gemm": 37, "layernorm_quant_int8": 24, "mha_rows": 12, "layernorm": 1,
                "qconv2d": 1, "wo_gemm": 12, "quantize_act_int8": 14}
 VIT32_PER_FWD = {"wo_gemm": 73, "layernorm": 25, "mha_rows": 12}
 VIT32_INT8_PER_FWD = {"wo_gemm": 73, "layernorm": 25, "mha_rows_int8": 12}
-# (kernel, S, valid rows, dtype, E, heads) of phase 5: the long sequences
+# (kernel, S, valid rows, dtype, E, heads) of phase 6: the long sequences
 # (E 768, 12 heads), head dim 128 at S 856 (E 512, 4 heads), head dims 320
 # and 512, and the widest heads the dispatch takes (S = 8: 65,528 in bf16,
 # 49,144 in float32)
@@ -529,7 +559,7 @@ def _ulps_bf16(g, w):
 
 def compare(name: str, args) -> float:
     """Run the kernel and its plain version on ``args``; return max|diff|
-    and fail outside the kernel's tolerance (module docstring, phase 4)."""
+    and fail outside the kernel's tolerance (module docstring, phase 7)."""
     import torch
 
     got = kernel_fn(name)(*args)
@@ -622,7 +652,7 @@ def rel(a, b) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
 
-def serve(model, requests, per_fwd: dict, label: str) -> tuple:
+def serve(model, requests, per_fwd: dict, label: str, classes: int = 1000) -> tuple:
     """The main path: counts zeroed just before the requests, read just
     after; every kernel of ``per_fwd`` launched that many times a forward."""
     import torch
@@ -641,7 +671,7 @@ def serve(model, requests, per_fwd: dict, label: str) -> tuple:
     for name, n in counts.items():
         check(name in per_fwd or n == 0, f"{label}: {name} launched {n} times, expected none")
     for out in outs:
-        check(tuple(out.shape) == (requests[0].shape[0], 1000) and bool(torch.isfinite(out).all()),
+        check(tuple(out.shape) == (requests[0].shape[0], classes) and bool(torch.isfinite(out).all()),
               f"{label}: packed logits not finite or of the wrong shape")
     return outs, counts
 
@@ -802,6 +832,100 @@ def resnet_phase(qtt, batch, card) -> tuple:
     del model, requests, outs, records
     torch.cuda.empty_cache()
     return entries
+
+
+def runner_phase(qtt, card, dev) -> None:
+    """The PTQ runner through the CLI, in-process, on the card (phase 3):
+    config chain -> loaders -> init -> one calibration epoch -> quantized
+    val -> checkpoints -> test from the best checkpoint, then that
+    checkpoint reloaded, packed and served over the test split."""
+    import re
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import quantize_tpu_torch.runners as runners
+    from quantize_tpu_torch import cli
+
+    for label, opts, per_fwd in RUNNER_RUNS:
+        resnet = per_fwd is RESNET_PER_FWD
+        built = []
+        build_runner = runners.build_runner
+
+        def keep(*args, **kw):
+            built.append(build_runner(*args, **kw))
+            return built[-1]
+
+        with tempfile.TemporaryDirectory() as out_dir:
+            runners.build_runner = keep
+            try:
+                t0 = time.time()
+                cli.main(["--cfg", RUNNER_CFG, "--output-dir", out_dir, "--device", str(dev)]
+                         + (["--opts", *opts] if opts else []))
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            finally:
+                runners.build_runner = build_runner
+            out = Path(out_dir)
+            for name in ("ckpt_last.pkl", "ckpt_best.pkl", "cfg.yaml", "output.log"):
+                check((out / name).exists(), f"runner {label}: {name} was not written")
+            found = re.findall(r"test result: \{'top1': ([-+.\deE]+|nan), 'n': (\d+)\}",
+                               (out / "output.log").read_text())
+            check(len(found) == 1, f"runner {label}: no test result in output.log")
+            top1, n_test = float(found[0][0]), int(found[0][1])
+            check(0.0 <= top1 <= 100.0 and n_test == 256, f"runner {label}: test top-1 {top1} "
+                  f"over {n_test} examples")
+            log(f"runner {label}: config to test result {wall:.2f} s, test top-1 {top1:.2f}% over "
+                f"{n_test} (quant mode) [{card}]")
+
+            runner, = built
+            cfg = runner.cfg
+            batches = list(runner._prefetch(runner.test_loader))
+            sim = torch.cat([runner.eval_step(b, quantized=True) for b in batches])
+            fresh = runners.build_runner(cfg, device=dev)
+            fresh.load_checkpoint(cfg.runner.best)
+            sim_reloaded = torch.cat([fresh.eval_step(b, quantized=True) for b in batches])
+            check(bool(torch.equal(sim, sim_reloaded)),
+                  f"runner {label}: the reloaded best checkpoint gives other quant-mode logits")
+            train_batch = next(runner._prefetch(runner.train_loader))
+            qtt.pack_model(fresh.model, train_batch["img"], device=dev)
+            with torch.inference_mode(), qtt.fused_residual(True):
+                outs, counts = serve(fresh.model, [b["img"] for b in batches], per_fwd,
+                                     f"runner {label}", classes=10)
+                for name in ("conv1x1_residual", "w8a8_gemm"):
+                    if name in per_fwd:
+                        check_routes(name, counts[name], f"runner {label}")
+                packed = torch.cat(outs)
+                labels = torch.cat([b["label"] for b in batches])
+                valid = labels >= 0
+                top1_p = float((packed.argmax(-1) == labels)[valid].float().mean()) * 100
+                top1_q = float((sim.argmax(-1) == labels)[valid].float().mean()) * 100
+                r_sim = rel(packed, sim)
+                log(f"runner {label}: packed vs quant-mode logits {r_sim:.3e} (<= 2e-2); test "
+                    f"top-1 packed {top1_p:.2f}% beside quant {top1_q:.2f}%")
+                check(r_sim <= 2e-2, f"runner {label}: packed vs quant-mode agreement failed")
+                with Recorder() as rec:
+                    fresh.model(batches[0]["img"], mode="packed")
+                max_err = {}
+                n = check_kernels([rec.calls], tuple(per_fwd), max_err)
+                log(f"runner {label}: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
+                # the shapes no earlier phase gives the kernels: ResNet-50's
+                # 10-class head (K1), all of TestCNN's
+                kernel_entries(rec.calls, counts, max_err,
+                               ("w8a8_gemm",) if resnet else tuple(per_fwd), f"runner {label}")
+                if resnet:
+                    packed_ms = cuda_ms(lambda: fresh.model(batches[0]["img"], mode="packed"))
+            if resnet:
+                times = {"packed eval batch of 128 (fused residual)": packed_ms,
+                         "quant-mode eval batch of 128": cuda_ms(
+                             lambda: fresh.eval_step(batches[0], quantized=True)),
+                         # last: a calibration step moves the observers it is timed on
+                         "calibration step, batch of 64": cuda_ms(
+                             lambda: runner.train_step(train_batch, 0, 0, 1))}
+                for what, ms in times.items():
+                    log(f"time: runner {label} {what}: {ms:.3f} ms [{card}]")
+            del runner, fresh, built, batches, outs, sim, sim_reloaded, packed, rec
+            torch.cuda.empty_cache()
 
 
 def build_packed(qtt, batch, name: str, cfg: dict, label: str):
@@ -993,7 +1117,7 @@ def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
 
 
 def long_attention_phase(qtt, card, dev) -> None:
-    """ViT-B/16 W4A8 at 384 x 384 (phase 5), and K8 / K9 at the long
+    """ViT-B/16 W4A8 at 384 x 384 (phase 6), and K8 / K9 at the long
     shapes the dispatch sends them."""
     import torch
 
@@ -1215,6 +1339,9 @@ def main() -> int:
     t0 = time.time()
     n = w8a8_phase(dev, card)
     log(f"w8a8 phase: {n} kernel-vs-plain comparisons passed, {time.time() - t0:.1f} s")
+    t0 = time.time()
+    runner_phase(qtt, card, dev)
+    log(f"runner phase {time.time() - t0:.1f} s")
     t0 = time.time()
     vit_entries, vit_err = vit_phase(qtt, batch, card)
     entries += vit_entries

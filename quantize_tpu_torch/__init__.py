@@ -1,11 +1,13 @@
 """quantize_tpu_torch — the PyTorch / CUDA port of ``quantize_tpu``.
 
-The port runs the JAX package's ResNet W8A8 serving path on an NVIDIA
-H100: build -> init (one calibrate pass) -> MinMax calibration -> pack ->
-packed forward through hand-written int8 tensor-core kernels
-(``csrc/*.cu``, built with nvcc at first use). It imports no JAX and nothing
-of ``quantize_tpu``. Entry points run on CUDA unless the caller passes
-``device="cpu"``, where every kernel wrapper runs its plain PyTorch version.
+The port runs the JAX package's serving paths on an NVIDIA H100: build
+-> init (one calibrate pass) -> calibration -> pack -> packed forward
+through hand-written int8 tensor-core kernels (``csrc/*.cu``, built with
+nvcc at first use); and its PTQ runner from a YAML config
+(:func:`execute_runner`, ``python -m quantize_tpu_torch.cli``). It imports
+no JAX and nothing of ``quantize_tpu``. Entry points run on CUDA unless the
+caller passes ``device="cpu"``, where every kernel wrapper runs its plain
+PyTorch version.
 """
 from .api import calibrate_model, init_model
 from .deploy import model_size_bytes, pack_model
@@ -14,9 +16,11 @@ from .nn.intercept import QuantCtx
 from .nn.layers import LayerQuantCfg, QuantConv, QuantDense
 from .nn.precision import (fused_residual, packed_carry, set_packed_carry_dtype,
                            set_packed_fused_residual)
+from .runners import execute_runner
+from .utils import Config
 
 __all__ = [
-    "LayerQuantCfg", "MODELS", "QuantConv", "QuantCtx", "QuantDense", "calibrate_model",
-    "fused_residual", "init_model", "model_size_bytes", "pack_model", "packed_carry",
-    "set_packed_carry_dtype", "set_packed_fused_residual",
+    "Config", "LayerQuantCfg", "MODELS", "QuantConv", "QuantCtx", "QuantDense",
+    "calibrate_model", "execute_runner", "fused_residual", "init_model", "model_size_bytes",
+    "pack_model", "packed_carry", "set_packed_carry_dtype", "set_packed_fused_residual",
 ]

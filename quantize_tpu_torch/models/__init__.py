@@ -1,4 +1,5 @@
-"""Model zoo registry (the ResNet family and the ViT family so far).
+"""Model zoo registry (the ResNet family, the ViT family and the test CNNs
+so far) and :func:`build_model`.
 
 Constructors take ``(num_classes, ctx, device="cuda")``; ``ctx`` is a
 :class:`~quantize_tpu_torch.nn.intercept.QuantCtx` (None builds the FP32
@@ -6,8 +7,13 @@ network from the same code).
 """
 from __future__ import annotations
 
+from typing import Optional
+
+from ..nn.intercept import QuantCtx
+from ..utils.config import Config
 from ..utils.registry import Registry
 from . import resnet, vit
+from .testnet import TestCNN, TrajNet
 
 MODELS = Registry("models")
 
@@ -27,6 +33,33 @@ MODELS.register_dict({
     "vit_l_16": vit.vit_l_16,
     "vit_l_32": vit.vit_l_32,
     "vit_h_14": vit.vit_h_14,
+    "testcnn": TestCNN,
+    "trajnet": TrajNet,
 })
 
-__all__ = ["MODELS"]
+_RESERVED_MODEL_KEYS = {
+    "name", "num_classes", "classnames", "prompts", "checkpoint", "pretrained",
+    "torch_checkpoint",
+}
+
+
+def build_model(cfg_model: Config, ctx: Optional[QuantCtx] = None, device="cuda"):
+    """Build a model on ``device`` from ``cfg.model``: ``name`` +
+    ``num_classes`` plus any extra keys passed through to the constructor
+    (e.g. ``width``), as ``quantize_tpu.models.build_model`` does."""
+    if cfg_model is None:
+        raise ValueError("cfg.model is missing — set model.name in the config "
+                         "(e.g. --opts model.name=resnet18)")
+    if isinstance(cfg_model, Config):
+        d = cfg_model.to_dict()
+    else:
+        d = dict(cfg_model)
+    if not d.get("name"):
+        raise ValueError("cfg.model.name is missing — set model.name in the config")
+    name = d["name"]
+    num_classes = d.get("num_classes") or 1000
+    kwargs = {k: v for k, v in d.items() if k not in _RESERVED_MODEL_KEYS}
+    return MODELS.build(name, num_classes=num_classes, ctx=ctx, device=device, **kwargs)
+
+
+__all__ = ["MODELS", "build_model"]

@@ -1,0 +1,40 @@
+"""PTQ runner: one calibration epoch, then quantized evaluation.
+
+PyTorch counterpart of ``quantize_tpu/runners/ptq.py`` (the reference
+``PTQ`` runner, ``runner/ptq.py:15``): each train step runs the model in
+calibrate mode (observers update, output stays FP32), the end of the epoch
+evaluates with fake-quant enabled and saves the best checkpoint.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .base import BasicRunner, masked_topk_correct
+
+
+class PTQ(BasicRunner):
+    name = "ptq"
+
+    def train_step(self, batch, epoch, it, total_iters):
+        img, label = batch["img"], batch["label"]
+        with torch.no_grad():
+            logits = self.model(img, mode="calibrate").float()
+        # optax.softmax_cross_entropy_with_integer_labels, padding (-1) masked out
+        valid = label >= 0
+        loss = F.cross_entropy(logits, label.clamp(min=0).long(), reduction="none")
+        loss = (loss * valid).sum() / valid.sum().clamp(min=1)
+        c, t = masked_topk_correct(logits, label)
+        return float(loss), float(100.0 * c / t.clamp(min=1)), len(label)
+
+    def update(self, epoch):
+        cfg = self.cfg
+        eval_result = None
+        if cfg.train.eval_freq and (epoch + 1) % cfg.train.eval_freq == 0:
+            eval_result = self.evaluate(self.val_loader, quantized=True)
+        if cfg.train.save_freq and (epoch + 1) % cfg.train.save_freq == 0:
+            self.save_model(eval_result)
+        if (epoch + 1) == self.max_epoch:
+            if self.val_loader is not None:
+                eval_result = self.evaluate(self.val_loader, quantized=True)
+            self.save_model(eval_result)

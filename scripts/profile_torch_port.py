@@ -4,6 +4,7 @@
     python3 scripts/profile_torch_port.py [--model resnet50|vit_b_16|vit_b_32] [--batch N]
                                           [--carry float32|bfloat16]
     QTPU_ATTN_INT8=1 python3 scripts/profile_torch_port.py --model vit_b_32   # K9 for K8
+    python3 scripts/profile_torch_port.py --runner     # the PTQ runner's steps, ResNet-50 at 224
 
 Builds the model of chip_smoke.py (ResNet-50 W8A8 with the fused residual
 tail, batch 256 by default; ViT-B/16 W4A8, batch 128 by default; or
@@ -18,8 +19,14 @@ port's calls: every ``quantize_act_int8`` (the activation quantize, kernel
 KQ), every ``quant_matmul_wo`` (the weight-only products, kernel K5
 and the operand casts around it), every ``unpack_int4_splithalf`` (the
 per-call unpack of split-half int4 weights) and every
-``quant_conv2d_wo`` (the weight-only patch conv). Needs a CUDA card and
-nvcc.
+``quant_conv2d_wo`` (the weight-only patch conv).
+
+``--runner`` profiles the PTQ runner instead, on chip_smoke.py's ResNet-50
+run of the CPU config (``RUNNER_CFG`` with ResNet-50 at 224 x 224, MinMax
+weights, MAMinMax activations, folded BN): after its calibration epoch,
+3 calibration steps (batch 64), 3 quant-mode eval batches (128) and, once
+packed, 3 packed eval batches (128, fused residual tail), each reported as
+above. Needs a CUDA card and nvcc.
 """
 from __future__ import annotations
 
@@ -63,59 +70,21 @@ def _marked(fn, label):
     return wrapper
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="resnet50", choices=["resnet50", "vit_b_16", "vit_b_32"])
-    ap.add_argument("--batch", type=int, default=None)
-    ap.add_argument("--carry", default="float32", choices=["float32", "bfloat16"])
-    args = ap.parse_args()
-
+def profile_calls(fn, title: str, n_fwd: int = 3) -> int:
+    """Trace ``n_fwd`` calls of ``fn`` (after 2 warm-up calls) and print
+    where their device time goes, per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("profile_torch_port: no CUDA device", file=sys.stderr)
-        return 2
-    import quantize_tpu_torch as qtt
-    import quantize_tpu_torch.nn.layers as layers
-    import quantize_tpu_torch.ops.qconv as qconv
-    import quantize_tpu_torch.ops.qmatmul as qmatmul
-    from chip_smoke import CFG, CFG_W4A8, CFG_WO
-
-    cfg = {"resnet50": CFG, "vit_b_16": CFG_W4A8, "vit_b_32": CFG_WO}[args.model]
-    for mod in (qmatmul, qconv, layers):
-        for label in RANGES:
-            if hasattr(mod, label):
-                setattr(mod, label, _marked(getattr(mod, label), label))
-
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-
-    def batch(n):
-        return torch.randn((n, 224, 224, 3), generator=gen, device=dev)
-
-    n_batch = args.batch or (128 if args.model == "vit_b_16" else 256)
-    model = qtt.MODELS.build(args.model, num_classes=1000, ctx=qtt.QuantCtx(cfg))
-    sample = batch(32)
-    qtt.init_model(model, sample, seed=0)
-    qtt.calibrate_model(model, [batch(32) for _ in range(4)])
-    qtt.pack_model(model, sample)
-    qtt.set_packed_fused_residual(True)
-    qtt.set_packed_carry_dtype(args.carry)
-    x = batch(n_batch)
-    n_fwd = 3
-    with torch.inference_mode():
-        for _ in range(2):
-            model(x, mode="packed")
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_fwd):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n_fwd):
-                model(x, mode="packed")
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
 
     def dev_ms(evt, self_only=True):
         attr = "self_device_time_total" if self_only else "device_time_total"
@@ -137,13 +106,11 @@ def main() -> int:
             by_name[evt.key][0] += ms
             by_name[evt.key][1] += evt.count / n_fwd
     total = sum(v[0] for v in by_name.values())
-    card = torch.cuda.get_device_name(0)
-    print(f"{card}: {args.model} packed, batch {n_batch}, carry {args.carry}, "
-          f"QTPU_ATTN_INT8={os.environ.get('QTPU_ATTN_INT8', '0')}")
+    print(f"{torch.cuda.get_device_name(0)}: {title}")
     if total == 0.0:
         print("the profiler recorded no device time: not measured")
         return 1
-    print(f"device time {total:.3f} ms per forward; traced wall {wall_ms / n_fwd:.3f} ms per forward "
+    print(f"device time {total:.3f} ms per call; traced wall {wall_ms / n_fwd:.3f} ms per call "
           f"(with profiler overhead); device busy {total / (wall_ms / n_fwd):.1%}")
     groups = defaultdict(float)
     for name, (ms, _) in by_name.items():
@@ -154,10 +121,89 @@ def main() -> int:
         if label in ranges:
             ms, cnt = ranges[label]
             print(f"  range {label}: {ms:.3f} ms ({ms / total:.1%}) over {cnt:.0f} calls")
-    print("top kernels (ms per forward, launches per forward):")
+    print("top kernels (ms per call, launches per call):")
     for name, (ms, cnt) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]:
         print(f"  {ms:8.3f} ms {cnt:6.0f}x  {name[:110]}")
     return 0
+
+
+def profile_runner(qtt) -> int:
+    """The PTQ runner's calibration step, quant-mode eval and packed eval."""
+    import torch
+    import quantize_tpu_torch.runners as runners
+    from chip_smoke import RUNNER_CFG, RUNNER_RUNS
+    from quantize_tpu_torch.utils import Config
+
+    label, opts, _ = RUNNER_RUNS[1]
+    cfg = Config().merge_from_yaml(RUNNER_CFG)
+    cfg.merge_from_list(opts)
+    loaders = [runners._loader(cfg, which) for which in ("train", "val", "test")]
+    cfg.model.num_classes = loaders[0].dataset.num_classes
+    runner = runners.build_runner(cfg, *loaders)
+    runner.update = lambda epoch: None  # the calibration epoch alone: no val eval, no checkpoint
+    runner.run()
+    calib = next(runner._prefetch(runner.train_loader))
+    test = next(runner._prefetch(runner.test_loader))
+    rc = profile_calls(lambda: runner.train_step(calib, 0, 0, 1),
+                       f"runner {label}: calibration step, batch 64")
+    rc |= profile_calls(lambda: runner.eval_step(test, quantized=True),
+                        f"runner {label}: quant-mode eval, batch 128")
+    qtt.pack_model(runner.model, calib["img"])
+    with torch.inference_mode(), qtt.fused_residual(True):
+        rc |= profile_calls(lambda: runner.model(test["img"], mode="packed"),
+                            f"runner {label}: packed eval, batch 128, fused residual")
+    return rc
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="resnet50", choices=["resnet50", "vit_b_16", "vit_b_32"])
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--carry", default="float32", choices=["float32", "bfloat16"])
+    ap.add_argument("--runner", action="store_true",
+                    help="profile the PTQ runner's steps (ResNet-50 at 224) instead")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device", file=sys.stderr)
+        return 2
+    import quantize_tpu_torch as qtt
+    import quantize_tpu_torch.nn.layers as layers
+    import quantize_tpu_torch.ops.qconv as qconv
+    import quantize_tpu_torch.ops.qmatmul as qmatmul
+    from chip_smoke import CFG, CFG_W4A8, CFG_WO
+
+    for mod in (qmatmul, qconv, layers):
+        for label in RANGES:
+            if hasattr(mod, label):
+                setattr(mod, label, _marked(getattr(mod, label), label))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.runner:
+        return profile_runner(qtt)
+
+    cfg = {"resnet50": CFG, "vit_b_16": CFG_W4A8, "vit_b_32": CFG_WO}[args.model]
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def batch(n):
+        return torch.randn((n, 224, 224, 3), generator=gen, device=dev)
+
+    n_batch = args.batch or (128 if args.model == "vit_b_16" else 256)
+    model = qtt.MODELS.build(args.model, num_classes=1000, ctx=qtt.QuantCtx(cfg))
+    sample = batch(32)
+    qtt.init_model(model, sample, seed=0)
+    qtt.calibrate_model(model, [batch(32) for _ in range(4)])
+    qtt.pack_model(model, sample)
+    qtt.set_packed_fused_residual(True)
+    qtt.set_packed_carry_dtype(args.carry)
+    x = batch(n_batch)
+    with torch.inference_mode():
+        return profile_calls(lambda: model(x, mode="packed"),
+                             f"{args.model} packed, batch {n_batch}, carry {args.carry}, "
+                             f"QTPU_ATTN_INT8={os.environ.get('QTPU_ATTN_INT8', '0')}")
 
 
 if __name__ == "__main__":

@@ -15,8 +15,10 @@ import pytest
 import torch
 
 import quantize_tpu_torch as qtt
-from quantize_tpu_torch import api, deploy
-from quantize_tpu_torch.models import MODELS
+import quantize_tpu_torch.runners as runners
+from quantize_tpu_torch import api, cli, deploy
+from quantize_tpu_torch.models import MODELS, build_model
+from quantize_tpu_torch.models.testnet import TestCNN, TrajNet
 from quantize_tpu_torch.models.resnet import ResNet
 from quantize_tpu_torch.models.vit import VisionTransformer
 from quantize_tpu_torch.ops import _build, launch_counts, reset_launch_counts
@@ -47,17 +49,30 @@ def _imported_roots(path: Path):
 def test_port_imports_no_jax_and_nothing_of_quantize_tpu():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15 and all(f.exists() for f in files)
+    ported = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {"cli.py", "data/base.py", "data/synthetic.py", "data/transforms.py",
+            "models/testnet.py", "runners/base.py", "runners/ptq.py", "runners/__init__.py",
+            "utils/log.py", "utils/meters.py"} <= ported
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     for fn in (api.init_model, api.calibrate_model, deploy.pack_model,
-               MODELS.lookup("resnet50"), MODELS.lookup("resnet18"), MODELS.lookup("vit_b_16")):
+               MODELS.lookup("resnet50"), MODELS.lookup("resnet18"), MODELS.lookup("vit_b_16"),
+               build_model, runners.build_runner, runners.execute_runner):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
-    for cls in (ResNet, VisionTransformer):
+    for cls in (ResNet, VisionTransformer, TestCNN, TrajNet, runners.BasicRunner):
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls
+    # the CLI passes --device down, cuda unless given
+    seen = []
+    monkeypatch.setattr(runners, "execute_runner", lambda cfg, device: seen.append(device))
+    cfg_file = str(ROOT / "configs/runners/ptq/minmax/ptq_rn18_w8a8_synthetic.yaml")
+    monkeypatch.chdir(ROOT)
+    cli.main(["--cfg", cfg_file, "--output-dir", str(tmp_path)])
+    cli.main(["--cfg", cfg_file, "--output-dir", str(tmp_path), "--device", "cpu"])
+    assert seen == ["cuda", "cpu"]
 
 
 def test_every_kernel_has_its_source_and_a_launch_counter():
@@ -436,7 +451,8 @@ def test_cuda_attention_dispatch_sends_odd_head_dims_to_the_oracle(cuda_card):
 
 def test_public_api_surface():
     for name in ("MODELS", "QuantCtx", "init_model", "calibrate_model", "pack_model",
-                 "model_size_bytes", "fused_residual", "packed_carry"):
+                 "model_size_bytes", "fused_residual", "packed_carry", "execute_runner",
+                 "Config"):
         assert hasattr(qtt, name), name
 
 
@@ -684,3 +700,83 @@ def test_cuda_conv1x1_residual_routes_by_operands(cuda_card, given):
     route = "wgmma" if given == "no copy" else "mma_sync"
     assert conv1x1_residual_gemm.route_launches == {"wgmma": 0, "mma_sync": 0, route: 1}
     assert torch.equal(got, want)
+
+
+# -- the runner's TestCNN on the card --------------------------------------------
+
+
+class _Checking:
+    """Stands in for a kernel wrapper under the names the port calls it by:
+    runs the kernel and its plain version on the same arguments and asserts
+    them bit-equal. The wrapper counts its launches on its module-level
+    name, so ``launches`` (and the route counters) read and write the
+    wrapper's own."""
+
+    def __init__(self, name, kernel, plain, checked):
+        self.name, self.kernel, self.plain, self.checked = name, kernel, plain, checked
+
+    def __call__(self, *args):
+        got, want = self.kernel(*args), self.plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(torch.as_tensor(a), torch.as_tensor(b)), self.name
+        self.checked.append(self.name)
+        return got
+
+    def __getattr__(self, name):
+        return getattr(self.kernel, name)
+
+    @property
+    def launches(self):
+        return self.kernel.launches
+
+    @launches.setter
+    def launches(self, value):
+        self.kernel.launches = value
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["testcnn", "trajnet"])
+def test_cuda_testnet_packed_kernels_match_their_plain_versions(cuda_card, monkeypatch, name):
+    """TestCNN and TrajNet W8A8 (the synthetic config's quant section), 10
+    classes, 32 x 32, batch 64, packed on the card: every kernel call of a
+    packed forward (K3 at Ci 3 and 16, K1 at N = 32 and the N = 10 head, KQ)
+    is bit-equal to its plain version on the same arguments."""
+    import quantize_tpu_torch.nn.layers as layers
+    import quantize_tpu_torch.ops.qconv as qconv
+    import quantize_tpu_torch.ops.qmatmul as qmatmul
+    from quantize_tpu_torch.ops.qmatmul import quantize_act_int8_plain, w8a8_gemm_plain
+    from quantize_tpu_torch.ops.qconv import qconv2d_int8_plain
+
+    quant = {"default": {
+        "weight": {"n_bits": 8, "symmetric": True, "signed": True, "granularity": "channel",
+                   "range": {"name": "minmax"}},
+        "activation": {"n_bits": 8, "symmetric": False, "granularity": "layer",
+                       "range": {"name": "maminmax", "momentum": 0.1}},
+        "bn_folding": True}}
+    model = MODELS.build(name, num_classes=10, ctx=qtt.QuantCtx(quant))
+    g = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((64, 32, 32, 3), generator=g, device="cuda")
+    qtt.init_model(model, x, seed=1)
+    qtt.calibrate_model(model, [torch.randn((64, 32, 32, 3), generator=g, device="cuda")])
+    qtt.pack_model(model, x)
+    checked = []
+    kq = _Checking("quantize_act_int8", qmatmul.quantize_act_int8, quantize_act_int8_plain,
+                   checked)
+    for mod in (qmatmul, layers, qconv):
+        monkeypatch.setattr(mod, "quantize_act_int8", kq)
+    monkeypatch.setattr(qmatmul, "w8a8_gemm",
+                        _Checking("w8a8_gemm", qmatmul.w8a8_gemm, w8a8_gemm_plain, checked))
+    monkeypatch.setattr(qconv, "qconv2d_int8",
+                        _Checking("qconv2d", qconv.qconv2d_int8, qconv2d_int8_plain, checked))
+    reset_launch_counts()
+    with torch.inference_mode():
+        out = model(x, mode="packed")
+    torch.cuda.synchronize()
+    dense = 2 if name == "testcnn" else 1
+    assert launch_counts() == {**{k: 0 for k in launch_counts()}, "qconv2d": 2,
+                               "w8a8_gemm": dense, "quantize_act_int8": 2 + dense}
+    assert sorted(checked) == sorted(["qconv2d"] * 2 + ["w8a8_gemm"] * dense
+                                     + ["quantize_act_int8"] * (2 + dense))
+    assert out.shape == (64, 10) and bool(torch.isfinite(out).all())
