@@ -32,21 +32,35 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    on the card, into a temporary directory): ``RUNNER_CFG``, the CPU config
    as users run it (TestCNN, 32 x 32 synthetic images: 160 calibration
    images at batch 64, the last batch padded, 256 val and 256 test at batch
-   128), then the same config at ResNet-50's full width
-   (``model.name=resnet50``, 224 x 224: the model and quant sections of
-   ``ptq_rn50_w8a8_in1k_16shots.yaml``, the synthetic set for ImageNet).
-   Each reaches a test top-1 in [0, 100] and writes its checkpoints, config
-   and log; a fresh runner loaded from ``ckpt_best.pkl`` gives bit-equal
-   quant-mode test logits; that model is packed on one padded train batch
-   and serves the test split, counted as above (TestCNN: K3 2, K1 2, KQ 4
-   per forward; ResNet-50: K3 37, K2 16, K1 1, KQ 54, K2 and K1 on their
-   wgmma routes), its logits within 2e-2 of the quant-mode logits, and every
-   kernel call of one packed test batch bit-equal to its plain version (the
-   10-class head, N = 10, and TestCNN's shapes are new). Printed with the
-   card's name and power limit: the wall time from config to test result,
-   the new shapes' per-launch kernel times beside their bounds, and at
-   ResNet-50 the CUDA-event medians of a calibration step (64), a quant-mode
-   eval batch (128) and a packed eval batch (128).
+   128), then at 224 x 224 (the synthetic set for ImageNet): the same config
+   at ResNet-50's full width (``model.name=resnet50``: the model and quant
+   sections of ``ptq_rn50_w8a8_in1k_16shots.yaml``) from random weights and
+   from a torchvision-layout ResNet-50 checkpoint (``model.torch_checkpoint``
+   and its ``torch_checkpoint_sha256``; a ``state_dict`` the script writes
+   with ``torch.save`` from a seeded generator, BatchNorm statistics and
+   ``num_batches_tracked`` included, BN folded at import); then ResNet-18
+   from such a checkpoint with the model and quant sections of the
+   cross-entropy config (``CE_CFG``: MSE weights and activations, CE on the
+   head's activations, W8A8 packed) and of the bias-correction AWQ config
+   (``AWQ_CFG``: MSE W8 weight-only, BiasCorrect on every layer, AWQ with
+   ``q_group_size`` 128 on the head; its packed path launches no kernel, as
+   in JAX). Each reaches a test top-1 in [0, 100] and writes its
+   checkpoints, config and log; an imported model's fp32 logits on a test
+   batch are within 1e-4 of max|logits| of an independent NCHW forward of
+   the state dict with its BatchNorms unfolded, and a wrong
+   ``torch_checkpoint_sha256`` raises; a fresh runner loaded from
+   ``ckpt_best.pkl`` gives bit-equal quant-mode test logits; that model is
+   packed on one padded train batch and serves the test split, counted as
+   above (TestCNN: K3 2, K1 2, KQ 4 per forward; ResNet-50: K3 37, K2 16,
+   K1 1, KQ 54, K2 and K1 on their wgmma routes; ResNet-18 W8A8: K3 20, K1
+   1, KQ 21; the AWQ run: none), its logits within 2e-2 of the quant-mode
+   logits, and every kernel call of one packed test batch bit-equal to its
+   plain version (the 10-class head, N = 10, TestCNN's and ResNet-18's
+   shapes are new). Printed with the card's name and power limit: the wall
+   time from config to test result, the import time, the new shapes'
+   per-launch kernel times beside their bounds, and at 224 the CUDA-event
+   medians of a calibration step (64), a quant-mode eval batch (128) and a
+   packed eval batch (128).
 4. ViT-B/16 W4A8 (``bench.py``'s headline with 4-bit weights: int4
    symmetric per-channel MinMax weights, the out-projections' ranges MSE,
    int8 asymmetric per-tensor MinMax activations), 1000 classes, 224x224
@@ -179,14 +193,33 @@ RESNET_PER_FWD = {"qconv2d": 37, "conv1x1_residual": 16, "w8a8_gemm": 1, "quanti
 # TestCNN: conv1 and conv2 (K3, Ci 3 and 16), fc1 and fc2 (K1, N 32 and 10),
 # each after its activation quantize (KQ); BN folded, no residual
 TESTCNN_PER_FWD = {"qconv2d": 2, "w8a8_gemm": 2, "quantize_act_int8": 4}
+# ResNet-18 W8A8, BN folded: the stem (space-to-depth) and the 16 3 x 3
+# convs and 3 stride-2 1 x 1 downsample convs on K3, the head on K1, each
+# after its activation quantize (KQ); no 1 x 1 conv with a residual (no K2)
+RESNET18_PER_FWD = {"qconv2d": 20, "w8a8_gemm": 1, "quantize_act_int8": 21}
 # the runner phase: the CPU config as users run it (TestCNN, 32 x 32), then
-# the same config at ResNet-50's full width, as ptq_rn50_w8a8_in1k_16shots.yaml
-# sets its model and quant sections, on 224 x 224 synthetic images
+# at 224 x 224 on synthetic images: the same config at ResNet-50's full width,
+# as ptq_rn50_w8a8_in1k_16shots.yaml sets its model and quant sections, from
+# random weights and from a torchvision checkpoint; ResNet-18 from a
+# torchvision checkpoint with the model and quant sections of the
+# cross-entropy config (MSE weights and activations, CE on the head's
+# activations; W8A8 packed) and of the bias-correction AWQ config (MSE W8
+# weight-only, BiasCorrect on every layer, AWQ with q_group_size 128 on the
+# head; its packed path reaches no kernel, as in JAX)
 RUNNER_CFG = "configs/runners/ptq/minmax/ptq_rn18_w8a8_synthetic.yaml"
-RUNNER_RUNS = (("testcnn", [], TESTCNN_PER_FWD),
-               ("resnet50@224", ["model.name=resnet50", "train_dataset.image_size=224",
-                                 "val_dataset.image_size=224", "test_dataset.image_size=224"],
-                RESNET_PER_FWD))
+RUNNER_224 = ["train_dataset.image_size=224", "val_dataset.image_size=224",
+              "test_dataset.image_size=224"]
+CE_CFG = "configs/runners/ptq/cross_entropy/ptq_rn18_w8a8_bnf_sym_chan_in1k_16shots.yaml"
+AWQ_CFG = "configs/runners/ptq/bias_correct/awq.yaml"
+# (label, model, config whose model and quant sections replace RUNNER_CFG's,
+# torch checkpoint, launches per forward)
+RUNNER_RUNS = (("testcnn", "testcnn", None, False, TESTCNN_PER_FWD),
+               ("resnet50@224", "resnet50", None, False, RESNET_PER_FWD),
+               ("resnet50@224 from a torch checkpoint", "resnet50", None, True, RESNET_PER_FWD),
+               ("resnet18@224 cross-entropy", "resnet18", CE_CFG, True, RESNET18_PER_FWD),
+               ("resnet18@224 bias-correct + AWQ", "resnet18", AWQ_CFG, True, {}))
+# torchvision ResNets: (blocks per stage, bottleneck)
+TORCHVISION_RESNETS = {"resnet18": ((2, 2, 2, 2), False), "resnet50": ((3, 4, 6, 3), True)}
 VIT_PER_FWD = {"w4a8_gemm": 37, "layernorm_quant_int8": 24, "mha_rows": 12, "layernorm": 1,
                "qconv2d": 1, "wo_gemm": 12, "quantize_act_int8": 14}
 VIT32_PER_FWD = {"wo_gemm": 73, "layernorm": 25, "mha_rows": 12}
@@ -460,12 +493,28 @@ def library_call(name: str, args):
             w = unpacked_w4(args)
         elif w is None:  # K1 given only the K-major copy
             w = args[9].t().contiguous()
+        n = w.shape[1]
+        if name == "w8a8_gemm" and n % 8:
+            # torch._int_mm takes N a multiple of 8: K1's weight zero-padded
+            # to the next multiple of 16 (outside the timed call), the
+            # product's extra columns dropped
+            w = F.pad(w, (0, -n % 16))
         # cuBLASLt's int8 product refuses K = 40 (seen on an H100): K a multiple of 16
         if q.shape[0] <= 16 or q.shape[1] % 16 or w.shape[1] % 8:
             return None
         if name != "conv1x1_residual":
             _, _, _, _, cs, ws, _, bias = args[:8]
-            return lambda: (a_s * ws) * (torch._int_mm(q, w).float() + z * cs) + bias
+            if w.shape[1] != n:
+                # cuBLASLt refuses some padded shapes (K = 48, N 28 -> 32,
+                # seen on an H100): probed once, None where it does
+                try:
+                    torch._int_mm(q, w)
+                    torch.cuda.synchronize()
+                except RuntimeError as exc:
+                    if "CUBLAS_STATUS_NOT_SUPPORTED" not in str(exc):
+                        raise
+                    return None
+            return lambda: (a_s * ws) * (torch._int_mm(q, w)[:, :n].float() + z * cs) + bias
         _, _, _, _, cs, ws, bias, res, relu, out_dtype = args[:10]
         return lambda: torch.relu((a_s * ws) * (torch._int_mm(q, w).float() + z * cs)
                                   + bias + res.float()).to(out_dtype)
@@ -722,10 +771,12 @@ def kernel_entries(serve_calls: dict, counts: dict, max_err: dict, names, label:
             lib = library_call(name, args)
             l_ms = cuda_ms(lib, reps=5, inner=5) if lib is not None else None
             library_ok = library_ok and l_ms is not None
+            padded = (f" (N padded to {args[4].shape[0] + -args[4].shape[0] % 16})"
+                      if name == "w8a8_gemm" and args[4].shape[0] % 8 else "")
             log(f"kernel {name}{label and ' at ' + label} {describe(name, args)}: x{per_fwd}/fwd "
                 f"{k_ms:.4f} ms (bound {b_ms:.4f} ms by {b_by}, {b_ms / k_ms:.1%} of it), "
                 f"plain {p_ms:.3f} ms, "
-                f"library {'n/a' if l_ms is None else f'{l_ms:.4f} ms'}")
+                f"library {'n/a' if l_ms is None else f'{l_ms:.4f} ms'}{padded}")
             agg["ms"] += per_fwd * k_ms
             agg["plain_ms"] += per_fwd * p_ms
             agg["bound_ms"] += per_fwd * b_ms
@@ -834,11 +885,135 @@ def resnet_phase(qtt, batch, card) -> tuple:
     return entries
 
 
+def torchvision_state_dict(arch: str, num_classes: int, seed: int) -> dict:
+    """A torchvision-layout ResNet ``state_dict`` from a seeded
+    ``torch.Generator`` (on the host): He-normal convs, BatchNorms with
+    gamma ~ 1 + 0.1 N(0, 1), beta and running_mean ~ 0.1 N(0, 1),
+    running_var in [0.5, 1.5] and ``num_batches_tracked``, a linear head."""
+    import math
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(key, co, ci, k):
+        sd[f"{key}.weight"] = torch.randn((co, ci, k, k), generator=g) * math.sqrt(2.0 / (ci * k * k))
+
+    def bn(key, c):
+        sd[f"{key}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=g)
+        sd[f"{key}.bias"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{key}.running_mean"] = 0.1 * torch.randn(c, generator=g)
+        sd[f"{key}.running_var"] = 0.5 + torch.rand(c, generator=g)
+        sd[f"{key}.num_batches_tracked"] = torch.tensor(1000)
+
+    blocks, bottleneck = TORCHVISION_RESNETS[arch]
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    in_ch = 64
+    for stage, n_blocks in enumerate(blocks):
+        planes = 64 * 2 ** stage
+        out_ch = planes * (4 if bottleneck else 1)
+        for b in range(n_blocks):
+            p = f"layer{stage + 1}.{b}"
+            convs = ([(planes, in_ch, 1), (planes, planes, 3), (out_ch, planes, 1)] if bottleneck
+                     else [(planes, in_ch, 3), (planes, planes, 3)])
+            for i, (co, ci, k) in enumerate(convs, 1):
+                conv(f"{p}.conv{i}", co, ci, k)
+                bn(f"{p}.bn{i}", co)
+            if b == 0 and (stage > 0 or in_ch != out_ch):
+                conv(f"{p}.downsample.0", out_ch, in_ch, 1)
+                bn(f"{p}.downsample.1", out_ch)
+            in_ch = out_ch
+    sd["fc.weight"] = torch.randn((num_classes, in_ch), generator=g) / math.sqrt(in_ch)
+    sd["fc.bias"] = 0.01 * torch.randn(num_classes, generator=g)
+    return sd
+
+
+def torchvision_forward(sd: dict, arch: str, x_nchw):
+    """An independent float32 forward of a torchvision ResNet state dict in
+    NCHW, BatchNorms unfolded (eval mode), as torchvision computes it."""
+    import torch
+    import torch.nn.functional as F
+
+    def conv_bn(x, conv, bn, stride, relu=True):
+        w = sd[f"{conv}.weight"]
+        y = F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2)
+        y = F.batch_norm(y, sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"],
+                         sd[f"{bn}.weight"], sd[f"{bn}.bias"], training=False, eps=1e-5)
+        return torch.relu(y) if relu else y
+
+    blocks, bottleneck = TORCHVISION_RESNETS[arch]
+    x = F.max_pool2d(conv_bn(x_nchw, "conv1", "bn1", 2), 3, 2, 1)
+    for stage, n_blocks in enumerate(blocks):
+        for b in range(n_blocks):
+            p, stride = f"layer{stage + 1}.{b}", 2 if stage > 0 and b == 0 else 1
+            if bottleneck:
+                out = conv_bn(x, f"{p}.conv1", f"{p}.bn1", 1)
+                out = conv_bn(out, f"{p}.conv2", f"{p}.bn2", stride)
+                out = conv_bn(out, f"{p}.conv3", f"{p}.bn3", 1, relu=False)
+            else:
+                out = conv_bn(x, f"{p}.conv1", f"{p}.bn1", stride)
+                out = conv_bn(out, f"{p}.conv2", f"{p}.bn2", 1, relu=False)
+            if f"{p}.downsample.0.weight" in sd:
+                x = conv_bn(x, f"{p}.downsample.0", f"{p}.downsample.1", stride, relu=False)
+            x = torch.relu(out + x)
+    return F.linear(x.mean(dim=(2, 3)), sd["fc.weight"], sd["fc.bias"])
+
+
+def runner_config(out_dir, label: str, model: str, source, ckpt) -> list:
+    """The CLI's ``--cfg`` files and ``--opts`` of one runner run: where a
+    torch checkpoint or another config's sections are used, a second file
+    (JSON, which YAML reads) gives the model section, and that config's
+    quant section in place of RUNNER_CFG's."""
+    from pathlib import Path
+
+    from quantize_tpu_torch.models.manifest import sha256_of
+    from quantize_tpu_torch.utils import Config
+
+    opts = [] if model == "testcnn" else RUNNER_224
+    if source is None and ckpt is None:
+        return ["--cfg", RUNNER_CFG] + (["--opts", f"model.name={model}", *opts] if opts else [])
+    section = {"model": {"name": model}}
+    if ckpt is not None:
+        section["model"].update(torch_checkpoint=str(ckpt),
+                                torch_checkpoint_sha256=sha256_of(str(ckpt)))
+    if source is not None:
+        src = Config()
+        src.merge_from_yaml(source)
+        check(src.model.name == model, f"runner {label}: {source} is not {model}")
+        section["quant"] = {"_replace_": True, **src.quant.to_dict()}
+    extra = Path(out_dir) / "run.yaml"
+    extra.write_text(json.dumps(section))
+    return ["--cfg", RUNNER_CFG, str(extra), "--opts", *opts]
+
+
 def runner_phase(qtt, card, dev) -> None:
     """The PTQ runner through the CLI, in-process, on the card (phase 3):
-    config chain -> loaders -> init -> one calibration epoch -> quantized
-    val -> checkpoints -> test from the best checkpoint, then that
-    checkpoint reloaded, packed and served over the test split."""
+    config chain -> loaders -> init (and the torch checkpoint's import) ->
+    one calibration epoch -> quantized val -> checkpoints -> test from the
+    best checkpoint, then that checkpoint reloaded, packed and served over
+    the test split."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        ckpts = {}
+        for arch in sorted({m for _, m, _, imported, _ in RUNNER_RUNS if imported}):
+            t0 = time.time()
+            ckpts[arch] = Path(ckpt_dir) / f"{arch}.pth"
+            torch.save(torchvision_state_dict(arch, 10, seed=5), ckpts[arch])
+            log(f"runner: a torchvision-layout {arch} state dict (10 classes, seed 5) written in "
+                f"{time.time() - t0:.2f} s")
+        for label, model_name, source, imported, per_fwd in RUNNER_RUNS:
+            runner_run(qtt, card, dev, label, model_name, source,
+                       ckpts[model_name] if imported else None, per_fwd)
+
+
+def runner_run(qtt, card, dev, label: str, model_name: str, source, ckpt, per_fwd: dict) -> None:
+    """One run of the runner phase (module docstring, phase 3)."""
     import re
     import tempfile
     from pathlib import Path
@@ -846,86 +1021,122 @@ def runner_phase(qtt, card, dev) -> None:
     import torch
     import quantize_tpu_torch.runners as runners
     from quantize_tpu_torch import cli
+    from quantize_tpu_torch.utils import Config
 
-    for label, opts, per_fwd in RUNNER_RUNS:
-        resnet = per_fwd is RESNET_PER_FWD
-        built = []
-        build_runner = runners.build_runner
+    built, import_s = [], []
+    build_runner = runners.build_runner
 
-        def keep(*args, **kw):
-            built.append(build_runner(*args, **kw))
-            return built[-1]
+    def keep(*args, **kw):
+        runner = build_runner(*args, **kw)
+        imp = runner._maybe_import_torch_checkpoint
 
-        with tempfile.TemporaryDirectory() as out_dir:
-            runners.build_runner = keep
-            try:
-                t0 = time.time()
-                cli.main(["--cfg", RUNNER_CFG, "--output-dir", out_dir, "--device", str(dev)]
-                         + (["--opts", *opts] if opts else []))
-                torch.cuda.synchronize()
-                wall = time.time() - t0
-            finally:
-                runners.build_runner = build_runner
-            out = Path(out_dir)
-            for name in ("ckpt_last.pkl", "ckpt_best.pkl", "cfg.yaml", "output.log"):
-                check((out / name).exists(), f"runner {label}: {name} was not written")
-            found = re.findall(r"test result: \{'top1': ([-+.\deE]+|nan), 'n': (\d+)\}",
-                               (out / "output.log").read_text())
-            check(len(found) == 1, f"runner {label}: no test result in output.log")
-            top1, n_test = float(found[0][0]), int(found[0][1])
-            check(0.0 <= top1 <= 100.0 and n_test == 256, f"runner {label}: test top-1 {top1} "
-                  f"over {n_test} examples")
-            log(f"runner {label}: config to test result {wall:.2f} s, test top-1 {top1:.2f}% over "
-                f"{n_test} (quant mode) [{card}]")
+        def timed_import():
+            t0 = time.time()
+            imp()
+            torch.cuda.synchronize()
+            import_s.append(time.time() - t0)
 
-            runner, = built
-            cfg = runner.cfg
-            batches = list(runner._prefetch(runner.test_loader))
-            sim = torch.cat([runner.eval_step(b, quantized=True) for b in batches])
-            fresh = runners.build_runner(cfg, device=dev)
-            fresh.load_checkpoint(cfg.runner.best)
-            sim_reloaded = torch.cat([fresh.eval_step(b, quantized=True) for b in batches])
-            check(bool(torch.equal(sim, sim_reloaded)),
-                  f"runner {label}: the reloaded best checkpoint gives other quant-mode logits")
-            train_batch = next(runner._prefetch(runner.train_loader))
-            qtt.pack_model(fresh.model, train_batch["img"], device=dev)
-            with torch.inference_mode(), qtt.fused_residual(True):
-                outs, counts = serve(fresh.model, [b["img"] for b in batches], per_fwd,
-                                     f"runner {label}", classes=10)
-                for name in ("conv1x1_residual", "w8a8_gemm"):
-                    if name in per_fwd:
-                        check_routes(name, counts[name], f"runner {label}")
-                packed = torch.cat(outs)
-                labels = torch.cat([b["label"] for b in batches])
-                valid = labels >= 0
-                top1_p = float((packed.argmax(-1) == labels)[valid].float().mean()) * 100
-                top1_q = float((sim.argmax(-1) == labels)[valid].float().mean()) * 100
-                r_sim = rel(packed, sim)
-                log(f"runner {label}: packed vs quant-mode logits {r_sim:.3e} (<= 2e-2); test "
-                    f"top-1 packed {top1_p:.2f}% beside quant {top1_q:.2f}%")
-                check(r_sim <= 2e-2, f"runner {label}: packed vs quant-mode agreement failed")
-                with Recorder() as rec:
-                    fresh.model(batches[0]["img"], mode="packed")
-                max_err = {}
-                n = check_kernels([rec.calls], tuple(per_fwd), max_err)
-                log(f"runner {label}: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
-                # the shapes no earlier phase gives the kernels: ResNet-50's
-                # 10-class head (K1), all of TestCNN's
-                kernel_entries(rec.calls, counts, max_err,
-                               ("w8a8_gemm",) if resnet else tuple(per_fwd), f"runner {label}")
-                if resnet:
-                    packed_ms = cuda_ms(lambda: fresh.model(batches[0]["img"], mode="packed"))
-            if resnet:
-                times = {"packed eval batch of 128 (fused residual)": packed_ms,
-                         "quant-mode eval batch of 128": cuda_ms(
-                             lambda: fresh.eval_step(batches[0], quantized=True)),
-                         # last: a calibration step moves the observers it is timed on
-                         "calibration step, batch of 64": cuda_ms(
-                             lambda: runner.train_step(train_batch, 0, 0, 1))}
-                for what, ms in times.items():
-                    log(f"time: runner {label} {what}: {ms:.3f} ms [{card}]")
-            del runner, fresh, built, batches, outs, sim, sim_reloaded, packed, rec
-            torch.cuda.empty_cache()
+        runner._maybe_import_torch_checkpoint = timed_import
+        built.append(runner)
+        return runner
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        argv = runner_config(out_dir, label, model_name, source, ckpt)
+        runners.build_runner = keep
+        try:
+            t0 = time.time()
+            cli.main(argv + ["--output-dir", out_dir, "--device", str(dev)])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            runners.build_runner = build_runner
+        out = Path(out_dir)
+        for name in ("ckpt_last.pkl", "ckpt_best.pkl", "cfg.yaml", "output.log"):
+            check((out / name).exists(), f"runner {label}: {name} was not written")
+        found = re.findall(r"test result: \{'top1': ([-+.\deE]+|nan), 'n': (\d+)\}",
+                           (out / "output.log").read_text())
+        check(len(found) == 1, f"runner {label}: no test result in output.log")
+        top1, n_test = float(found[0][0]), int(found[0][1])
+        check(0.0 <= top1 <= 100.0 and n_test == 256, f"runner {label}: test top-1 {top1} "
+              f"over {n_test} examples")
+        log(f"runner {label}: config to test result {wall:.2f} s, test top-1 {top1:.2f}% over "
+            f"{n_test} (quant mode) [{card}]")
+
+        runner, = built
+        cfg = runner.cfg
+        batches = list(runner._prefetch(runner.test_loader))
+        if ckpt is not None:
+            check(len(import_s) == 1, f"runner {label}: the checkpoint was not imported once")
+            log(f"runner {label}: import (load, verify sha256, fold, reset observers) "
+                f"{import_s[0]:.3f} s [{card}]")
+            # the import against an independent NCHW forward of the state
+            # dict with its BatchNorms unfolded
+            sd = {k: v.to(dev) for k, v in torch.load(ckpt, weights_only=True).items()}
+            x0 = batches[0]["img"]
+            with torch.inference_mode():
+                fp = runner.model(x0, mode="fp32")
+                ref = torchvision_forward(sd, model_name, x0.permute(0, 3, 1, 2).contiguous())
+            r_imp = rel(fp, ref)
+            log(f"runner {label}: fp32 logits of the imported model vs the NCHW forward of the "
+                f"state dict (BN unfolded) {r_imp:.3e} of max|logits| (<= 1e-4)")
+            check(r_imp <= 1e-4, f"runner {label}: the imported model's fp32 logits disagree")
+            if model_name == "resnet50":
+                wrong = Config(cfg.to_dict())
+                wrong.model.torch_checkpoint_sha256 = "f" * 64
+                try:
+                    runners.build_runner(wrong, device=dev).init_variables({"img": x0[:2]})
+                except ValueError as exc:
+                    check("sha256 mismatch" in str(exc), f"runner {label}: {exc}")
+                    log(f"runner {label}: a wrong torch_checkpoint_sha256 raised ValueError")
+                else:
+                    raise Failure(f"runner {label}: a wrong torch_checkpoint_sha256 did not raise")
+        sim = torch.cat([runner.eval_step(b, quantized=True) for b in batches])
+        fresh = runners.build_runner(cfg, device=dev)
+        fresh.load_checkpoint(cfg.runner.best)
+        sim_reloaded = torch.cat([fresh.eval_step(b, quantized=True) for b in batches])
+        check(bool(torch.equal(sim, sim_reloaded)),
+              f"runner {label}: the reloaded best checkpoint gives other quant-mode logits")
+        train_batch = next(runner._prefetch(runner.train_loader))
+        qtt.pack_model(fresh.model, train_batch["img"], device=dev)
+        with torch.inference_mode(), qtt.fused_residual(True):
+            outs, counts = serve(fresh.model, [b["img"] for b in batches], per_fwd,
+                                 f"runner {label}", classes=10)
+            for name in ("conv1x1_residual", "w8a8_gemm"):
+                if name in per_fwd:
+                    check_routes(name, counts[name], f"runner {label}")
+            packed = torch.cat(outs)
+            labels = torch.cat([b["label"] for b in batches])
+            valid = labels >= 0
+            top1_p = float((packed.argmax(-1) == labels)[valid].float().mean()) * 100
+            top1_q = float((sim.argmax(-1) == labels)[valid].float().mean()) * 100
+            r_sim = rel(packed, sim)
+            log(f"runner {label}: packed vs quant-mode logits {r_sim:.3e} (<= 2e-2); test "
+                f"top-1 packed {top1_p:.2f}% beside quant {top1_q:.2f}%")
+            check(r_sim <= 2e-2, f"runner {label}: packed vs quant-mode agreement failed")
+            with Recorder() as rec:
+                fresh.model(batches[0]["img"], mode="packed")
+            max_err = {}
+            n = check_kernels([rec.calls], tuple(per_fwd), max_err)
+            log(f"runner {label}: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
+            # the shapes no earlier phase gives the kernels: ResNet-50's
+            # 10-class head (K1), all of TestCNN's and ResNet-18's
+            new_shapes = ("w8a8_gemm",) if per_fwd is RESNET_PER_FWD else tuple(per_fwd)
+            if ckpt is None or model_name != "resnet50":
+                kernel_entries(rec.calls, counts, max_err, new_shapes, f"runner {label}")
+            if model_name != "testcnn":
+                packed_ms = cuda_ms(lambda: fresh.model(batches[0]["img"], mode="packed"))
+        if model_name != "testcnn":
+            times = {"packed eval batch of 128 (fused residual)": packed_ms,
+                     "quant-mode eval batch of 128": cuda_ms(
+                         lambda: fresh.eval_step(batches[0], quantized=True)),
+                     # last: a calibration step moves the observers it is timed on;
+                     # with the CE and MSE searches it takes seconds: fewer repeats
+                     "calibration step, batch of 64": cuda_ms(
+                         lambda: runner.train_step(train_batch, 0, 0, 1), reps=3, warmup=1)}
+            for what, ms in times.items():
+                log(f"time: runner {label} {what}: {ms:.3f} ms [{card}]")
+        del runner, fresh, built, batches, outs, sim, sim_reloaded, packed, rec
+        torch.cuda.empty_cache()
 
 
 def build_packed(qtt, batch, name: str, cfg: dict, label: str):

@@ -39,7 +39,7 @@ MODELS.register_dict({
 
 _RESERVED_MODEL_KEYS = {
     "name", "num_classes", "classnames", "prompts", "checkpoint", "pretrained",
-    "torch_checkpoint",
+    "torch_checkpoint", "torch_checkpoint_sha256",
 }
 
 

@@ -20,11 +20,19 @@ quantized from config; FP32 behaviour is the ``'fp32'`` mode (or
 * conv without a fusable activation quantizer (weight-only, or
   per-channel activations fake-quantized first) ->
   :func:`~quantize_tpu_torch.ops.qconv.quant_conv2d_wo`, then the unfused
-  residual tail.
+  residual tail;
+* AWQ layers (``packed/awq_recip``: the weight stored as Q(w·awq), 1/awq
+  folded into the dequantized weight, per group with ``q_group_size``) ->
+  the weight-only :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_wo` /
+  :func:`~quantize_tpu_torch.ops.qconv.quant_conv2d_wo` layouts, which
+  reach no kernel, as in JAX.
 
-Branches the port does not have yet raise NotImplementedError: AWQ,
-even-channel int4 convs (``w_p4c``), depthwise and grouped convs, bias
-correction.
+Bias correction (``bias_correct``) keeps E[x] in ``qobs/bias_correct_EX``
+during calibration and adds the layer's response to the weight error
+W·static - W_hat to the bias in quant mode and at pack time.
+
+Branches the port does not have yet raise NotImplementedError:
+even-channel int4 convs (``w_p4c``), depthwise and grouped packed convs.
 """
 from __future__ import annotations
 
@@ -43,9 +51,10 @@ from ..ops.qmatmul import (kmajor_packed, pack_int4_splithalf, quant_matmul_w4a8
                            quant_matmul_w8a8, quant_matmul_wo, quantize_act_int8,
                            unpack_int4_splithalf)
 from ..quant.fakequant import fake_quant
+from ..quant.observers import BiasCorrect
 from ..quant.qspec import QuantSpec, _freeze
 from .precision import packed_carry_dtype
-from .quantizer import Quantizer
+from .quantizer import Quantizer, awq_group
 from .variables import VarModule
 
 
@@ -70,6 +79,11 @@ class LayerQuantCfg:
         object.__setattr__(self, "bias_correct", _freeze(dict(bc)) if isinstance(bc, Mapping) else bc)
         bf = self.bn_folding
         object.__setattr__(self, "bn_folding", _freeze(dict(bf)) if isinstance(bf, Mapping) else bf)
+
+    def bias_correct_kwargs(self) -> dict:
+        if isinstance(self.bias_correct, bool) or self.bias_correct is None:
+            return {}
+        return dict(self.bias_correct)
 
 
 FP32 = LayerQuantCfg(weight={"n_bits": 32}, activation={"n_bits": 32})
@@ -99,15 +113,17 @@ class _QuantLayerBase(VarModule):
 
     def _setup(self, quant: LayerQuantCfg, kernel_shape: Tuple[int, ...], in_ch: int,
                with_bias: bool, device) -> None:
-        if quant.bias_correct:
-            raise _not_ported("bias correction (BiasCorrect)")
         self.quant = quant
         self.w_spec = QuantSpec.from_config(dict(quant.weight), "weight", channel_axis=-1)
         self.a_spec = QuantSpec.from_config(dict(quant.activation), "activation", channel_axis=-1)
+        self.corrector = BiasCorrect(**quant.bias_correct_kwargs()) if quant.bias_correct else None
         self.put_var("params", "kernel", torch.zeros(kernel_shape, dtype=torch.float32, device=device))
         if with_bias:
             self.put_var("params", "bias", torch.zeros((kernel_shape[-1],), dtype=torch.float32, device=device))
-        self.w_quantizer = Quantizer(self.w_spec, self.w_spec.n_channels(kernel_shape), device)
+        g = awq_group(self.w_spec)
+        # AWQ with q_group_size: one scale per group of g in-features
+        n_w = math.prod(kernel_shape) // g if g else self.w_spec.n_channels(kernel_shape)
+        self.w_quantizer = Quantizer(self.w_spec, n_w, device)
         self.a_quantizer = Quantizer(self.a_spec, in_ch if self.a_spec.per_channel else 1, device)
 
     def init_params(self, generator: torch.Generator) -> None:
@@ -120,26 +136,52 @@ class _QuantLayerBase(VarModule):
     def _bias(self) -> Optional[torch.Tensor]:
         return self.get_var("params", "bias") if self.has_var("params", "bias") else None
 
+    def _corrected_bias(self, kernel: torch.Tensor, wq: torch.Tensor,
+                        bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """``bias`` plus the bias correction (the layer's response on E[x] to
+        the weight error W·static - W_hat, reduced to one value per out
+        channel) once the corrector has calibrated; else ``bias``."""
+        if self.corrector is None or not self.has_var("qobs", "bias_correct_EX/EX"):
+            return bias
+        ori = self.w_quantizer(kernel, mode="fp32")
+        ex = {"EX": self.get_var("qobs", "bias_correct_EX/EX")}
+        corr = self._bias_reduce(self.corrector.correction(
+            ex, ori - wq, lambda dw, e: self._contract(e, dw)))
+        return corr if bias is None else bias + corr
+
     def _run(self, x: torch.Tensor, mode: str) -> torch.Tensor:
         kernel, bias = self.get_var("params", "kernel"), self._bias()
         if mode == "calibrate":
             self.a_quantizer(x, mode="calibrate")
-            self.w_quantizer(kernel, mode="calibrate")
+            self.w_quantizer(kernel, mode="calibrate", pre_act=x,
+                             apply_fn=lambda w, a: self._contract(a, w))
+            if self.corrector is not None:
+                ex = (self.get_var("qobs", "bias_correct_EX/EX")
+                      if self.has_var("qobs", "bias_correct_EX/EX")
+                      else self.corrector.init_state(tuple(x.shape[1:]), device=x.device)["EX"])
+                self.put_var("qobs", "bias_correct_EX/EX",
+                             self.corrector.calibrate({"EX": ex}, x)["EX"])
             xq, wq = self.a_quantizer(x, mode="fp32"), self.w_quantizer(kernel, mode="fp32")
         else:
             xq = self.a_quantizer(x, mode=mode)
             wq = self.w_quantizer(kernel, mode=mode)
+        if mode == "quant":
+            bias = self._corrected_bias(kernel, wq, bias)
         out = self._contract(xq, wq)
         return out if bias is None else out + bias
 
     def _pack(self, x: torch.Tensor) -> torch.Tensor:
-        """mode='pack': quantize the weight to its integer grid and store the
-        deploy buffers in the ``packed`` collection; returns the FP32
-        forward so the pack pass flows through the whole network."""
+        """mode='pack': bake the bias correction into the bias, quantize the
+        weight to its integer grid and store the deploy buffers in the
+        ``packed`` collection (AWQ also ``awq_recip`` = 1/awq_scale);
+        returns the FP32 forward so the pack pass flows through the whole
+        network."""
         w_spec, a_spec = self.w_spec, self.a_spec
         kernel, bias = self.get_var("params", "kernel"), self._bias()
         n_out = kernel.shape[-1]
         ori = self.w_quantizer(kernel, mode="fp32")
+        if self.corrector is not None:
+            bias = self._corrected_bias(kernel, self.w_quantizer(kernel, mode="quant"), bias)
         self.put_var("packed", "bias", torch.zeros((n_out,), dtype=torch.float32, device=x.device)
                      if bias is None else bias.detach().float().clone())
         if w_spec.enabled:
@@ -155,6 +197,12 @@ class _QuantLayerBase(VarModule):
                 w_zero = w_zero.expand(n_out).contiguous()
             self.put_var("packed", "w_scale", w_scale)
             self.put_var("packed", "w_zero", w_zero)
+            awq = self.w_quantizer(kernel, mode="awq_vector")
+            if awq is not None:
+                # the deploy dequant divides rows by awq: store the reciprocal
+                # (a true division by a tensor, also on CUDA)
+                awq = awq.float()
+                self.put_var("packed", "awq_recip", torch.ones_like(awq) / awq)
             self._store_weight(x, q_i8)
         if a_spec.enabled:
             a_scale, a_zero = self.a_quantizer(x, mode="export_qparams")
@@ -162,6 +210,13 @@ class _QuantLayerBase(VarModule):
             self.put_var("packed", "a_zero", a_zero.float())
         out = self._contract(x, ori)
         return out if bias is None else out + bias
+
+    def _awq_packed(self):
+        """``(awq_recip, group_size)`` of an AWQ layer's deploy buffers, else
+        ``(None, 0)``."""
+        if not self.has_var("packed", "awq_recip"):
+            return None, 0
+        return self.get_var("packed", "awq_recip"), awq_group(self.w_spec)
 
     def _packed_act(self, x: torch.Tensor) -> torch.Tensor:
         a_scale = self.get_var("packed", "a_scale")
@@ -189,6 +244,9 @@ class QuantDense(_QuantLayerBase):
 
     def _contract(self, a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return a @ w
+
+    def _bias_reduce(self, c: torch.Tensor) -> torch.Tensor:
+        return c
 
     def _use_p4(self, k: int) -> bool:
         return self.w_spec.enabled and self.w_spec.n_bits <= 4 and k % 2 == 0
@@ -224,15 +282,14 @@ class QuantDense(_QuantLayerBase):
             x = norm(x)
             xq = self._packed_act(x) if a_spec.enabled else x
             return xq @ self.get_var("params", "kernel") + bias
-        if self.has_var("packed", "awq_recip"):
-            raise _not_ported("the AWQ packed dense")
         w_scale = self.get_var("packed", "w_scale")
         w_zero = self.get_var("packed", "w_zero")
+        awq_recip, group = self._awq_packed()
         # symmetric signed weights pack with zero == 0 exactly, so the
         # rowsum(A) correction terms vanish
         wz0 = bool(w_spec.symmetric and w_spec.qmin < 0)
         act = self._fused_act_qparams()
-        if act is not None:
+        if act is not None and awq_recip is None:
             a_scale, a_zero = act
             pre_q = None
             if pre_norm is not None:
@@ -250,13 +307,14 @@ class QuantDense(_QuantLayerBase):
                                      self.get_var("packed", "w_int"), w_scale, w_zero, bias,
                                      col_sum, w_zero_is_zero=wz0, pre_q=pre_q,
                                      w_km=self.w_kmajor)
-        # weight-only (or per-channel activations): float activations times
-        # the dequantized weight
+        # weight-only (or per-channel activations, or AWQ): float
+        # activations times the dequantized weight
         w_int = (unpack_int4_splithalf(self.get_var("packed", "w_p4")) if p4
                  else self.get_var("packed", "w_int"))
         x = norm(x)
         xq = self._packed_act(x) if a_spec.enabled else x
-        return quant_matmul_wo(xq, w_int, w_scale, w_zero, bias)
+        return quant_matmul_wo(xq, w_int, w_scale, w_zero, bias, awq_recip=awq_recip,
+                               group_size=group)
 
     def packed_proj_buffers(self) -> dict:
         """This layer's deploy buffers, so that a parent module can run
@@ -306,6 +364,9 @@ class QuantConv(_QuantLayerBase):
     def _contract(self, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return conv_nhwc(x, w, self.strides, self.padding, self.feature_group_count)
 
+    def _bias_reduce(self, c: torch.Tensor) -> torch.Tensor:
+        return c.mean(dim=(0, 1))  # (H', W', C) -> (C,)
+
     def _wz0(self) -> bool:
         # zero == 0 exactly only for symmetric *signed* grids (unsigned
         # symmetric packs with a +2^(b-1) shift folded into w_zero)
@@ -341,10 +402,6 @@ class QuantConv(_QuantLayerBase):
     def _packed_forward(self, x: torch.Tensor, residual=None,
                         fuse_relu: bool = False) -> torch.Tensor:
         w_spec, a_spec = self.w_spec, self.a_spec
-        if self.has_var("packed", "awq_recip"):
-            # JAX folds 1/awq into the dequantized weight (quantize_tpu
-            # nn/layers.py:427-443); without it the output would be wrong
-            raise _not_ported("the AWQ packed conv")
         bias = self.get_var("packed", "bias")
 
         def _finish(out):
@@ -357,11 +414,20 @@ class QuantConv(_QuantLayerBase):
         if not w_spec.enabled:
             xq = self._packed_act(x) if a_spec.enabled else x
             return _finish(self._contract(xq, self.get_var("params", "kernel")) + bias)
-        if self.feature_group_count > 1:
-            raise _not_ported("packed grouped / depthwise conv")
         w_scale = self.get_var("packed", "w_scale")
         w_zero = self.get_var("packed", "w_zero")
         w_int = self.get_var("packed", "w_int")
+        awq_recip, group = self._awq_packed()
+        if awq_recip is not None:
+            # AWQ deploys weight-only (JAX layers.py:427-443): the stored
+            # Q(w·awq) dequantized with 1/awq folded in; activations still
+            # fake-quantized where enabled
+            xq = self._packed_act(x) if a_spec.enabled else x
+            return _finish(quant_conv2d_wo(xq, w_int, w_scale, w_zero, bias, strides=self.strides,
+                                           padding=self.padding, groups=self.feature_group_count,
+                                           awq_recip=awq_recip, group_size=group))
+        if self.feature_group_count > 1:
+            raise _not_ported("packed grouped / depthwise conv")
         act = self._fused_act_qparams()
         if act is None:
             # weight-only (or per-channel activations): float activations

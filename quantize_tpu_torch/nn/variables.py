@@ -47,6 +47,14 @@ class VarModule(nn.Module):
         self._var_index[(collection, leaf)] = attr
         return getattr(self, attr)
 
+    def drop_var(self, collection: str, leaf: str) -> None:
+        """Remove variable ``leaf`` of ``collection``."""
+        attr = self._var_index.pop((collection, leaf))
+        if collection == "params":
+            del self._parameters[attr]
+        else:
+            del self._buffers[attr]
+
     def get_var(self, collection: str, leaf: str) -> torch.Tensor:
         return getattr(self, self._var_index[(collection, leaf)])
 

@@ -249,14 +249,21 @@ def quant_conv2d_wo(
     group_size: int = 0,
 ) -> torch.Tensor:
     """Weight-only-quantized conv (JAX ``qconv.py:127-168``): the weight
-    dequantized per out-channel, ``(w + z)·s`` in float32, then one float32
-    conv and ``+ bias``. JAX computes this in XLA outside any Pallas kernel,
-    so the conv is the library's (TF32 off on the card keeps it float32)."""
-    if awq_recip is not None or group_size:
-        raise NotImplementedError(
-            "quant_conv2d_wo: the AWQ and group_size deploy layouts are not ported to "
-            "quantize_tpu_torch yet; see ROADMAP.md")
-    out = conv_nhwc(x.float(), _dequant_weight(w_int, w_scale, w_zero), strides, padding, groups)
+    dequantized, ``(w + z)·s`` in float32, then one float32 conv and
+    ``+ bias``. JAX computes this in XLA outside any Pallas kernel, so the
+    conv is the library's (TF32 off on the card keeps it float32).
+
+    AWQ deploy: the packed kernel stores Q(w·awq); ``awq_recip`` (C_in,)
+    folds the 1/awq in-channel divisor into the dequantized kernel.
+    ``group_size`` > 0 selects the ``q_group_size`` grid of the 2-D
+    (kh*kw*ci, co) weight, as the quantizer packed it
+    (:func:`~quantize_tpu_torch.quant.observers.group_view`)."""
+    w_deq = _dequant_weight(w_int.reshape(-1, w_int.shape[-1]), w_scale, w_zero,
+                            group_size=group_size).reshape(w_int.shape)
+    if awq_recip is not None:
+        # the in-channel axis of HWIO is -2
+        w_deq = w_deq * awq_recip.float().reshape(-1, 1)
+    out = conv_nhwc(x.float(), w_deq, strides, padding, groups)
     return out if bias is None else out + bias
 
 

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..quant.observers import group_unview, group_view
 from . import _build
 
 
@@ -396,10 +397,23 @@ def quant_matmul_w4a8(
 # Weight-only quantized matmul (float activations)
 # ---------------------------------------------------------------------------
 
-def _dequant_weight(w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor
+def _dequant_weight(w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
+                    awq_recip: Optional[torch.Tensor] = None, group_size: int = 0
                     ) -> torch.Tensor:
-    """Per-out-channel weight dequant ``(w + z)·s`` in float32."""
-    return (w_int.float() + w_zero.float().reshape(1, -1)) * w_scale.float().reshape(1, -1)
+    """Weight dequant ``(w + z)·s`` of a (K, N) int8 weight in float32, per
+    out-channel, or with ``group_size`` > 0 per group: ``w_scale``/``w_zero``
+    then hold (N * K/g,) values, groups along K within each out column (the
+    AWQ ``q_group_size`` grid). ``awq_recip`` (K,) multiplies row k by
+    1/awq_scale[k] (the AWQ deploy layout)."""
+    w = w_int.float()
+    if group_size:
+        s, z = w_scale.float().reshape(-1, 1), w_zero.float().reshape(-1, 1)
+        w_deq = group_unview((group_view(w, group_size) + z) * s, w.shape)
+    else:
+        w_deq = (w + w_zero.float().reshape(1, -1)) * w_scale.float().reshape(1, -1)
+    if awq_recip is not None:
+        w_deq = w_deq * awq_recip.float().reshape(-1, 1)
+    return w_deq
 
 
 def wo_gemm_plain(x: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor,
@@ -464,15 +478,23 @@ def quant_matmul_wo(
     """Weight-only quantized matmul: float activations x int8-stored weights,
     f32 result, through kernel K5. The operands are bf16 on the card (the
     function the JAX package runs on its accelerator, ``qmatmul.py:462-476``,
-    and ``_wo_kernel``'s body for a bf16 operand) and f32 on the CPU."""
-    if awq_recip is not None or group_size:
-        raise NotImplementedError(
-            "quant_matmul_wo: the AWQ and group_size deploy layouts are not ported to "
-            "quantize_tpu_torch yet; see ROADMAP.md")
+    and ``_wo_kernel``'s body for a bf16 operand) and f32 on the CPU.
+
+    The AWQ (``awq_recip``) and grouped (``group_size``) layouts take no
+    kernel, as in JAX, whose ``_wo_kernel`` models only per-out-channel
+    scales: the weight is dequantized elementwise, then one ``torch.matmul``
+    in the same arithmetic (operands rounded to bf16 on the card, their
+    products and sums in float32, float32 out)."""
     lead = x.shape[:-1]
     n = w_int.shape[1]
     x2 = x.reshape(-1, x.shape[-1])
     cdt = torch.bfloat16 if x2.device.type == "cuda" else torch.float32
+    if awq_recip is not None or group_size:
+        w_deq = _dequant_weight(w_int, w_scale, w_zero, awq_recip, group_size)
+        out = torch.matmul(x2.to(cdt).float(), w_deq.to(cdt).float())
+        if bias is not None:
+            out = out + bias.float()
+        return out.reshape(*lead, n)
     out = wo_gemm(x2.contiguous(), w_int.contiguous(), w_scale.float().reshape(-1),
                   w_zero.float().reshape(-1), None if bias is None else bias.float(), cdt)
     return out.reshape(*lead, n)

@@ -79,8 +79,16 @@ def fake_quant(
     qmax: float,
     channel_axis: int = -1,
     static_scale: Optional[torch.Tensor] = None,
+    awq_scale: Optional[torch.Tensor] = None,
+    awq_axis: int = -2,
 ) -> torch.Tensor:
-    """Simulated quantization: quantize then dequantize."""
+    """Simulated quantization: quantize then dequantize. With ``awq_scale``
+    the input is pre-scaled along ``awq_axis`` (the in-channel axis) before
+    quantization and divided back afterwards."""
+    if awq_scale is not None:
+        aws = broadcast_to_axis(awq_scale, x.ndim, awq_axis)
+        x = x * aws
     q = quantize_core(x, scale, zero, qmin, qmax, channel_axis)
-    return dequantize_core(q, scale, zero, channel_axis, static_scale)
+    out = dequantize_core(q, scale, zero, channel_axis, static_scale)
+    return out if awq_scale is None else out / aws
 

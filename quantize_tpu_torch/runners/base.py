@@ -90,15 +90,47 @@ class BasicRunner:
 
     def init_variables(self, sample_batch: Dict[str, np.ndarray], seed: int = 0) -> None:
         """Initialise the parameters from ``seed`` and run one calibrate
-        pass over ``sample_batch`` (JAX's ``model.init`` in calibrate mode);
-        a no-op once the variables are set. CLIP's zero-shot weights wait for
-        the CLIP model (ROADMAP.md, queue 1 item 5)."""
+        pass over ``sample_batch`` (JAX's ``model.init`` in calibrate mode),
+        then import ``cfg.model.torch_checkpoint`` where one is set; a no-op
+        once the variables are set. CLIP's zero-shot weights wait for the
+        CLIP model (ROADMAP.md, queue 1 item 5)."""
         if self._initialized:
             return
-        if self.cfg.model and self.cfg.model.torch_checkpoint:
-            raise not_ported_error("importing a torch checkpoint (model.torch_checkpoint)", 2)
         api.init_model(self.model, sample_batch["img"], seed=seed, device=self.device)
         self._initialized = True
+        self._maybe_import_torch_checkpoint()
+
+    def _maybe_import_torch_checkpoint(self) -> None:
+        """``cfg.model.torch_checkpoint``: convert a user-provided torch
+        ``.pth`` into the initialized variables (the reference's
+        pretrained-weight loading, ``modelzoo/load.py:12``; BN folded per
+        ``quantconv2d.py:115-133`` where ``quant.default.bn_folding`` is set,
+        into the weight quantizers' ``static_scale`` with its
+        ``into_scale``), verified first against
+        ``cfg.model.torch_checkpoint_sha256`` where that is set, then every
+        observer reset: init ran a calibrate pass on the random weights."""
+        path = self.cfg.model.torch_checkpoint if self.cfg.model else None
+        if not path:
+            return
+        from ..models.import_auto import import_into_model, load_torch_state_dict
+        from ..nn.quantizer import reset_observers
+
+        fold = bool(self.ctx.bn_folding_enabled)
+        bnf = self.ctx.default.get("bn_folding")
+        into_scale = False
+        if bnf is not None and not isinstance(bnf, bool):
+            into_scale = bool(dict(bnf).get("into_scale"))
+        self.logger.info(f"importing torch checkpoint {path} "
+                         f"(fold_bn={fold}, into_scale={into_scale})")
+        expected = getattr(self.cfg.model, "torch_checkpoint_sha256", None)
+        if expected:
+            from ..models.manifest import verify_checkpoint
+
+            verify_checkpoint(str(path), str(expected), model_name=str(self.cfg.model.name))
+        sd = load_torch_state_dict(str(path))
+        import_into_model(self.model, str(self.cfg.model.name), sd, fold_bn=fold,
+                          into_scale=into_scale)
+        reset_observers(self.model)
 
     # -- steps (overridden by subclasses) ---------------------------------
     def train_step(self, batch, epoch: int, it: int, total_iters: int):

@@ -5,6 +5,7 @@
                                           [--carry float32|bfloat16]
     QTPU_ATTN_INT8=1 python3 scripts/profile_torch_port.py --model vit_b_32   # K9 for K8
     python3 scripts/profile_torch_port.py --runner     # the PTQ runner's steps, ResNet-50 at 224
+    python3 scripts/profile_torch_port.py --runner "resnet18@224 cross-entropy"   # another run
 
 Builds the model of chip_smoke.py (ResNet-50 W8A8 with the fused residual
 tail, batch 256 by default; ViT-B/16 W4A8, batch 128 by default; or
@@ -21,12 +22,14 @@ and the operand casts around it), every ``unpack_int4_splithalf`` (the
 per-call unpack of split-half int4 weights) and every
 ``quant_conv2d_wo`` (the weight-only patch conv).
 
-``--runner`` profiles the PTQ runner instead, on chip_smoke.py's ResNet-50
-run of the CPU config (``RUNNER_CFG`` with ResNet-50 at 224 x 224, MinMax
-weights, MAMinMax activations, folded BN): after its calibration epoch,
-3 calibration steps (batch 64), 3 quant-mode eval batches (128) and, once
-packed, 3 packed eval batches (128, fused residual tail), each reported as
-above. Needs a CUDA card and nvcc.
+``--runner`` profiles the PTQ runner instead, on one of chip_smoke.py's
+runner runs (``RUNNER_RUNS``, by label; by default ResNet-50 from random
+weights on the CPU config at 224 x 224: MinMax weights, MAMinMax
+activations, folded BN; a run from a torchvision checkpoint imports the
+one chip_smoke.py writes): after its calibration epoch, 3 calibration steps
+(batch 64), 3 quant-mode eval batches (128) and, once packed, 3 packed eval
+batches (128, fused residual tail), each reported as above. Needs a CUDA
+card and nvcc.
 """
 from __future__ import annotations
 
@@ -127,16 +130,24 @@ def profile_calls(fn, title: str, n_fwd: int = 3) -> int:
     return 0
 
 
-def profile_runner(qtt) -> int:
+def profile_runner(qtt, run_label: str, tmp_dir: str) -> int:
     """The PTQ runner's calibration step, quant-mode eval and packed eval."""
     import torch
     import quantize_tpu_torch.runners as runners
-    from chip_smoke import RUNNER_CFG, RUNNER_RUNS
+    from chip_smoke import RUNNER_RUNS, runner_config, torchvision_state_dict
     from quantize_tpu_torch.utils import Config
 
-    label, opts, _ = RUNNER_RUNS[1]
-    cfg = Config().merge_from_yaml(RUNNER_CFG)
-    cfg.merge_from_list(opts)
+    label, model, source, imported, _ = next(r for r in RUNNER_RUNS if r[0] == run_label)
+    ckpt = None
+    if imported:
+        ckpt = os.path.join(tmp_dir, f"{model}.pth")
+        torch.save(torchvision_state_dict(model, 10, seed=5), ckpt)
+    argv = runner_config(tmp_dir, label, model, source, ckpt)
+    cfg = Config()
+    for cfg_file in argv[1:argv.index("--opts")] if "--opts" in argv else argv[1:]:
+        cfg.merge_from_yaml(cfg_file)
+    if "--opts" in argv:
+        cfg.merge_from_list(argv[argv.index("--opts") + 1:])
     loaders = [runners._loader(cfg, which) for which in ("train", "val", "test")]
     cfg.model.num_classes = loaders[0].dataset.num_classes
     runner = runners.build_runner(cfg, *loaders)
@@ -160,8 +171,9 @@ def main() -> int:
     ap.add_argument("--model", default="resnet50", choices=["resnet50", "vit_b_16", "vit_b_32"])
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--carry", default="float32", choices=["float32", "bfloat16"])
-    ap.add_argument("--runner", action="store_true",
-                    help="profile the PTQ runner's steps (ResNet-50 at 224) instead")
+    ap.add_argument("--runner", nargs="?", const="resnet50@224", default=None,
+                    help="profile the PTQ runner's steps instead, on chip_smoke.py's run of "
+                         "this label (default: ResNet-50 at 224)")
     args = ap.parse_args()
 
     import torch
@@ -182,7 +194,10 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.runner:
-        return profile_runner(qtt)
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp_dir:
+            return profile_runner(qtt, args.runner, tmp_dir)
 
     cfg = {"resnet50": CFG, "vit_b_16": CFG_W4A8, "vit_b_32": CFG_WO}[args.model]
     dev = torch.device("cuda", 0)

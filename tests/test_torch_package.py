@@ -780,3 +780,63 @@ def test_cuda_testnet_packed_kernels_match_their_plain_versions(cuda_card, monke
     assert sorted(checked) == sorted(["qconv2d"] * 2 + ["w8a8_gemm"] * dense
                                      + ["quantize_act_int8"] * (2 + dense))
     assert out.shape == (64, 10) and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.cuda
+def test_cuda_imported_resnet18_into_scale_packed_kernels_match_their_plain_versions(
+        cuda_card, monkeypatch):
+    """ResNet-18 W8A8 from a torchvision-layout state dict
+    (``tests/golden/weightgen.py``), BN folded into the weight quantizers'
+    ``static_scale`` (``into_scale``), 10 classes, 64 x 64, batch 32,
+    calibrated and packed on the card: every kernel call of a packed
+    forward (K3 20: the space-to-depth stem, the 3 x 3 convs and the
+    stride-2 1 x 1 downsample convs; K1 1; KQ 21) is bit-equal to its plain
+    version, and the packed logits are within 2e-2 of max|quant logits|."""
+    import json
+    import sys
+
+    import quantize_tpu_torch.nn.layers as layers
+    import quantize_tpu_torch.ops.qconv as qconv
+    import quantize_tpu_torch.ops.qmatmul as qmatmul
+    from quantize_tpu_torch.ops.qconv import qconv2d_int8_plain
+    from quantize_tpu_torch.ops.qmatmul import quantize_act_int8_plain, w8a8_gemm_plain
+
+    sys.path.insert(0, str(ROOT / "tests" / "golden"))
+    from weightgen import gen_param
+
+    fixture = json.loads((ROOT / "tests" / "golden" / "models.json").read_text())
+    names = next(c for c in fixture["cases"] if c["case"] == "resnet18_w8a8_intoscale")
+    sd = {n: torch.from_numpy(gen_param(n, tuple(s))) for n, s in names["param_names"]}
+    quant = {"default": {
+        "weight": {"n_bits": 8, "symmetric": True, "signed": True, "granularity": "channel",
+                   "range": {"name": "minmax"}},
+        "activation": {"n_bits": 8, "symmetric": False, "granularity": "layer",
+                       "range": {"name": "minmax"}},
+        "bn_folding": {"into_scale": True}}}
+    model = MODELS.build("resnet18", num_classes=10, ctx=qtt.QuantCtx(quant))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.randn((32, 64, 64, 3), generator=g, device="cuda")
+    qtt.init_model(model, x, torch_state_dict=sd, model_name="resnet18", into_scale=True)
+    assert model.conv1.w_quantizer.has_var("qparams", "static_scale")
+    qtt.calibrate_model(model, [torch.randn((32, 64, 64, 3), generator=g, device="cuda")])
+    with torch.inference_mode():
+        sim = model(x, mode="quant")
+    qtt.pack_model(model, x)
+    checked = []
+    kq = _Checking("quantize_act_int8", qmatmul.quantize_act_int8, quantize_act_int8_plain,
+                   checked)
+    for mod in (qmatmul, layers, qconv):
+        monkeypatch.setattr(mod, "quantize_act_int8", kq)
+    monkeypatch.setattr(qmatmul, "w8a8_gemm",
+                        _Checking("w8a8_gemm", qmatmul.w8a8_gemm, w8a8_gemm_plain, checked))
+    monkeypatch.setattr(qconv, "qconv2d_int8",
+                        _Checking("qconv2d", qconv.qconv2d_int8, qconv2d_int8_plain, checked))
+    reset_launch_counts()
+    with torch.inference_mode(), qtt.fused_residual(True):
+        out = model(x, mode="packed")
+    torch.cuda.synchronize()
+    assert launch_counts() == {**{k: 0 for k in launch_counts()}, "qconv2d": 20,
+                               "w8a8_gemm": 1, "quantize_act_int8": 21}
+    assert sorted(checked) == sorted(["qconv2d"] * 20 + ["w8a8_gemm"] + ["quantize_act_int8"] * 21)
+    assert out.shape == (32, 10) and bool(torch.isfinite(out).all())
+    assert float((out - sim).abs().max() / sim.abs().max()) <= 2e-2

@@ -1,6 +1,8 @@
 """Parity of the port's quantization core (quantize_tpu_torch.quant) with the
-JAX package: grids, scale/zero, fake-quant and the MinMax, MAMinMax and MSE
-observers (also replayed against tests/golden/observers.json).
+JAX package: grids, scale/zero, fake-quant and the observers (MinMax,
+MAMinMax and MSE, also replayed against tests/golden/observers.json, as
+tests/test_torch_golden.py replays every observer case; CrossEntropy, ACIQ
+and AWQ step by step).
 
 Inputs are made with numpy from a seed and fed to both packages. Unless a
 test says otherwise, results must be bit-equal: the port runs the same
@@ -148,11 +150,47 @@ def test_minmax_observer_accumulates_like_jax(symmetric, granularity, percentile
         np.testing.assert_array_equal(_np(z_t), np.asarray(z_j))
 
 
-def test_unported_observers_raise():
-    for name in ("cross_entropy", "aciq", "awq"):
-        spec = tqs.QuantSpec.from_config({"range": {"name": name}}, "weight")
-        with pytest.raises(NotImplementedError, match=name):
-            build_observer(spec)
+@pytest.mark.parametrize("name,flag,granularity,kwargs", [
+    ("cross_entropy", "activation", "layer", {"grid": 40}),
+    ("aciq", "activation", "layer", {}),
+    ("aciq", "activation", "channel", {"fuse_relu": True}),
+    ("awq", "weight", "channel", {"grid": 8}),
+    ("awq", "weight", "channel", {"grid": 8, "q_group_size": 8, "accumulate": False})])
+def test_ce_aciq_and_awq_observers_follow_jax_step_by_step(name, flag, granularity, kwargs):
+    """build_observer gives the port's CrossEntropy, ACIQ and AWQ; three
+    calibration steps through both packages' observers agree: state,
+    scale/zero (and AWQ's awq_scale) rtol 1e-5 (float32 sums in another
+    order; seen: equal or within a few ulps)."""
+    from quantize_tpu.quant.observers import build_observer as jax_build_observer
+
+    cfg = {"n_bits": 4 if name == "awq" else 8, "symmetric": name == "awq",
+           "signed": name == "awq", "granularity": granularity, "range": {"name": name, **kwargs}}
+    sj = jqs.QuantSpec.from_config(cfg, flag)
+    st = tqs.QuantSpec.from_config(cfg, flag)
+    oj, ot = jax_build_observer(sj), build_observer(st)
+    assert type(ot).__name__ == type(oj).__name__
+    rng = np.random.default_rng(len(name) + len(kwargs))
+    w = rng.normal(scale=0.4, size=(32, 6)).astype(np.float32)  # (in, out)
+    apply_fn = lambda wm, a: a @ wm  # noqa: E731
+    n = 32 if name == "awq" else (5 if granularity == "channel" else 1)
+    state_j, state_t = oj.init_state(n), ot.init_state(n)
+    for step in range(3):
+        x = rng.normal(loc=step - 1, scale=1 + step, size=(4, 6, 6, 5)).astype(np.float32)
+        if name == "awq":
+            a = np.abs(rng.normal(size=(8, 32))).astype(np.float32) * (1 + step)
+            state_j, s_j, z_j, aws_j = oj(state_j, jnp.asarray(w), pre_act=jnp.asarray(a),
+                                          apply_fn=apply_fn)
+            state_t, s_t, z_t, aws_t = ot(state_t, torch.from_numpy(w),
+                                          pre_act=torch.from_numpy(a), apply_fn=apply_fn)
+            np.testing.assert_allclose(_np(aws_t), np.asarray(aws_j), rtol=1e-5)
+        else:
+            state_j, s_j, z_j = oj(state_j, jnp.asarray(x))
+            state_t, s_t, z_t = ot(state_t, torch.from_numpy(x))
+        assert set(state_t) == set(state_j)
+        for key in state_j:
+            np.testing.assert_allclose(_np(state_t[key]), np.asarray(state_j[key]), rtol=1e-5)
+        np.testing.assert_allclose(_np(s_t), np.asarray(s_j), rtol=1e-5)
+        np.testing.assert_allclose(_np(z_t), np.asarray(z_j), rtol=1e-5, atol=1e-5)
 
 
 _GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "observers.json")

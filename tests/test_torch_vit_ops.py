@@ -167,11 +167,35 @@ def test_quant_matmul_wo_matches_jax(k4):
         np.asarray(jqm._dequant_weight(jnp.asarray(w), jnp.asarray(w_s), jnp.asarray(w_z))))
 
 
-def test_quant_matmul_wo_raises_for_awq_and_groups():
-    w = torch.zeros((8, 4), dtype=torch.int8)
-    for kw in ({"awq_recip": torch.ones(8)}, {"group_size": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tqm.quant_matmul_wo(torch.zeros(2, 8), w, torch.ones(4), torch.zeros(4), **kw)
+@pytest.mark.parametrize("awq,group", [(True, 0), (False, 16), (True, 16), (True, 64)])
+def test_quant_matmul_wo_awq_and_group_layouts_match_jax(awq, group):
+    """The AWQ (``awq_recip`` per in-feature) and ``q_group_size`` (N * K/g
+    scales, groups along K within each out column) layouts: the weight
+    dequantized elementwise (bit-equal to JAX's ``_dequant_weight``), then
+    one float32 product on the CPU in both packages, summed in another
+    order: rtol 1e-5 / atol 1e-5. No kernel runs, as in JAX."""
+    rng = np.random.default_rng(17 + group)
+    x = rng.normal(size=(3, 5, 64)).astype(np.float32)
+    w = rng.integers(-8, 8, size=(64, 24)).astype(np.int8)
+    n_s = 24 * 64 // group if group else 24
+    w_s = rng.uniform(0.001, 0.05, size=(n_s,)).astype(np.float32)
+    w_z = rng.uniform(-2, 2, size=(n_s,)).astype(np.float32)
+    b = rng.normal(size=(24,)).astype(np.float32)
+    recip = rng.uniform(0.5, 2.0, size=(64,)).astype(np.float32) if awq else None
+    jr, tr = (None, None) if recip is None else (jnp.asarray(recip), _t(recip))
+    want = np.asarray(jqm.quant_matmul_wo(jnp.asarray(x), jnp.asarray(w), jnp.asarray(w_s),
+                                          jnp.asarray(w_z), jnp.asarray(b), awq_recip=jr,
+                                          group_size=group))
+    before = launch_counts()
+    got = tqm.quant_matmul_wo(_t(x), _t(w), _t(w_s), _t(w_z), _t(b), awq_recip=tr,
+                              group_size=group)
+    assert launch_counts() == before
+    assert tuple(got.shape) == want.shape == (3, 5, 24)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        tqm._dequant_weight(_t(w), _t(w_s), _t(w_z), tr, group).numpy(),
+        np.asarray(jqm._dequant_weight(jnp.asarray(w), jnp.asarray(w_s), jnp.asarray(w_z), jr,
+                                       group)))
 
 
 # ---------------------------------------------------------------------------

@@ -158,40 +158,145 @@ def test_quant_conv2d_wo_matches_jax(kernel, strides, padding):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_quant_conv2d_wo_raises_for_awq_and_groups():
-    w = torch.zeros((1, 1, 4, 4), dtype=torch.int8)
-    for kw in ({"awq_recip": torch.ones(4)}, {"group_size": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tqconv.quant_conv2d_wo(torch.zeros(1, 2, 2, 4), w, torch.ones(4), torch.zeros(4), **kw)
+@pytest.mark.parametrize("awq,group", [(True, 0), (False, 9), (True, 9), (True, 54)])
+def test_quant_conv2d_wo_awq_and_group_layouts_match_jax(awq, group):
+    """The AWQ deploy layout (``awq_recip`` per in-channel folded into the
+    dequantized weight) and the ``q_group_size`` grid (N * K/g scales,
+    groups along the flattened (kh*kw*ci) axis of each out channel) give
+    JAX's conv: float32 convolutions summed in another order, rtol 1e-5 /
+    atol 1e-5."""
+    rng = np.random.default_rng(13 + group)
+    x = rng.normal(size=(2, 9, 10, 6)).astype(np.float32)
+    w = rng.integers(-8, 8, size=(3, 3, 6, 5)).astype(np.int8)
+    n_s = 5 * 54 // group if group else 5
+    w_s = rng.uniform(0.001, 0.02, size=(n_s,)).astype(np.float32)
+    w_z = rng.uniform(-2, 2, size=(n_s,)).astype(np.float32)
+    b = rng.normal(size=(5,)).astype(np.float32)
+    recip = rng.uniform(0.5, 2.0, size=(6,)).astype(np.float32) if awq else None
+    kw = dict(strides=(2, 2), padding="SAME", group_size=group)
+    want = np.asarray(jqconv.quant_conv2d_wo(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(w_s), jnp.asarray(w_z), jnp.asarray(b),
+        awq_recip=None if recip is None else jnp.asarray(recip), **kw))
+    got = tqconv.quant_conv2d_wo(_t(x), _t(w), _t(w_s), _t(w_z), _t(b),
+                                 awq_recip=None if recip is None else _t(recip), **kw)
+    assert tuple(got.shape) == want.shape == (2, 5, 5, 5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_awq_packed_conv_loaded_from_jax_raises():
-    """A W4 weight-only AWQ conv packed by the JAX package carries
-    ``packed/awq_recip``, which JAX folds into the dequantized weight. The
-    port does not: its packed conv must raise rather than run without it."""
+def _jax_awq_conv(x, weight, activation, bias_correct=None):
+    """A 3 x 3 AWQ conv (16 out channels, odd Ci 3: int8 storage) built and
+    calibrated in the JAX package: its variables after one calibrate step
+    and its deploy variables."""
     from quantize_tpu.nn.layers import LayerQuantCfg as JaxLayerQuantCfg
     from quantize_tpu.nn.layers import QuantConv as JaxQuantConv
-    from quantize_tpu_torch.nn.layers import LayerQuantCfg, QuantConv
 
-    weight = {"n_bits": 4, "symmetric": True, "signed": True, "granularity": "channel",
-              "range": {"name": "awq", "grid": 8}}
-    x = np.random.default_rng(7).normal(size=(2, 8, 8, 3)).astype(np.float32)  # odd Ci: w_int
-    jm = JaxQuantConv(features=16, kernel_size=(3, 3),
-                      quant=JaxLayerQuantCfg(weight=weight, activation={"n_bits": 32}))
+    jm = JaxQuantConv(features=16, kernel_size=(3, 3), quant=JaxLayerQuantCfg(
+        weight=weight, activation=activation, bias_correct=bias_correct))
     variables = dict(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), mode="calibrate"))
     variables.pop("taps", None)
     _, upd = jm.apply(variables, jnp.asarray(x), mode="calibrate", mutable=["qobs", "qparams"])
     variables.update(upd)
     _, upd = jm.apply(variables, jnp.asarray(x), mode="pack", mutable=["packed"])
-    deploy = jax.device_get({**variables, **upd})
-    assert {"awq_recip", "w_int"} <= set(deploy["packed"])
+    return jm, jax.device_get(variables), jax.device_get({**variables, **upd})
 
+
+@pytest.mark.parametrize("group", [0, 9])
+def test_awq_packed_conv_loaded_from_jax_matches_jax(group):
+    """A W4 weight-only AWQ conv packed by the JAX package carries
+    ``packed/awq_recip``, which both packages fold into the dequantized
+    weight: loaded into the port, its packed output is JAX's (rtol 1e-5 /
+    atol 1e-5, float32 convolutions), per out channel and per group."""
+    from quantize_tpu_torch.nn.layers import LayerQuantCfg, QuantConv
+
+    weight = {"n_bits": 4, "symmetric": True, "signed": True, "granularity": "channel",
+              "range": {"name": "awq", "grid": 8, "q_group_size": group or -1}}
+    x = np.random.default_rng(7).normal(size=(2, 8, 8, 3)).astype(np.float32)  # odd Ci: w_int
+    jm, _, deploy = _jax_awq_conv(x, weight, {"n_bits": 32})
+    assert {"awq_recip", "w_int"} <= set(deploy["packed"])
+    assert deploy["packed"]["w_scale"].shape == ((16 * 27 // group,) if group else (16,))
+    want = np.asarray(jm.apply(deploy, jnp.asarray(x), mode="packed"))
     tm = QuantConv(3, 16, kernel_size=(3, 3),
                    quant=LayerQuantCfg(weight=weight, activation={"n_bits": 32}), device="cpu")
     convert.from_jax_variables(tm, deploy)
-    assert tm.has_var("packed", "awq_recip")
-    with pytest.raises(NotImplementedError, match="the AWQ packed conv"):
-        tm(torch.from_numpy(x), mode="packed")
+    with torch.no_grad():
+        got = tm(_t(x), mode="packed").numpy()
+    assert got.shape == want.shape == (2, 8, 8, 16)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("layer", ["dense", "conv"])
+@pytest.mark.parametrize("group,act_bits", [(0, 32), (9, 32), (9, 8)])
+def test_awq_and_bias_correct_layers_calibrate_pack_and_serve_as_jax(layer, group, act_bits):
+    """An AWQ W4 layer (grid 8; ``q_group_size`` 9 or per out channel) with
+    bias correction, from JAX's initial parameters: one calibration step
+    gives JAX's observer state, scale/zero and awq_scale (rtol 1e-5: float32
+    sums in another order), quant mode JAX's output within one quant step
+    on at most 1% of the elements (tests/test_golden_layers.py's allowance),
+    and pack JAX's integer weight (on at most 1% of the elements, the same
+    flips), awq_recip, bias and scales; the packed forward on JAX's deploy
+    buffers is JAX's output (rtol 1e-5). With 8-bit activations the AWQ
+    layer still serves weight-only: the activation fake-quantized."""
+    from quantize_tpu.nn.layers import LayerQuantCfg as JaxLayerQuantCfg
+    from quantize_tpu.nn.layers import QuantDense as JaxQuantDense
+    from quantize_tpu_torch.nn.layers import LayerQuantCfg, QuantConv, QuantDense
+
+    weight = {"n_bits": 4, "symmetric": True, "signed": True, "granularity": "channel",
+              "range": {"name": "awq", "grid": 8, "q_group_size": group or -1}}
+    act = ({"n_bits": 32} if act_bits == 32 else
+           {"n_bits": 8, "symmetric": False, "granularity": "layer", "range": {"name": "minmax"}})
+    bc = {"momentum": 0.1}
+    rng = np.random.default_rng(group + act_bits)
+    if layer == "conv":
+        x = rng.normal(size=(2, 8, 8, 3)).astype(np.float32)
+        jm, variables, deploy = _jax_awq_conv(x, weight, act, bc)
+        tm = QuantConv(3, 16, kernel_size=(3, 3), quant=LayerQuantCfg(
+            weight=weight, activation=act, bias_correct=bc), device="cpu")
+    else:
+        x = rng.normal(size=(20, 18)).astype(np.float32)
+        jm = JaxQuantDense(features=16, quant=JaxLayerQuantCfg(weight=weight, activation=act,
+                                                               bias_correct=bc))
+        variables = dict(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), mode="calibrate"))
+        variables.pop("taps", None)
+        _, upd = jm.apply(variables, jnp.asarray(x), mode="calibrate", mutable=["qobs", "qparams"])
+        variables = jax.device_get({**variables, **upd})
+        _, upd = jm.apply(variables, jnp.asarray(x), mode="pack", mutable=["packed"])
+        deploy = jax.device_get({**variables, **upd})
+        tm = QuantDense(18, 16, quant=LayerQuantCfg(weight=weight, activation=act,
+                                                    bias_correct=bc), device="cpu")
+    # the state after JAX's init (its one calibrate pass), then one step each
+    j0 = jax.device_get(dict(jm.init(jax.random.PRNGKey(0), jnp.asarray(x), mode="calibrate")))
+    j0.pop("taps", None)
+    convert.from_jax_variables(tm, j0)
+    with torch.no_grad():
+        tm(_t(x), mode="calibrate")
+    mine = convert.to_numpy(tm)
+    for col in ("qparams", "qobs"):
+        m, t = convert.flatten(mine[col]), convert.flatten(variables[col])
+        assert set(m) == set(t), col
+        for key, val in t.items():
+            np.testing.assert_allclose(m[key], val, rtol=1e-5, atol=1e-7, err_msg=key)
+    assert "bias_correct_EX/EX" in convert.flatten(mine["qobs"])
+    convert.from_jax_variables(tm, variables)
+    step = float(np.max(variables["qparams"]["w_quantizer"]["scale"])) * float(np.abs(x).sum())
+    with torch.no_grad():
+        got = tm(_t(x), mode="quant").numpy()
+        want = np.asarray(jm.apply(variables, jnp.asarray(x), mode="quant"))
+        off = np.abs(got - want) > 1e-5 + 1e-5 * np.abs(want)
+        assert off.mean() <= 0.01 and np.abs(got - want).max() <= step
+        tm(_t(x), mode="pack")
+    m, t = convert.flatten(convert.to_numpy(tm)["packed"]), convert.flatten(deploy["packed"])
+    assert set(m) == set(t) and "awq_recip" in t
+    for key, val in t.items():
+        assert m[key].dtype == np.asarray(val).dtype, key
+        if key == "w_int":
+            assert np.mean(m[key] != val) <= 0.01
+        else:
+            np.testing.assert_allclose(m[key], val, rtol=1e-5, atol=1e-6, err_msg=key)
+    convert.from_jax_variables(tm, deploy)
+    with torch.no_grad():
+        got = tm(_t(x), mode="packed").numpy()
+    want = np.asarray(jm.apply(deploy, jnp.asarray(x), mode="packed"))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
 # ---------------------------------------------------------------------------
