@@ -28,6 +28,43 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    cluster of 8 CTAs; K = 40 on the mma.sync route), each on the route its
    shape selects, bit for bit, with its time beside its bound and the
    library call's.
+2a. ResNeXt-50 32x4d W8A8 (ResNet-50's model and quant sections: MinMax,
+   per-channel symmetric signed weights, per-tensor unsigned activations, BN
+   folded), 1000 classes, 224 x 224, from a torchvision-layout state dict
+   written from seed 50 (grouped conv2 weights (Co, Ci/G, 3, 3)): imported
+   (fp32 logits within 1e-4 of max|logits| of the state dict's NCHW forward,
+   BN unfolded), calibrated on 4 batches of 32, packed, then 4 requests of
+   256 with the fused residual tail, counted as in phase 2: K3g (the grouped
+   int8 conv) 16, K3 21, K2 16, K1 1 and KQ 54 per forward, also at bf16
+   carry; packed within 2e-2 of the quant simulation, bf16 carry within
+   5e-2; every K3g call of one recorded forward at each carry (16 each)
+   bit-equal to its plain version, the other kernels at each signature; the
+   forward timed beside the float32 forward (TF32 off), K3g's time a forward
+   beside its bound, plain version and the bf16 cuDNN grouped conv on the
+   dequantized tensors (the nearest library call), K3 and K2 at ResNeXt's
+   widths, and where the device time goes (``scripts/profile_torch_port.py``'s
+   trace).
+2b. K3g alone on random operands (``GROUPED_SHAPES``: the golden case's
+   groups 2 with Ci/G 4, ResNeXt-101 32x8d's and 64x4d's widths, group
+   widths 1, 2 and 3, asymmetric weights, stride 2 with JAX's asymmetric
+   SAME padding, bf16 output, a group wider than 64 channels, a 5 x 5
+   kernel), each bit for bit, with its time beside its bound and the library
+   call's; then ``GROUPED_REFUSED`` (3 x 3 taps over 1,024 channels a group)
+   raises ValueError by name before launch.
+2c. MobileNetV2 W8A8 (``mobile_stack_w8a8``'s quant section), 1000 classes,
+   224 x 224, random weights from seed 0, calibrated on 4 batches of 32 and
+   packed, then 4 requests of 256: K3 35 (the stem, 16 expand, 17 project
+   and the head 1 x 1 convs), K1 1 and KQ 36 per forward, also at bf16
+   carry, the 17 depthwise convs on the float path (the library's float32
+   conv, no kernel, as in JAX); packed within 2e-2 of the simulation, bf16
+   carry within 5e-2; every kernel at each signature bit for bit; timed as
+   above, with where its device time goes.
+2d. WideResNet-28-10 W8A8 (ResNet-50's quant section; the pre-activation
+   fold topology: bn2 folded into conv1, bn1 a live BatchNorm), 10 classes,
+   32 x 32, random weights from seed 0, then 4 requests of 256: K3 28 (the
+   stem, 24 block convs, 3 shortcuts), K1 1 and KQ 29 per forward; packed
+   within 2e-2 of the simulation; every kernel at each signature bit for
+   bit; timed beside the float32 forward.
 3. The PTQ runner through the CLI (``quantize_tpu_torch.cli.main``, in-process,
    on the card, into a temporary directory): ``RUNNER_CFG``, the CPU config
    as users run it (TestCNN, 32 x 32 synthetic images: 160 calibration
@@ -44,7 +81,10 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    head's activations, W8A8 packed) and of the bias-correction AWQ config
    (``AWQ_CFG``: MSE W8 weight-only, BiasCorrect on every layer, AWQ with
    ``q_group_size`` 128 on the head; its packed path launches no kernel, as
-   in JAX). Each reaches a test top-1 in [0, 100] and writes its
+   in JAX); then MobileNetV2 from such a checkpoint with the model and quant
+   sections of ``ptq_mbv2_w8only_in1k.yaml`` (8-bit MinMax weights, 32-bit
+   activations: weight-only; its convs on the library's float32 conv, as in
+   JAX, its classifier on K5). Each reaches a test top-1 in [0, 100] and writes its
    checkpoints, config and log; an imported model's fp32 logits on a test
    batch are within 1e-4 of max|logits| of an independent NCHW forward of
    the state dict with its BatchNorms unfolded, and a wrong
@@ -53,7 +93,7 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    packed on one padded train batch and serves the test split, counted as
    above (TestCNN: K3 2, K1 2, KQ 4 per forward; ResNet-50: K3 37, K2 16,
    K1 1, KQ 54, K2 and K1 on their wgmma routes; ResNet-18 W8A8: K3 20, K1
-   1, KQ 21; the AWQ run: none), its logits within 2e-2 of the quant-mode
+   1, KQ 21; the AWQ run: none; MobileNetV2 W8: K5 1), its logits within 2e-2 of the quant-mode
    logits, and every kernel call of one packed test batch bit-equal to its
    plain version (the 10-class head, N = 10, TestCNN's and ResNet-18's
    shapes are new). Printed with the card's name and power limit: the wall
@@ -173,6 +213,9 @@ KERNEL_INFO = {
                          "quantize_tpu/ops/pallas/qconv1x1.py:36 (_conv1x1_res_kernel)"),
     "qconv2d": ("quantize_tpu_torch/csrc/qconv2d.cu",
                 "quantize_tpu/ops/qconv.py:58 (quant_conv2d, XLA int8 conv)"),
+    "qconv2d_grouped": ("quantize_tpu_torch/csrc/qconv2d_grouped.cu",
+                        "quantize_tpu/ops/qconv.py:58 (quant_conv2d with groups > 1, XLA int8 "
+                        "conv with feature_group_count; row sums :107-119)"),
     "w4a8_gemm": ("quantize_tpu_torch/csrc/w4a8_gemm.cu",
                   "quantize_tpu/ops/pallas/qmatmul.py:228 (_w4a8_kernel)"),
     "layernorm": ("quantize_tpu_torch/csrc/layernorm.cu",
@@ -197,6 +240,34 @@ TESTCNN_PER_FWD = {"qconv2d": 2, "w8a8_gemm": 2, "quantize_act_int8": 4}
 # convs and 3 stride-2 1 x 1 downsample convs on K3, the head on K1, each
 # after its activation quantize (KQ); no 1 x 1 conv with a residual (no K2)
 RESNET18_PER_FWD = {"qconv2d": 20, "w8a8_gemm": 1, "quantize_act_int8": 21}
+# ResNeXt-50 32x4d W8A8, BN folded, fused residual tail: each bottleneck's
+# grouped 3 x 3 conv2 on K3g; the stem (space-to-depth), conv1 and the 4
+# downsamples on K3; conv3 + residual + ReLU on K2; the head on K1; an
+# activation quantize (KQ) before each
+RESNEXT_PER_FWD = {"qconv2d_grouped": 16, "qconv2d": 21, "conv1x1_residual": 16,
+                   "w8a8_gemm": 1, "quantize_act_int8": 54}
+# MobileNetV2 W8A8, BN folded: the stem, 16 expand, 17 project and the head
+# 1 x 1 convs on K3, the classifier on K1, KQ before each; the 17 depthwise
+# convs take the float path (fake quant, dequantized weight, a float32
+# library conv), as in JAX
+MOBILENET_PER_FWD = {"qconv2d": 35, "w8a8_gemm": 1, "quantize_act_int8": 36}
+# MobileNetV2 W8 weight-only: every conv on the library (quant_conv2d_wo,
+# as JAX), the classifier on K5
+MOBILENET_WO_PER_FWD = {"wo_gemm": 1}
+# WideResNet-28-10 W8A8 at 32 x 32: the stem, the 24 block convs and the 3
+# 1 x 1 shortcuts on K3 (the live bn1 BatchNorms between them), the head on
+# K1, KQ before each
+WRN_PER_FWD = {"qconv2d": 28, "w8a8_gemm": 1, "quantize_act_int8": 29}
+# the quant section of tests/golden/models.json's mobile_stack_w8a8 (8-bit
+# symmetric per-channel MinMax weights, 8-bit unsigned asymmetric per-tensor
+# MinMax activations, BN folded)
+CFG_MOBILE = {"default": {
+    "weight": {"n_bits": 8, "symmetric": True, "signed": True, "granularity": "channel",
+               "range": {"name": "minmax"}},
+    "activation": {"n_bits": 8, "symmetric": False, "signed": False, "granularity": "layer",
+                   "range": {"name": "minmax"}},
+    "bn_folding": True}}
+MBV2_W8_CFG = "configs/runners/ptq/minmax/ptq_mbv2_w8only_in1k.yaml"
 # the runner phase: the CPU config as users run it (TestCNN, 32 x 32), then
 # at 224 x 224 on synthetic images: the same config at ResNet-50's full width,
 # as ptq_rn50_w8a8_in1k_16shots.yaml sets its model and quant sections, from
@@ -217,9 +288,16 @@ RUNNER_RUNS = (("testcnn", "testcnn", None, False, TESTCNN_PER_FWD),
                ("resnet50@224", "resnet50", None, False, RESNET_PER_FWD),
                ("resnet50@224 from a torch checkpoint", "resnet50", None, True, RESNET_PER_FWD),
                ("resnet18@224 cross-entropy", "resnet18", CE_CFG, True, RESNET18_PER_FWD),
-               ("resnet18@224 bias-correct + AWQ", "resnet18", AWQ_CFG, True, {}))
-# torchvision ResNets: (blocks per stage, bottleneck)
-TORCHVISION_RESNETS = {"resnet18": ((2, 2, 2, 2), False), "resnet50": ((3, 4, 6, 3), True)}
+               ("resnet18@224 bias-correct + AWQ", "resnet18", AWQ_CFG, True, {}),
+               ("mobilenet_v2@224 W8 weight-only from a torch checkpoint", "mobilenet_v2",
+                MBV2_W8_CFG, True, MOBILENET_WO_PER_FWD))
+# torchvision ResNets: (blocks per stage, bottleneck, groups, width per group)
+TORCHVISION_RESNETS = {"resnet18": ((2, 2, 2, 2), False, 1, 64),
+                       "resnet50": ((3, 4, 6, 3), True, 1, 64),
+                       "resnext50_32x4d": ((3, 4, 6, 3), True, 32, 4)}
+# torchvision mobilenet_v2: (expand ratio, channels, repeats, stride)
+MOBILENET_V2_CFG = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+                    (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
 VIT_PER_FWD = {"w4a8_gemm": 37, "layernorm_quant_int8": 24, "mha_rows": 12, "layernorm": 1,
                "qconv2d": 1, "wo_gemm": 12, "quantize_act_int8": 14}
 VIT32_PER_FWD = {"wo_gemm": 73, "layernorm": 25, "mha_rows": 12}
@@ -269,6 +347,31 @@ SERVED_ROUTE = {"conv1x1_residual": "wgmma", "w4a8_gemm": "wgmma", "w8a8_gemm": 
                 "layernorm_quant_int8": "vector"}
 
 
+# (N, H, W, Ci, Co, G, k, stride, z_w == 0, out dtype) of the K3g phase
+# (tests/test_torch_grouped_route.py's GROUPED_SHAPES): the golden case's
+# shape (G 2, Ci/G 4), ResNeXt-101 32x8d's widths (Ci/G 8-64, batch 32) and
+# 64x4d's G = 64, group widths 1, 2 and 3, asymmetric weights (the row-sum
+# term), stride 2 with JAX's asymmetric SAME padding (even H), bf16 output,
+# more than 64 output channels a group (a group split across blocks), and a
+# 5 x 5 kernel
+GROUPED_SHAPES = ((2, 8, 8, 8, 12, 2, 3, 1, True, "float32"),
+                  (32, 56, 56, 256, 256, 32, 3, 1, True, "float32"),
+                  (32, 56, 56, 512, 512, 32, 3, 2, True, "bfloat16"),
+                  (32, 28, 28, 1024, 1024, 32, 3, 2, True, "float32"),
+                  (32, 7, 7, 2048, 2048, 32, 3, 1, True, "float32"),
+                  (32, 28, 28, 256, 256, 64, 3, 1, True, "float32"),
+                  (32, 14, 14, 2048, 2048, 64, 3, 1, True, "bfloat16"),
+                  (8, 28, 28, 96, 96, 96, 3, 1, False, "float32"),
+                  (8, 28, 28, 192, 192, 96, 3, 2, False, "float32"),
+                  (8, 29, 29, 288, 576, 96, 3, 2, False, "bfloat16"),
+                  (8, 16, 16, 64, 64, 4, 3, 1, False, "float32"),
+                  (8, 20, 20, 8, 260, 2, 3, 2, False, "float32"),
+                  (8, 22, 22, 20, 30, 5, 5, 2, False, "float32"))
+# a shape K3g refuses before launch (3 x 3 taps over 1,024 input channels a
+# group: its smallest tile needs more shared memory than a block has)
+GROUPED_REFUSED = (1, 4, 4, 2048, 64, 2, 3, 1, True, "float32")
+
+
 # (M, K, N, residual dtype, output dtype, relu, bias, route) of the K2 phase:
 # ragged M (147 = 3 x 49 rows), N = 1000, K = 48 (a multiple of 16, not of
 # 32), the wide tails' long K loops (WideResNet-50-2's last stage at batch
@@ -311,13 +414,16 @@ def _sig(args):
 class _Recording:
     """Stands in for a kernel wrapper: records the call, then calls it. The
     wrapper counts its launches on its module-level name, so ``launches``
-    reads and writes the wrapper's own counter."""
+    reads and writes the wrapper's own counter. With ``every`` each call is
+    kept (keyed by its signature and its index), else the first call of each
+    signature with the count of its calls."""
 
-    def __init__(self, orig, calls):
-        self.orig, self.calls = orig, calls
+    def __init__(self, orig, calls, every=False):
+        self.orig, self.calls, self.every = orig, calls, every
 
     def __call__(self, *args):
-        entry = self.calls.setdefault(_sig(args), [args, 0])
+        key = (_sig(args), len(self.calls)) if self.every else _sig(args)
+        entry = self.calls.setdefault(key, [args, 0])
         entry[1] += 1
         return self.orig(*args)
 
@@ -336,9 +442,11 @@ class _Recording:
 class Recorder:
     """Swaps the module-level kernel wrappers the port calls (under every
     name a module imported them) for recorders that keep the first call of
-    each distinct signature and count calls."""
+    each distinct signature and count calls; the kernels named in ``every``
+    keep every call."""
 
-    def __init__(self):
+    def __init__(self, every=()):
+        self.every = every
         import quantize_tpu_torch.nn.layers as layers
         import quantize_tpu_torch.ops.attention as attention
         import quantize_tpu_torch.ops.layernorm as layernorm
@@ -349,6 +457,7 @@ class Recorder:
         self.sites = {"w8a8_gemm": [(qmatmul, "w8a8_gemm")],
                       "conv1x1_residual": [(qconv1x1, "conv1x1_residual_gemm")],
                       "qconv2d": [(qconv, "qconv2d_int8")],
+                      "qconv2d_grouped": [(qconv, "qconv2d_grouped_int8")],
                       "w4a8_gemm": [(qmatmul, "w4a8_gemm")],
                       "layernorm": [(layernorm, "layernorm_rows")],
                       "layernorm_quant_int8": [(layernorm, "layernorm_quant_int8_rows")],
@@ -366,7 +475,7 @@ class Recorder:
             for mod, attr in sites:
                 orig = getattr(mod, attr)
                 self.saved.append((mod, attr, orig))
-                setattr(mod, attr, _Recording(orig, self.calls[name]))
+                setattr(mod, attr, _Recording(orig, self.calls[name], name in self.every))
         return self
 
     def __exit__(self, *exc):
@@ -424,7 +533,10 @@ def work(name: str, args) -> tuple:
         n = w.shape[1]
         return (2 * m * n * k, PEAK_INT8_OPS,
                 sum(map(_nbytes, (q, w, cs, ws, bias, res))) + m * n * _itemsize(out_dtype))
-    if name == "qconv2d":
+    if name in ("qconv2d", "qconv2d_grouped"):
+        # K3g's products run over each group's own channels (w's Ci/G), at
+        # the int8 peak of the table (the tensor cores'; K3g sums on the CUDA
+        # cores)
         q, _, _, w, ws, wz, bias, strides, pads, corr, _, out_dtype = args[:12]
         n_img = q.shape[0]
         kh, kw, ci, co = w.shape
@@ -476,7 +588,8 @@ def library_call(name: str, args):
     """One PyTorch call computing the same function, as the yardstick (never
     called by the port): torch._int_mm plus the epilogue in torch ops (K1,
     K2; K4 on the unpacked weight); a bf16 cuDNN conv on the dequantized
-    tensors (K3, the nearest call: torch has no CUDA int8 convolution);
+    tensors (K3, and grouped for K3g, the nearest call: torch has no CUDA
+    int8 convolution);
     F.layer_norm (K6; plus the quantize ops for K7, no single call does
     both); bf16 ``torch.mm`` with a float32 result on the dequantized weight
     plus the bias (K5; both operands cast to bf16 beforehand);
@@ -518,15 +631,16 @@ def library_call(name: str, args):
         _, _, _, _, cs, ws, bias, res, relu, out_dtype = args[:10]
         return lambda: torch.relu((a_s * ws) * (torch._int_mm(q, w).float() + z * cs)
                                   + bias + res.float()).to(out_dtype)
-    if name == "qconv2d":
+    if name in ("qconv2d", "qconv2d_grouped"):
         q, z, a_s, w, ws, wz, bias, strides, pads, corr, _, out_dtype = args[:12]
+        groups = args[12] if name == "qconv2d_grouped" else 1
         (pt, pb), (pl, pr) = pads
         x = F.pad(((q.float() + z) * a_s).permute(0, 3, 1, 2), (pl, pr, pt, pb))
         x = x.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         wd = ((w.float() + wz) * ws).permute(3, 2, 0, 1).to(torch.bfloat16)
         wd = wd.contiguous(memory_format=torch.channels_last)
         b16 = bias.to(torch.bfloat16)
-        return lambda: F.conv2d(x, wd, b16, stride=tuple(strides))
+        return lambda: F.conv2d(x, wd, b16, stride=tuple(strides), groups=groups)
     if name == "layernorm":
         x, g, b, eps, out_dtype = args
         gx, bx = g.to(x.dtype), b.to(x.dtype)
@@ -579,13 +693,14 @@ def int_mm_ms(args) -> float:
 def plain_fn(name: str):
     from quantize_tpu_torch.ops.attention import mha_rows_int8_plain, mha_rows_plain
     from quantize_tpu_torch.ops.layernorm import layernorm_plain, layernorm_quant_int8_plain
-    from quantize_tpu_torch.ops.qconv import qconv2d_int8_plain
+    from quantize_tpu_torch.ops.qconv import qconv2d_grouped_int8_plain, qconv2d_int8_plain
     from quantize_tpu_torch.ops.qconv1x1 import conv1x1_residual_plain
     from quantize_tpu_torch.ops.qmatmul import (quantize_act_int8_plain, w4a8_gemm_plain,
                                                  w8a8_gemm_plain, wo_gemm_plain)
 
     return {"w8a8_gemm": w8a8_gemm_plain, "conv1x1_residual": conv1x1_residual_plain,
-            "qconv2d": qconv2d_int8_plain, "w4a8_gemm": w4a8_gemm_plain,
+            "qconv2d": qconv2d_int8_plain, "qconv2d_grouped": qconv2d_grouped_int8_plain,
+            "w4a8_gemm": w4a8_gemm_plain,
             "layernorm": layernorm_plain, "layernorm_quant_int8": layernorm_quant_int8_plain,
             "mha_rows": mha_rows_plain, "wo_gemm": wo_gemm_plain,
             "mha_rows_int8": mha_rows_int8_plain,
@@ -666,7 +781,7 @@ def compare(name: str, args) -> float:
               and bool((groups <= 2.05 * sv[:, None, :] * (1 + 2.0 ** -7)).all()),
               f"{name}: kernel disagrees with its plain version beyond ex8 flips")
         return err
-    if name in ("w8a8_gemm", "w4a8_gemm", "qconv2d", "conv1x1_residual"):
+    if name in ("w8a8_gemm", "w4a8_gemm", "qconv2d", "qconv2d_grouped", "conv1x1_residual"):
         ok = bool(torch.equal(got, want))
     elif got.dtype == torch.bfloat16:
         ok = _ulps_bf16(g, w) <= (2 if name == "mha_rows" else 1)
@@ -678,9 +793,10 @@ def compare(name: str, args) -> float:
 
 
 def describe(name: str, args) -> str:
-    if name == "qconv2d":
+    if name in ("qconv2d", "qconv2d_grouped"):
         q, w, strides = args[0], args[3], args[7]
-        return (f"x{tuple(q.shape)} w{tuple(w.shape)} s{tuple(strides)} "
+        groups = f" G={args[12]}" if name == "qconv2d_grouped" else ""
+        return (f"x{tuple(q.shape)} w{tuple(w.shape)}{groups} s{tuple(strides)} "
                 f"out={str(args[11]).replace('torch.', '')}")
     if name in ("layernorm", "layernorm_quant_int8"):
         return f"x{tuple(args[0].shape)} {str(args[0].dtype).replace('torch.', '')}"
@@ -886,10 +1002,11 @@ def resnet_phase(qtt, batch, card) -> tuple:
 
 
 def torchvision_state_dict(arch: str, num_classes: int, seed: int) -> dict:
-    """A torchvision-layout ResNet ``state_dict`` from a seeded
-    ``torch.Generator`` (on the host): He-normal convs, BatchNorms with
-    gamma ~ 1 + 0.1 N(0, 1), beta and running_mean ~ 0.1 N(0, 1),
-    running_var in [0.5, 1.5] and ``num_batches_tracked``, a linear head."""
+    """A torchvision-layout ResNet, ResNeXt or ``mobilenet_v2`` ``state_dict``
+    from a seeded ``torch.Generator`` (on the host): He-normal convs (of
+    ``(Co, Ci/G, k, k)`` where grouped), BatchNorms with gamma ~ 1 + 0.1 N(0,
+    1), beta and running_mean ~ 0.1 N(0, 1), running_var in [0.5, 1.5] and
+    ``num_batches_tracked``, a linear head."""
     import math
 
     import torch
@@ -907,17 +1024,43 @@ def torchvision_state_dict(arch: str, num_classes: int, seed: int) -> dict:
         sd[f"{key}.running_var"] = 0.5 + torch.rand(c, generator=g)
         sd[f"{key}.num_batches_tracked"] = torch.tensor(1000)
 
-    blocks, bottleneck = TORCHVISION_RESNETS[arch]
+    def head(key, in_ch):
+        sd[f"{key}.weight"] = torch.randn((num_classes, in_ch), generator=g) / math.sqrt(in_ch)
+        sd[f"{key}.bias"] = 0.01 * torch.randn(num_classes, generator=g)
+
+    if arch == "mobilenet_v2":
+        conv("features.0.0", 32, 3, 3)
+        bn("features.0.1", 32)
+        in_ch, i = 32, 1
+        for t, c, n, _ in MOBILENET_V2_CFG:
+            for _ in range(n):
+                p, hidden, j = f"features.{i}.conv", in_ch * t, 0
+                if t != 1:
+                    conv(f"{p}.0.0", hidden, in_ch, 1)
+                    bn(f"{p}.0.1", hidden)
+                    j = 1
+                conv(f"{p}.{j}.0", hidden, 1, 3)  # depthwise
+                bn(f"{p}.{j}.1", hidden)
+                conv(f"{p}.{j + 1}", c, hidden, 1)
+                bn(f"{p}.{j + 2}", c)
+                in_ch, i = c, i + 1
+        conv(f"features.{i}.0", 1280, in_ch, 1)
+        bn(f"features.{i}.1", 1280)
+        head("classifier.1", 1280)
+        return sd
+
+    blocks, bottleneck, groups, width_per_group = TORCHVISION_RESNETS[arch]
     conv("conv1", 64, 3, 7)
     bn("bn1", 64)
     in_ch = 64
     for stage, n_blocks in enumerate(blocks):
         planes = 64 * 2 ** stage
+        width = planes * width_per_group // 64 * groups
         out_ch = planes * (4 if bottleneck else 1)
         for b in range(n_blocks):
             p = f"layer{stage + 1}.{b}"
-            convs = ([(planes, in_ch, 1), (planes, planes, 3), (out_ch, planes, 1)] if bottleneck
-                     else [(planes, in_ch, 3), (planes, planes, 3)])
+            convs = ([(width, in_ch, 1), (width, width // groups, 3), (out_ch, width, 1)]
+                     if bottleneck else [(planes, in_ch, 3), (planes, planes, 3)])
             for i, (co, ci, k) in enumerate(convs, 1):
                 conv(f"{p}.conv{i}", co, ci, k)
                 bn(f"{p}.bn{i}", co)
@@ -925,38 +1068,56 @@ def torchvision_state_dict(arch: str, num_classes: int, seed: int) -> dict:
                 conv(f"{p}.downsample.0", out_ch, in_ch, 1)
                 bn(f"{p}.downsample.1", out_ch)
             in_ch = out_ch
-    sd["fc.weight"] = torch.randn((num_classes, in_ch), generator=g) / math.sqrt(in_ch)
-    sd["fc.bias"] = 0.01 * torch.randn(num_classes, generator=g)
+    head("fc", in_ch)
     return sd
 
 
 def torchvision_forward(sd: dict, arch: str, x_nchw):
-    """An independent float32 forward of a torchvision ResNet state dict in
-    NCHW, BatchNorms unfolded (eval mode), as torchvision computes it."""
+    """An independent float32 forward of a torchvision ResNet, ResNeXt or
+    ``mobilenet_v2`` state dict in NCHW, BatchNorms unfolded (eval mode), as
+    torchvision computes it."""
     import torch
     import torch.nn.functional as F
 
-    def conv_bn(x, conv, bn, stride, relu=True):
+    def conv_bn(x, conv, bn, stride, act="relu", groups=1):
         w = sd[f"{conv}.weight"]
-        y = F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2)
+        y = F.conv2d(x, w, stride=stride, padding=w.shape[-1] // 2, groups=groups)
         y = F.batch_norm(y, sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"],
                          sd[f"{bn}.weight"], sd[f"{bn}.bias"], training=False, eps=1e-5)
-        return torch.relu(y) if relu else y
+        return {"relu": torch.relu, "relu6": lambda v: torch.clamp(v, 0.0, 6.0),
+                None: lambda v: v}[act](y)
 
-    blocks, bottleneck = TORCHVISION_RESNETS[arch]
+    if arch == "mobilenet_v2":
+        x = conv_bn(x_nchw, "features.0.0", "features.0.1", 2, "relu6")
+        i = 1
+        for t, c, n, s in MOBILENET_V2_CFG:
+            for r in range(n):
+                p, out, j, stride = f"features.{i}.conv", x, 0, s if r == 0 else 1
+                if t != 1:
+                    out = conv_bn(out, f"{p}.0.0", f"{p}.0.1", 1, "relu6")
+                    j = 1
+                out = conv_bn(out, f"{p}.{j}.0", f"{p}.{j}.1", stride, "relu6",
+                              groups=out.shape[1])
+                out = conv_bn(out, f"{p}.{j + 1}", f"{p}.{j + 2}", 1, None)
+                x = x + out if stride == 1 and out.shape == x.shape else out
+                i += 1
+        x = conv_bn(x, f"features.{i}.0", f"features.{i}.1", 1, "relu6")
+        return F.linear(x.mean(dim=(2, 3)), sd["classifier.1.weight"], sd["classifier.1.bias"])
+
+    blocks, bottleneck, groups, _ = TORCHVISION_RESNETS[arch]
     x = F.max_pool2d(conv_bn(x_nchw, "conv1", "bn1", 2), 3, 2, 1)
     for stage, n_blocks in enumerate(blocks):
         for b in range(n_blocks):
             p, stride = f"layer{stage + 1}.{b}", 2 if stage > 0 and b == 0 else 1
             if bottleneck:
                 out = conv_bn(x, f"{p}.conv1", f"{p}.bn1", 1)
-                out = conv_bn(out, f"{p}.conv2", f"{p}.bn2", stride)
-                out = conv_bn(out, f"{p}.conv3", f"{p}.bn3", 1, relu=False)
+                out = conv_bn(out, f"{p}.conv2", f"{p}.bn2", stride, groups=groups)
+                out = conv_bn(out, f"{p}.conv3", f"{p}.bn3", 1, None)
             else:
                 out = conv_bn(x, f"{p}.conv1", f"{p}.bn1", stride)
-                out = conv_bn(out, f"{p}.conv2", f"{p}.bn2", 1, relu=False)
+                out = conv_bn(out, f"{p}.conv2", f"{p}.bn2", 1, None)
             if f"{p}.downsample.0.weight" in sd:
-                x = conv_bn(x, f"{p}.downsample.0", f"{p}.downsample.1", stride, relu=False)
+                x = conv_bn(x, f"{p}.downsample.0", f"{p}.downsample.1", stride, None)
             x = torch.relu(out + x)
     return F.linear(x.mean(dim=(2, 3)), sd["fc.weight"], sd["fc.bias"])
 
@@ -1139,13 +1300,13 @@ def runner_run(qtt, card, dev, label: str, model_name: str, source, ckpt, per_fw
         torch.cuda.empty_cache()
 
 
-def build_packed(qtt, batch, name: str, cfg: dict, label: str):
-    """``name`` with 1000 classes built from ``cfg``, random weights from
-    seed 0, calibrated on 4 batches of 32 and packed."""
+def build_packed(qtt, batch, name: str, cfg: dict, label: str, classes: int = 1000):
+    """``name`` with ``classes`` classes built from ``cfg``, random weights
+    from seed 0, calibrated on 4 batches of 32 and packed."""
     import torch
 
     t0 = time.time()
-    model = qtt.MODELS.build(name, num_classes=1000, ctx=qtt.QuantCtx(cfg))
+    model = qtt.MODELS.build(name, num_classes=classes, ctx=qtt.QuantCtx(cfg))
     sample = batch(32)
     qtt.init_model(model, sample, seed=0)
     qtt.calibrate_model(model, [batch(32) for _ in range(4)])
@@ -1153,6 +1314,240 @@ def build_packed(qtt, batch, name: str, cfg: dict, label: str):
     torch.cuda.synchronize()
     log(f"{label} set-up (init, calibrate 4x32, pack) {time.time() - t0:.1f} s")
     return model
+
+
+def where_it_goes(model, x, title: str) -> None:
+    """The device time of packed forwards of ``x`` by kernel and group
+    (``scripts/profile_torch_port.py``'s trace of 3 forwards)."""
+    from scripts.profile_torch_port import profile_calls
+
+    profile_calls(lambda: model(x, mode="packed"), title)
+
+
+def by_signature(calls: dict) -> dict:
+    """A recording that kept every call, regrouped as first call and count
+    per signature (what ``kernel_entries`` times)."""
+    out = {}
+    for (sig, _), (args, n) in calls.items():
+        out.setdefault(sig, [args, 0])[1] += n
+    return out
+
+
+def resnext_phase(qtt, batch, card, dev) -> list:
+    """ResNeXt-50 32x4d W8A8 (module docstring, phase 2a): imported from a
+    torchvision-layout state dict, calibrated, packed and served; every K3g
+    call of one recorded forward at each carry against its plain version."""
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.time()
+    sd = torchvision_state_dict("resnext50_32x4d", 1000, seed=50)
+    model = qtt.MODELS.build("resnext50_32x4d", num_classes=1000, ctx=qtt.QuantCtx(CFG))
+    sample = batch(32)
+    qtt.init_model(model, sample, torch_state_dict=sd, model_name="resnext50_32x4d")
+    with torch.inference_mode():
+        fp = model(sample, mode="fp32")
+        ref = torchvision_forward({k: v.to(dev) for k, v in sd.items()}, "resnext50_32x4d",
+                                  sample.permute(0, 3, 1, 2).contiguous())
+    r_imp = rel(fp, ref)
+    log(f"resnext50_32x4d: fp32 logits of the imported model vs the NCHW forward of the state "
+        f"dict (BN unfolded) {r_imp:.3e} of max|logits| (<= 1e-4)")
+    check(r_imp <= 1e-4, "resnext50_32x4d: the imported model's fp32 logits disagree")
+    qtt.calibrate_model(model, [batch(32) for _ in range(4)])
+    qtt.pack_model(model, sample)
+    torch.cuda.synchronize()
+    log(f"resnext50_32x4d set-up (import, calibrate 4x32, pack) {time.time() - t0:.1f} s")
+
+    requests = [batch(256) for _ in range(4)]
+    with torch.inference_mode(), qtt.fused_residual(True):
+        outs, counts = serve(model, requests, RESNEXT_PER_FWD, "resnext50_32x4d")
+        for name in ("conv1x1_residual", "w8a8_gemm"):
+            check_routes(name, counts[name], "resnext50_32x4d")
+        x0, packed = requests[0], outs[0]
+        sim = model(x0, mode="quant")
+        reset_launch_counts()
+        with qtt.packed_carry(torch.bfloat16):
+            packed_bf16 = model(x0, mode="packed")
+        torch.cuda.synchronize()
+        check(launch_counts() == {**{k: 0 for k in launch_counts()}, **RESNEXT_PER_FWD},
+              f"resnext50_32x4d bf16 carry: launches {launch_counts()}")
+        r_sim, r_bf16 = rel(packed, sim), rel(packed_bf16, packed)
+        log(f"resnext50_32x4d agreement (relative to max|logits|): packed vs quant-sim "
+            f"{r_sim:.3e} (<= 2e-2), bf16 carry vs f32 {r_bf16:.3e} (<= 5e-2); argmax agreement "
+            f"packed vs quant-sim {float((packed.argmax(-1) == sim.argmax(-1)).float().mean()):.4f}")
+        check(r_sim <= 2e-2 and r_bf16 <= 5e-2, "resnext50_32x4d agreement failed")
+        del sim, packed_bf16
+
+        # every K3g call of one forward at each carry (16 each), the other
+        # kernels at each signature
+        records = []
+        for carry in (torch.float32, torch.bfloat16):
+            with qtt.packed_carry(carry), Recorder(every=("qconv2d_grouped",)) as rec:
+                model(requests[1], mode="packed")
+            check(len(rec.calls["qconv2d_grouped"]) == RESNEXT_PER_FWD["qconv2d_grouped"],
+                  f"resnext50_32x4d: {len(rec.calls['qconv2d_grouped'])} K3g calls recorded")
+            records.append(rec.calls)
+        max_err = {}
+        n = check_kernels(records, tuple(RESNEXT_PER_FWD), max_err)
+        log(f"resnext50_32x4d kernels: {n} kernel-vs-plain comparisons passed (every K3g call, "
+            f"16 a forward at each carry, bit-equal); max abs err {max_err}")
+
+        times = {}
+        for label, carry in (("packed f32 carry", torch.float32),
+                             ("packed bf16 carry", torch.bfloat16)):
+            with qtt.packed_carry(carry):
+                times[label] = cuda_ms(lambda: model(requests[2], mode="packed"))
+        times["fp32 forward (yardstick)"] = cuda_ms(lambda: model(requests[2], mode="fp32"))
+        for label, ms in times.items():
+            log(f"time: resnext50_32x4d {label}: {ms:.3f} ms per batch of 256, "
+                f"{256e3 / ms:.1f} img/s [{card}]")
+        entries = kernel_entries({"qconv2d_grouped": by_signature(records[0]["qconv2d_grouped"])},
+                                 counts, max_err, ("qconv2d_grouped",))
+        # K3 and K2 at ResNeXt's widths, outside the JSON
+        kernel_entries(records[0], counts, max_err, ("qconv2d", "conv1x1_residual"),
+                       "resnext50_32x4d")
+        where_it_goes(model, requests[2], f"resnext50_32x4d packed, batch 256, f32 carry [{card}]")
+    del model, requests, outs, records
+    torch.cuda.empty_cache()
+    return entries
+
+
+def mobilenet_phase(qtt, batch, card) -> None:
+    """MobileNetV2 W8A8 (module docstring, phase 2c): random weights, served
+    at 224; its depthwise convs take the float path (no kernel)."""
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    model = build_packed(qtt, batch, "mobilenet_v2", CFG_MOBILE, "mobilenet_v2 W8A8")
+    requests = [batch(256) for _ in range(4)]
+    with torch.inference_mode():
+        outs, counts = serve(model, requests, MOBILENET_PER_FWD, "mobilenet_v2")
+        check_routes("w8a8_gemm", counts["w8a8_gemm"], "mobilenet_v2")
+        x0, packed = requests[0], outs[0]
+        sim = model(x0, mode="quant")
+        reset_launch_counts()
+        with qtt.packed_carry(torch.bfloat16):
+            packed_bf16 = model(x0, mode="packed")
+        torch.cuda.synchronize()
+        check(launch_counts() == {**{k: 0 for k in launch_counts()}, **MOBILENET_PER_FWD},
+              f"mobilenet_v2 bf16 carry: launches {launch_counts()}")
+        r_sim, r_bf16 = rel(packed, sim), rel(packed_bf16, packed)
+        log(f"mobilenet_v2 agreement (relative to max|logits|): packed vs quant-sim {r_sim:.3e} "
+            f"(<= 2e-2), bf16 carry vs f32 {r_bf16:.3e} (<= 5e-2); argmax agreement packed vs "
+            f"quant-sim {float((packed.argmax(-1) == sim.argmax(-1)).float().mean()):.4f}")
+        check(r_sim <= 2e-2 and r_bf16 <= 5e-2, "mobilenet_v2 agreement failed")
+        del sim, packed_bf16
+        records = []
+        for carry in (torch.float32, torch.bfloat16):
+            with qtt.packed_carry(carry), Recorder() as rec:
+                model(requests[1], mode="packed")
+            records.append(rec.calls)
+        max_err = {}
+        n = check_kernels(records, tuple(MOBILENET_PER_FWD), max_err)
+        log(f"mobilenet_v2 kernels: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
+        times = {}
+        for label, carry in (("packed f32 carry", torch.float32),
+                             ("packed bf16 carry", torch.bfloat16)):
+            with qtt.packed_carry(carry):
+                times[label] = cuda_ms(lambda: model(requests[2], mode="packed"))
+        times["fp32 forward (yardstick)"] = cuda_ms(lambda: model(requests[2], mode="fp32"))
+        for label, ms in times.items():
+            log(f"time: mobilenet_v2 {label}: {ms:.3f} ms per batch of 256, {256e3 / ms:.1f} img/s "
+                f"[{card}]")
+        kernel_entries(records[0], counts, max_err, ("qconv2d", "quantize_act_int8"),
+                       "mobilenet_v2")
+        where_it_goes(model, requests[2], f"mobilenet_v2 packed, batch 256, f32 carry [{card}]")
+    del model, requests, outs, records
+    torch.cuda.empty_cache()
+
+
+def wrn_phase(qtt, card, dev) -> None:
+    """WideResNet-28-10 W8A8 at 32 x 32 (module docstring, phase 2d)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(28)
+
+    def batch(n):
+        return torch.randn((n, 32, 32, 3), generator=gen, device=dev)
+
+    model = build_packed(qtt, batch, "wideresnet28", CFG, "wideresnet28 W8A8", classes=10)
+    requests = [batch(256) for _ in range(4)]
+    with torch.inference_mode():
+        outs, counts = serve(model, requests, WRN_PER_FWD, "wideresnet28", classes=10)
+        x0, packed = requests[0], outs[0]
+        sim = model(x0, mode="quant")
+        r_sim = rel(packed, sim)
+        log(f"wideresnet28 agreement (relative to max|logits|): packed vs quant-sim {r_sim:.3e} "
+            f"(<= 2e-2); argmax agreement "
+            f"{float((packed.argmax(-1) == sim.argmax(-1)).float().mean()):.4f}")
+        check(r_sim <= 2e-2, "wideresnet28 agreement failed")
+        with Recorder() as rec:
+            model(requests[1], mode="packed")
+        max_err = {}
+        n = check_kernels([rec.calls], tuple(WRN_PER_FWD), max_err)
+        log(f"wideresnet28 kernels: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
+        times = {"packed f32 carry": cuda_ms(lambda: model(requests[2], mode="packed")),
+                 "fp32 forward (yardstick)": cuda_ms(lambda: model(requests[2], mode="fp32"))}
+        for label, ms in times.items():
+            log(f"time: wideresnet28 {label}: {ms:.3f} ms per batch of 256, {256e3 / ms:.1f} img/s "
+                f"[{card}]")
+        kernel_entries(rec.calls, counts, max_err, ("qconv2d",), "wideresnet28")
+    del model, requests, outs, rec
+    torch.cuda.empty_cache()
+
+
+def grouped_args(shape, dev, gen):
+    """K3g's arguments on random operands at ``shape`` (``GROUPED_SHAPES``)."""
+    import torch
+    from quantize_tpu_torch.ops.qconv import (conv_zero_correction_map, grouped_weight,
+                                              resolve_padding)
+
+    n, h, w, ci, co, g, k, s, wz0, dt = shape
+    q = torch.randint(-128, 128, (n, h, w, ci), generator=gen, device=dev, dtype=torch.int8)
+    w_int = torch.randint(-127, 128, (k, k, ci // g, co), generator=gen, device=dev,
+                          dtype=torch.int8)
+    pads = resolve_padding("SAME", k, k, h, w, (s, s))
+    w_zero = torch.zeros(co, device=dev) if wz0 else torch.randn(co, generator=gen, device=dev)
+    return (q, torch.tensor(131.0, device=dev), torch.tensor(0.0123, device=dev), w_int,
+            torch.rand(co, generator=gen, device=dev) * 0.01, w_zero,
+            torch.randn(co, generator=gen, device=dev), (s, s), pads,
+            conv_zero_correction_map(w_int, h, w, (s, s), pads), wz0, getattr(torch, dt), g,
+            grouped_weight(w_int, g))
+
+
+def grouped_phase(dev, card) -> int:
+    """K3g on random operands at the shapes no model above gives it
+    (``GROUPED_SHAPES``, module docstring, phase 2b), bit for bit against the plain version, with its
+    time beside its bound and the library call's; then a shape it refuses
+    (``GROUPED_REFUSED``) raises ValueError by name before launch."""
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+    from quantize_tpu_torch.ops.qconv import qconv2d_grouped_int8
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for shape in GROUPED_SHAPES:
+        args = grouped_args(shape, dev, gen)
+        compare("qconv2d_grouped", args)
+        ops, peak, nbytes = work("qconv2d_grouped", args)
+        b_ms, b_by = bound_ms(ops, peak, nbytes)
+        k_ms = cuda_ms(lambda: qconv2d_grouped_int8(*args), reps=5, inner=10)
+        lib = library_call("qconv2d_grouped", args)
+        l_ms = cuda_ms(lib, reps=5, inner=5)
+        log(f"kernel qconv2d_grouped {describe('qconv2d_grouped', args)} z_w "
+            f"{'= 0' if shape[8] else '!= 0'}: bit-equal, {k_ms:.4f} ms (bound {b_ms:.4f} ms by "
+            f"{b_by}, {b_ms / k_ms:.1%} of it), library {l_ms:.4f} ms [{card}]")
+    args = grouped_args(GROUPED_REFUSED, dev, gen)
+    reset_launch_counts()
+    try:
+        qconv2d_grouped_int8(*args)
+    except ValueError as exc:
+        check("qconv2d_grouped_int8" in str(exc) and launch_counts()["qconv2d_grouped"] == 0,
+              f"qconv2d_grouped: the refusal of {GROUPED_REFUSED} raised {exc}")
+        log(f"qconv2d_grouped at {GROUPED_REFUSED}: refused before launch ({exc})")
+    else:
+        raise Failure(f"qconv2d_grouped at {GROUPED_REFUSED}: launched, expected a refusal")
+    torch.cuda.empty_cache()
+    return len(GROUPED_SHAPES) + 1
 
 
 def vit_phase(qtt, batch, card) -> tuple:
@@ -1551,6 +1946,19 @@ def main() -> int:
     n = w8a8_phase(dev, card)
     log(f"w8a8 phase: {n} kernel-vs-plain comparisons passed, {time.time() - t0:.1f} s")
     t0 = time.time()
+    entries += resnext_phase(qtt, batch, card, dev)
+    log(f"resnext50_32x4d phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    n = grouped_phase(dev, card)
+    log(f"grouped phase: {n} kernel-vs-plain comparisons and refusals passed, "
+        f"{time.time() - t0:.1f} s")
+    t0 = time.time()
+    mobilenet_phase(qtt, batch, card)
+    log(f"mobilenet_v2 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    wrn_phase(qtt, card, dev)
+    log(f"wideresnet28 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
     runner_phase(qtt, card, dev)
     log(f"runner phase {time.time() - t0:.1f} s")
     t0 = time.time()
@@ -1567,7 +1975,8 @@ def main() -> int:
     long_attention_phase(qtt, card, dev)
     log(f"long attention phase {time.time() - t0:.1f} s")
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
-        "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, "
+        "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
+        "ResNeXt-50's, "
         "K5 ViT-B/32's; "
         "launches are each model's 4 served requests, K9's the one int8-scores request)")
     print(json.dumps({"kernels": entries}), flush=True)

@@ -17,7 +17,7 @@ import torch
 
 from .nn.variables import collections
 
-_W_KEYS = ("w_int", "w_p4")
+_W_KEYS = ("w_int", "w_p4", "w_p4c")
 
 
 def _to_device(x, device) -> torch.Tensor:
@@ -36,9 +36,13 @@ def pack_model(model: torch.nn.Module, sample_x, device="cuda") -> Dict[str, Dic
         model(_to_device(sample_x, device), mode="pack")
     cols = collections(model)
     packed = cols.get("packed", {})
-    packed_layers = {k.rsplit("/", 1)[0] for k in packed if k.rsplit("/", 1)[1] in _W_KEYS}
+    # a packed layer's float kernel and bias go, as in JAX's deploy pytree;
+    # a model that is one layer (its variables at the root) keeps them
+    packed_layers = {k.rsplit("/", 1)[0] for k in packed
+                     if "/" in k and k.rsplit("/", 1)[1] in _W_KEYS}
     params = {k: v for k, v in cols.get("params", {}).items()
-              if not (k.rsplit("/", 1)[0] in packed_layers and k.rsplit("/", 1)[1] in ("kernel", "bias"))}
+              if not ("/" in k and k.rsplit("/", 1)[0] in packed_layers
+                      and k.rsplit("/", 1)[1] in ("kernel", "bias"))}
     deploy = {"packed": packed, "params": params}
     for col, val in cols.items():
         if col not in ("params", "packed", "qobs"):

@@ -1,5 +1,5 @@
-"""Model zoo registry (the ResNet family, the ViT family and the test CNNs
-so far) and :func:`build_model`.
+"""Model zoo registry (the ResNet, MobileNet, WideResNet and ViT families and
+the test CNNs; CLIP not yet) and :func:`build_model`.
 
 Constructors take ``(num_classes, ctx, device="cuda")``; ``ctx`` is a
 :class:`~quantize_tpu_torch.nn.intercept.QuantCtx` (None builds the FP32
@@ -12,7 +12,7 @@ from typing import Optional
 from ..nn.intercept import QuantCtx
 from ..utils.config import Config
 from ..utils.registry import Registry
-from . import resnet, vit
+from . import mobilenet, resnet, vit, wideresnet
 from .testnet import TestCNN, TrajNet
 
 MODELS = Registry("models")
@@ -33,6 +33,13 @@ MODELS.register_dict({
     "vit_l_16": vit.vit_l_16,
     "vit_l_32": vit.vit_l_32,
     "vit_h_14": vit.vit_h_14,
+    "wideresnet28": wideresnet.wideresnet28,
+    "wideresnet40": wideresnet.wideresnet40,
+    "rb_wrn-28-10": wideresnet.rb_wrn_28_10,
+    "mobilenet_v1": mobilenet.mobilenet_v1,
+    "mobilenet_v2": mobilenet.mobilenet_v2,
+    "mobilenet_v3_large": mobilenet.mobilenet_v3_large,
+    "mobilenet_v3_small": mobilenet.mobilenet_v3_small,
     "testcnn": TestCNN,
     "trajnet": TrajNet,
 })

@@ -6,8 +6,8 @@ dict) to the right converter, the role of the reference's pretrained-weight
 loading inside ``build_model`` (``modelzoo/load.py:12``). The converters
 work on the variables as nested dicts of numpy arrays under the flax names;
 :func:`import_into_model` takes them from a port model and loads the result
-back into its modules. Only the ResNet family is ported; the ViT, CLIP,
-MobileNet and WideResNet importers raise not-ported, naming the ROADMAP.md
+back into its modules. The ResNet, MobileNet and WideResNet importers are
+ported; the ViT and CLIP importers raise not-ported, naming the ROADMAP.md
 queue 1 item that brings them.
 """
 from __future__ import annotations
@@ -19,7 +19,9 @@ import torch
 from .. import convert
 from ..nn.variables import collections
 from ..utils.registry import not_ported_error
+from .import_mobilenet import import_mobilenet_v1, import_mobilenet_v2, import_mobilenet_v3
 from .import_resnet import import_resnet
+from .import_wideresnet import import_wideresnet
 
 _VIT_LAYERS = {"vit_b_16": 12, "vit_b_32": 12, "vit_l_16": 24,
                "vit_l_32": 24, "vit_h_14": 32}
@@ -34,10 +36,18 @@ def _importer_for(model_name: str) -> Callable[..., Dict[str, Any]]:
         raise not_ported_error(f"the torchvision ViT checkpoint importer ({model_name!r})", 5)
     if name.startswith("clip_"):
         raise not_ported_error(f"the CLIP checkpoint importer ({model_name!r})", 5)
-    if name in ("mobilenet_v1", "mobilenet_v2") or name.startswith("mobilenet_v3"):
-        raise not_ported_error(f"the MobileNet checkpoint importer ({model_name!r})", 4)
+    if name == "mobilenet_v1":
+        return import_mobilenet_v1
+    if name == "mobilenet_v2":
+        return import_mobilenet_v2
+    if name.startswith("mobilenet_v3"):
+        small = name.endswith("small")
+        return lambda sd, v, **kw: import_mobilenet_v3(sd, v, small=small, **kw)
     if name.startswith("wideresnet") or name.startswith("rb_wrn"):
-        raise not_ported_error(f"the WideResNet checkpoint importer ({model_name!r})", 4)
+        depth = 28
+        if name.startswith("wideresnet"):
+            depth = int(name.replace("wideresnet", "") or 28)
+        return lambda sd, v, **kw: import_wideresnet(sd, v, depth=depth, **kw)
     if "resnet" in name or "resnext" in name:
         return import_resnet
     raise KeyError(f"no torch-checkpoint importer for model {model_name!r}")

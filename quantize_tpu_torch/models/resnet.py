@@ -7,8 +7,8 @@ Module names follow the flax tree (``layer1_0/conv1``, ``downsample_conv``,
 ``fc``), so variables load one to one from the JAX package
 (:mod:`quantize_tpu_torch.convert`). With ``ctx.bn_folding_enabled`` the
 BatchNorms are absent (folded into the convs); otherwise inference-mode
-BatchNorm layers follow each conv. Grouped convs (ResNeXt) build and run in
-the float modes; their packed int8 conv is not ported yet and raises.
+BatchNorm layers follow each conv. ResNeXt's grouped 3x3 convs run the
+grouped int8 conv (kernel K3g) once packed.
 """
 from __future__ import annotations
 

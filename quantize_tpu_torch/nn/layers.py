@@ -6,11 +6,17 @@ quantized from config; FP32 behaviour is the ``'fp32'`` mode (or
 ``packed``. The packed dispatch mirrors ``layers.py:236-305`` (dense) and
 ``layers.py:399-539`` (conv):
 
+* conv weights of at most 4 bits with an even input width a group are
+  stored as int4 pairs (``w_p4c``) and unpacked at each forward;
+* depthwise convs (``groups == in_ch``, no residual) -> the activation
+  fake-quantized and the weight dequantized, both cast to the carry dtype,
+  then one float32 library conv with f32 sums, ``+ bias`` and the cast (no
+  kernel, as in JAX);
 * conv, 1x1/stride 1 with a residual and zero weight zero points -> the
   fused tail (kernel K2, :func:`~quantize_tpu_torch.ops.qconv1x1.conv1x1_residual`);
 * the stride-2 stem with ``s2d`` -> space-to-depth rewrite, then K3;
-* every other conv -> :func:`~quantize_tpu_torch.ops.qconv.quant_conv2d` (K3);
-  int4 weights with an odd input channel count are stored as int8;
+* every other conv -> :func:`~quantize_tpu_torch.ops.qconv.quant_conv2d`: K3,
+  or K3g for a grouped conv;
 * dense with per-tensor activations -> :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_w8a8`
   (K1), or :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_w4a8` (K4) for
   int4 weights with an even K (stored split-half packed as ``w_p4``); a
@@ -19,8 +25,8 @@ quantized from config; FP32 behaviour is the ``'fp32'`` mode (or
   :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_wo` (K5);
 * conv without a fusable activation quantizer (weight-only, or
   per-channel activations fake-quantized first) ->
-  :func:`~quantize_tpu_torch.ops.qconv.quant_conv2d_wo`, then the unfused
-  residual tail;
+  :func:`~quantize_tpu_torch.ops.qconv.quant_conv2d_wo` (grouped too), then
+  the unfused residual tail;
 * AWQ layers (``packed/awq_recip``: the weight stored as Q(w·awq), 1/awq
   folded into the dequantized weight, per group with ``q_group_size``) ->
   the weight-only :func:`~quantize_tpu_torch.ops.qmatmul.quant_matmul_wo` /
@@ -30,9 +36,6 @@ quantized from config; FP32 behaviour is the ``'fp32'`` mode (or
 Bias correction (``bias_correct``) keeps E[x] in ``qobs/bias_correct_EX``
 during calibration and adds the layer's response to the weight error
 W·static - W_hat to the bias in quant mode and at pack time.
-
-Branches the port does not have yet raise NotImplementedError:
-even-channel int4 convs (``w_p4c``), depthwise and grouped packed convs.
 """
 from __future__ import annotations
 
@@ -43,8 +46,9 @@ from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, kmajor_weight, quant_conv2d,
-                         quant_conv2d_wo, s2d_block_padding, s2d_kernel, space_to_depth)
+from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, grouped_weight, kmajor_weight,
+                         quant_conv2d, quant_conv2d_wo, s2d_block_padding, s2d_kernel,
+                         space_to_depth)
 from ..ops.layernorm import layernorm, layernorm_quant_int8
 from ..ops.qconv1x1 import conv1x1_residual
 from ..ops.qmatmul import (kmajor_packed, pack_int4_splithalf, quant_matmul_w4a8,
@@ -52,6 +56,7 @@ from ..ops.qmatmul import (kmajor_packed, pack_int4_splithalf, quant_matmul_w4a8
                            unpack_int4_splithalf)
 from ..quant.fakequant import fake_quant
 from ..quant.observers import BiasCorrect
+from ..quant.pack import pack_int4_pairs, unpack_int4_pairs
 from ..quant.qspec import QuantSpec, _freeze
 from .precision import packed_carry_dtype
 from .quantizer import Quantizer, awq_group
@@ -89,10 +94,6 @@ class LayerQuantCfg:
 FP32 = LayerQuantCfg(weight={"n_bits": 32}, activation={"n_bits": 32})
 
 _MODES = ("fp32", "calibrate", "quant", "pack", "packed")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to quantize_tpu_torch yet; see ROADMAP.md")
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -354,6 +355,7 @@ class QuantConv(_QuantLayerBase):
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
         self.padding = padding if isinstance(padding, str) else [tuple(p) for p in padding]
+        self.in_features = in_features
         self.feature_group_count = feature_group_count
         self.s2d = s2d
         kh, kw = self.kernel_size
@@ -376,24 +378,36 @@ class QuantConv(_QuantLayerBase):
         return (self.s2d and self.strides == (2, 2) and self._wz0()
                 and not isinstance(self.padding, str))
 
+    def _use_p4c(self) -> bool:
+        # int4 pairs along the kernel's input channels (a group's own)
+        cig = self.in_features // self.feature_group_count
+        return self.w_spec.enabled and self.w_spec.n_bits <= 4 and cig % 2 == 0
+
     def put_var(self, collection: str, leaf: str, value: torch.Tensor) -> torch.Tensor:
         out = super().put_var(collection, leaf, value)
-        if ((collection, leaf) == ("packed", "w_int") and self.a_spec.enabled
+        if (collection == "packed" and leaf in ("w_int", "w_p4c") and self.a_spec.enabled
                 and not self.a_spec.per_channel):
-            # K3 and K2 read the weight K-major: made here, once per packed weight
-            # (at pack or load time), as buffers outside the packed collection;
-            # for the stem also the space-to-depth weight and its copy
-            self.register_buffer("w_kmajor", kmajor_weight(out), persistent=False)
-            if self._s2d_stem():
-                w_s2d = s2d_kernel(out)
-                self.register_buffer("w_s2d", w_s2d, persistent=False)
-                self.register_buffer("w_s2d_kmajor", kmajor_weight(w_s2d), persistent=False)
+            # the int8 kernels' own copies of the weight, made here once per
+            # packed weight (at pack or load time) as buffers outside the
+            # packed collection: K3's and K2's K-major copy (for the stem
+            # also the space-to-depth weight and its copy), or K3g's
+            w_int = unpack_int4_pairs(out, axis=2) if leaf == "w_p4c" else out
+            if self.feature_group_count > 1:
+                self.register_buffer("w_grouped", grouped_weight(w_int, self.feature_group_count),
+                                     persistent=False)
+            else:
+                self.register_buffer("w_kmajor", kmajor_weight(w_int), persistent=False)
+                if self._s2d_stem():
+                    w_s2d = s2d_kernel(w_int)
+                    self.register_buffer("w_s2d", w_s2d, persistent=False)
+                    self.register_buffer("w_s2d_kmajor", kmajor_weight(w_s2d), persistent=False)
         return out
 
     def _store_weight(self, x: torch.Tensor, q_i8: torch.Tensor) -> None:
-        if self.w_spec.n_bits <= 4 and q_i8.shape[2] % 2 == 0:
-            raise _not_ported("int4 conv weight packing for an even input channel count (w_p4c)")
-        self.put_var("packed", "w_int", q_i8)
+        if self._use_p4c():
+            self.put_var("packed", "w_p4c", pack_int4_pairs(q_i8, axis=2))
+        else:
+            self.put_var("packed", "w_int", q_i8)
         if self.a_spec.enabled and not self.a_spec.per_channel:
             # pack-time zero-point correction map for this input size
             self.put_var("packed", "corr_a", conv_zero_correction_map(
@@ -414,27 +428,40 @@ class QuantConv(_QuantLayerBase):
         if not w_spec.enabled:
             xq = self._packed_act(x) if a_spec.enabled else x
             return _finish(self._contract(xq, self.get_var("params", "kernel")) + bias)
+        # JAX's branches in JAX's order (layers.py:422-539)
         w_scale = self.get_var("packed", "w_scale")
         w_zero = self.get_var("packed", "w_zero")
-        w_int = self.get_var("packed", "w_int")
+        if self.has_var("packed", "w_p4c"):
+            w_int = unpack_int4_pairs(self.get_var("packed", "w_p4c"), axis=2)
+        else:
+            w_int = self.get_var("packed", "w_int")
+        groups = self.feature_group_count
+        conv_kw = dict(strides=self.strides, padding=self.padding, groups=groups)
         awq_recip, group = self._awq_packed()
         if awq_recip is not None:
             # AWQ deploys weight-only (JAX layers.py:427-443): the stored
             # Q(w·awq) dequantized with 1/awq folded in; activations still
             # fake-quantized where enabled
             xq = self._packed_act(x) if a_spec.enabled else x
-            return _finish(quant_conv2d_wo(xq, w_int, w_scale, w_zero, bias, strides=self.strides,
-                                           padding=self.padding, groups=self.feature_group_count,
-                                           awq_recip=awq_recip, group_size=group))
-        if self.feature_group_count > 1:
-            raise _not_ported("packed grouped / depthwise conv")
+            return _finish(quant_conv2d_wo(xq, w_int, w_scale, w_zero, bias, awq_recip=awq_recip,
+                                           group_size=group, **conv_kw))
+        if groups > 1 and groups == x.shape[-1] and residual is None:
+            # depthwise (JAX layers.py:445-471): the quantized math as float
+            # on the library's conv, no int8 kernel. Both operands are cast to
+            # the carry dtype, as JAX casts them, then summed in float32 (the
+            # card's TF32 off), + bias, cast: JAX keeps f32 sums through the
+            # bias, which a bf16 conv would round first
+            cdt = packed_carry_dtype()
+            xq = (self._packed_act(x) if a_spec.enabled else x).to(cdt)
+            w_deq = ((w_int.float() + w_zero) * w_scale).to(cdt)
+            out = conv_nhwc(xq.float(), w_deq.float(), self.strides, self.padding, groups) + bias
+            return out.to(cdt)
         act = self._fused_act_qparams()
         if act is None:
             # weight-only (or per-channel activations): float activations
             # through the dequantized weight (JAX layers.py:535-539)
             xq = self._packed_act(x) if a_spec.enabled else x
-            return _finish(quant_conv2d_wo(xq, w_int, w_scale, w_zero, bias,
-                                           strides=self.strides, padding=self.padding))
+            return _finish(quant_conv2d_wo(xq, w_int, w_scale, w_zero, bias, **conv_kw))
         a_scale, a_zero = act
         corr_a = self.get_var("packed", "corr_a") if self.has_var("packed", "corr_a") else None
         q_a, z_eff = quantize_act_int8(x, a_scale, a_zero, a_spec.qmin, a_spec.qmax)
@@ -443,12 +470,13 @@ class QuantConv(_QuantLayerBase):
                     if isinstance(self.padding, str)  # identical for 1x1/s1
                     else tuple(map(tuple, self.padding)) == ((0, 0), (0, 0)))
         if (residual is not None and wz0 and pad_zero and self.kernel_size == (1, 1)
-                and self.strides == (1, 1)):
+                and self.strides == (1, 1) and groups == 1):
             return conv1x1_residual(q_a, z_eff, a_scale, w_int, w_scale, bias, residual,
                                     relu=fuse_relu, out_dtype=packed_carry_dtype(),
                                     w_km=self.w_kmajor)
-        x_sh, conv_kw, w_km = x, dict(strides=self.strides, padding=self.padding), self.w_kmajor
-        if self._s2d_stem():
+        x_sh = x
+        w_km = self.w_grouped if groups > 1 else self.w_kmajor
+        if self._s2d_stem() and groups == 1:
             kh, kw = w_int.shape[:2]
             bp = s2d_block_padding(kh, kw, list(self.padding), x.shape[1], x.shape[2])
             if bp is not None and corr_a is not None:
@@ -456,7 +484,7 @@ class QuantConv(_QuantLayerBase):
                 # the pack-time corr_a carries over (same output grid)
                 q_a = space_to_depth(q_a)
                 w_int, w_km = self.w_s2d, self.w_s2d_kmajor
-                x_sh, conv_kw = q_a, dict(strides=(1, 1), padding=bp)
+                x_sh, conv_kw = q_a, dict(strides=(1, 1), padding=bp, groups=1)
         out = quant_conv2d(x_sh, a_scale, a_zero, a_spec.qmin, a_spec.qmax, w_int, w_scale,
                            w_zero, bias, w_zero_is_zero=wz0, corr_a=corr_a,
                            pre_q=(q_a, z_eff), out_dtype=packed_carry_dtype(), w_km=w_km,

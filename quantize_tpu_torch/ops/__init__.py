@@ -7,6 +7,8 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
 * K2 :func:`~.qconv1x1.conv1x1_residual_gemm` (``csrc/conv1x1_residual.cu``;
   its launches by route in ``conv1x1_residual_gemm.route_launches``)
 * K3 :func:`~.qconv.qconv2d_int8` (``csrc/qconv2d.cu``)
+* K3g :func:`~.qconv.qconv2d_grouped_int8` (``csrc/qconv2d_grouped.cu``; the
+  grouped int8 conv)
 * K4 :func:`~.qmatmul.w4a8_gemm` (``csrc/w4a8_gemm.cu``; its launches by
   route in ``w4a8_gemm.route_launches``)
 * K5 :func:`~.qmatmul.wo_gemm` (``csrc/wo_gemm.cu``)
@@ -20,7 +22,7 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
 """
 from .attention import mha_fused_qkv, mha_fused_qkv_rows, mha_rows, mha_rows_int8
 from .layernorm import layernorm_quant_int8, layernorm_quant_int8_rows, layernorm_rows
-from .qconv import qconv2d_int8, quant_conv2d, quant_conv2d_wo
+from .qconv import qconv2d_grouped_int8, qconv2d_int8, quant_conv2d, quant_conv2d_wo
 from .qconv1x1 import conv1x1_residual, conv1x1_residual_gemm
 from .qmatmul import (kmajor_packed, pack_int4_splithalf, quant_matmul_w4a8, quant_matmul_w8a8,
                       quant_matmul_wo, quantize_act_int8, unpack_int4_splithalf, w4a8_gemm,
@@ -30,6 +32,7 @@ KERNEL_WRAPPERS = {
     "w8a8_gemm": w8a8_gemm,
     "conv1x1_residual": conv1x1_residual_gemm,
     "qconv2d": qconv2d_int8,
+    "qconv2d_grouped": qconv2d_grouped_int8,
     "w4a8_gemm": w4a8_gemm,
     "layernorm": layernorm_rows,
     "layernorm_quant_int8": layernorm_quant_int8_rows,
@@ -58,7 +61,7 @@ __all__ = [
     "KERNEL_WRAPPERS", "conv1x1_residual", "conv1x1_residual_gemm", "launch_counts",
     "kmajor_packed", "layernorm_quant_int8", "layernorm_quant_int8_rows", "layernorm_rows",
     "mha_fused_qkv", "mha_fused_qkv_rows", "mha_rows", "mha_rows_int8", "pack_int4_splithalf",
-    "qconv2d_int8", "quant_conv2d", "quant_conv2d_wo", "quant_matmul_w4a8", "quant_matmul_w8a8",
-    "quant_matmul_wo", "quantize_act_int8", "reset_launch_counts", "unpack_int4_splithalf",
+    "qconv2d_grouped_int8", "qconv2d_int8", "quant_conv2d", "quant_conv2d_wo",
+    "quant_matmul_w4a8", "quant_matmul_w8a8", "quant_matmul_wo", "quantize_act_int8", "reset_launch_counts", "unpack_int4_splithalf",
     "w4a8_gemm", "w8a8_gemm", "wo_gemm",
 ]

@@ -1,6 +1,7 @@
-"""W8A8 conv2d on the int8 path: kernel K3, the z_a correction map and the
-space-to-depth stem rewrite; and the weight-only conv (a dequantized weight
-and one float32 conv).
+"""W8A8 conv2d on the int8 path: kernel K3 (``groups == 1``), kernel K3g
+(the grouped conv), the z_a correction map and the space-to-depth stem
+rewrite; and the weight-only conv (a dequantized weight and one float32
+conv).
 
 PyTorch counterpart of ``quantize_tpu/ops/qconv.py``. The JAX package lowers
 the int8 conv through XLA (``conv_general_dilated(int8, int8) -> int32``);
@@ -13,6 +14,10 @@ the weight as a K-major copy (:func:`kmajor_weight`), which a packed
 is packed or loaded, and keeps outside the packed variables; it takes Ci in
 multiples of 16: the wrapper zero-pads fewer channels (the space-to-depth
 stem's 12, ViT's patch embedding's 3), which adds nothing to the sums.
+A grouped conv (``groups > 1``, ResNeXt) launches :func:`qconv2d_grouped_int8`,
+the CUDA-core kernel ``csrc/qconv2d_grouped.cu``, over its own copy of the
+weight (:func:`grouped_weight`), or runs :func:`qconv2d_grouped_int8_plain`
+on CPU tensors.
 
 The int8 conv pads with q = 0, but a padded position must contribute zero
 to the float result while a real q = 0 position contributes ``z_a·s_a·ŵ``;
@@ -183,6 +188,144 @@ def qconv2d_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
 qconv2d_int8.launches = 0
 
 
+# K3g's tile (``csrc/qconv2d_grouped.cu``): a block of 256 threads covers bp
+# output pixels and up to 64 output channels (whole groups where a group has
+# at most 64, else 64 channels of one group), with the block's weights and
+# its im2col patch rows staged in shared memory as 4-byte words
+K3G_CHANNELS = 64
+K3G_PIXELS = (64, 32, 16, 8, 4)
+K3G_SMEM_TWO_BLOCKS = 113 * 1024  # two blocks an SM where it fits
+K3G_SMEM_MAX = 232448  # what one block may have on an H100
+
+
+def _grouped_tile(taps: int, cig: int, cog: int, groups: int) -> Tuple[int, int, int, int]:
+    """K3g's tile for ``taps`` = KH*KW, ``cig``/``cog`` input/output
+    channels a group: ``(gb, bp, cr, smem)``, the groups whose inputs a
+    block stages, its output pixels, the output channels a thread sums (4,
+    2 or 1, a divisor of ``cog``) and its shared memory in bytes, which
+    mirrors ``csrc/qconv2d_grouped.cu: smem_bytes``. Raises ValueError for
+    a shape whose smallest tile exceeds the card's shared memory."""
+    cw = -(-cig // 4)
+    if cog <= K3G_CHANNELS:
+        gb = min(groups, K3G_CHANNELS // cog)
+        cb = gb * cog
+    else:
+        gb, cb = 1, K3G_CHANNELS
+    cr = 4 if cog % 4 == 0 else 2 if cog % 2 == 0 else 1
+
+    def smem_bytes(bp):
+        # weights (channels padded to 4), patch rows, per-pixel bases and
+        # origins, s_w / bias / z_w of the block's channels
+        return 4 * taps * cw * (-(-cb // 4) * 4) + 4 * taps * gb * cw * bp + 16 * bp + 12 * cb
+
+    for limit in (K3G_SMEM_TWO_BLOCKS, K3G_SMEM_MAX):
+        for bp in K3G_PIXELS:
+            if smem_bytes(bp) <= limit:
+                return gb, bp, cr, smem_bytes(bp)
+    raise ValueError(
+        f"qconv2d_grouped_int8: a {taps}-tap kernel with {cig} input channels a group needs "
+        f"{smem_bytes(K3G_PIXELS[-1])} bytes of shared memory at its smallest tile, more "
+        f"than the {K3G_SMEM_MAX} a block may have")
+
+
+def grouped_weight(w_int: torch.Tensor, groups: int) -> torch.Tensor:
+    """K3g's copy of an HWIO int8 kernel (kh, kw, Ci/G, Co): (G, KH*KW,
+    ceil(Ci/G / 4), Co/G, 4) int8, read as 4-byte words: word (g, tap, w, j)
+    holds input channels 4w .. 4w + 3 of group g (zeros past Ci/G) for output
+    channel j of the group."""
+    kh, kw, cig, co = w_int.shape
+    cw = -(-cig // 4)
+    w = w_int.reshape(kh * kw, cig, groups, co // groups)
+    w = F.pad(w, (0, 0, 0, 0, 0, 4 * cw - cig)).reshape(kh * kw, cw, 4, groups, co // groups)
+    return w.permute(3, 0, 1, 4, 2).contiguous()
+
+
+def qconv2d_grouped_int8_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
+                               w_int: torch.Tensor, w_scale: torch.Tensor,
+                               w_zero: torch.Tensor, bias: Optional[torch.Tensor],
+                               strides: Sequence[int], pads, corr_a: torch.Tensor,
+                               w_zero_is_zero: bool, out_dtype: torch.dtype, groups: int,
+                               w_g: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version of kernel K3g: the grouped int8 conv summed exactly (in
+    float64), then the epilogue of ``quantize_tpu/ops/qconv.py:quant_conv2d``
+    in its order, with the z_w row sums taken over each group's own input
+    channels (``:107-119``). ``w_g``, the kernel's own copy of the weight,
+    is not read."""
+    acc = conv_nhwc(q_a.double(), w_int.double(), strides, pads, groups).float()
+    corrected = acc + z_eff * corr_a
+    if not w_zero_is_zero:
+        kh, kw, cig, co = w_int.shape
+        n, h, w_sp, _ = q_a.shape
+        ones_k = torch.ones((kh, kw, cig, groups), dtype=torch.float64, device=q_a.device)
+        row_sum = conv_nhwc(q_a.double(), ones_k, strides, pads, groups).float()
+        row_sum = row_sum.repeat_interleave(co // groups, dim=-1)
+        mask = torch.ones((1, h, w_sp, 1), dtype=torch.float64, device=q_a.device)
+        taps = torch.ones((kh, kw, 1, 1), dtype=torch.float64, device=q_a.device)
+        count = conv_nhwc(mask, taps, strides, pads).float() * cig
+        wz = w_zero.reshape(1, 1, 1, -1)
+        corrected = corrected + wz * row_sum + z_eff * wz * count
+    out = a_scale * w_scale.reshape(1, 1, 1, -1) * corrected
+    if bias is not None:
+        out = out + bias
+    return out.to(out_dtype)
+
+
+def qconv2d_grouped_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
+                         w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
+                         bias: Optional[torch.Tensor], strides: Sequence[int], pads,
+                         corr_a: torch.Tensor, w_zero_is_zero: bool, out_dtype: torch.dtype,
+                         groups: int, w_g: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel K3g: int8 NHWC ``q_a`` (N, H, W, Ci) conv int8 HWIO ``w_int``
+    (kh, kw, Ci/G, Co) in ``groups`` = G groups, with explicit ``pads`` and
+    the W8A8 epilogue; ``corr_a`` is the (1, H', W', Co) f32 correction map.
+    ``w_g`` is ``grouped_weight(w_int, groups)`` made beforehand (made here
+    when None). Returns (N, H', W', Co) in ``out_dtype``. A shape whose tile
+    does not fit in shared memory raises ValueError before launch."""
+    dev = q_a.device
+    if dev.type == "cpu":
+        return qconv2d_grouped_int8_plain(q_a, z_eff, a_scale, w_int, w_scale, w_zero, bias,
+                                          strides, pads, corr_a, w_zero_is_zero, out_dtype,
+                                          groups)
+    if dev.type != "cuda":
+        raise ValueError(f"qconv2d_grouped_int8: unsupported device {dev}")
+    n, h, w_sp, ci = q_a.shape
+    kh, kw, cig, co = w_int.shape
+    if groups < 1 or ci != groups * cig or co % groups:
+        raise ValueError(f"qconv2d_grouped_int8: {ci} input and {co} output channels do not "
+                         f"split into {groups} groups of {cig} inputs")
+    (pt, pb), (pl, pr) = pads
+    sh, sw = strides
+    oh = (h + pt + pb - kh) // sh + 1
+    ow = (w_sp + pl + pr - kw) // sw + 1
+    cog = co // groups
+    gb, bp, _, _ = _grouped_tile(kh * kw, cig, cog, groups)
+    _build.require(q_a, "q_a", dev, torch.int8)
+    _build.require(corr_a, "corr_a", dev, torch.float32, (1, oh, ow, co))
+    for name, t in (("w_scale", w_scale), ("w_zero", w_zero)):
+        _build.require(t, name, dev, torch.float32, (co,))
+    if bias is not None:
+        _build.require(bias, "bias", dev, torch.float32, (co,))
+    _build.require(a_scale, "a_scale", dev, torch.float32, ())
+    _build.require(z_eff, "z_eff", dev, torch.float32, ())
+    out_code = _build.dtype_code(out_dtype)
+    if w_g is None:
+        w_g = grouped_weight(w_int, groups)
+    _build.require(w_g, "w_g", dev, torch.int8, (groups, kh * kw, -(-cig // 4), cog, 4))
+    out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=dev)
+    fn = _build.kernel_fn("qconv2d_grouped")
+    with torch.cuda.device(dev):
+        err = fn(_build.ptr(q_a), _build.ptr(w_g), _build.ptr(corr_a), _build.ptr(w_scale),
+                 _build.ptr(w_zero), _build.ptr(bias), _build.ptr(a_scale), _build.ptr(z_eff),
+                 _build.ptr(out), n, h, w_sp, ci, oh, ow, co, kh, kw, sh, sw, pt, pl, groups,
+                 gb, bp, int(bool(w_zero_is_zero)), out_code, _build.current_stream(dev))
+    _build.check(err, "qconv2d_grouped")
+    qconv2d_grouped_int8.launches += 1
+    return out
+
+
+qconv2d_grouped_int8.launches = 0
+
+
 def quant_conv2d(
     x: torch.Tensor,
     a_scale,
@@ -206,14 +349,14 @@ def quant_conv2d(
 
     ``pre_q``: the already-quantized input ``(q_int8, z_eff)`` (``x`` is
     then only read for its shape). ``out_dtype``: the dtype of the result
-    (the epilogue stays f32). ``w_km``: ``kmajor_weight(w_int)``, made once
-    by the caller that holds the weight.
+    (the epilogue stays f32). ``w_km``: the kernel's own copy of the weight,
+    made once by the caller that holds it: ``kmajor_weight(w_int)`` for K3
+    (``groups == 1``), ``grouped_weight(w_int, groups)`` for K3g.
     """
-    if groups != 1:
-        raise NotImplementedError(
-            "quant_conv2d: grouped int8 conv (ResNeXt) is not ported to "
-            "quantize_tpu_torch yet; see ROADMAP.md")
-    n, h, w_sp, _ = x.shape
+    n, h, w_sp, ci = x.shape
+    if ci != groups * w_int.shape[2] or w_int.shape[3] % groups:
+        raise ValueError(f"quant_conv2d: {ci} input and {w_int.shape[3]} output channels do not "
+                         f"split into {groups} groups of a {tuple(w_int.shape)} kernel")
     if pre_q is not None:
         q_a, z_eff = pre_q
     else:
@@ -225,15 +368,16 @@ def quant_conv2d(
     if corr_a is None or tuple(corr_a.shape[1:3]) != (oh, ow):
         corr_a = conv_zero_correction_map(w_int, h, w_sp, strides, pads)
     dev = q_a.device
-    out = qconv2d_int8(
-        q_a.contiguous(),
-        torch.as_tensor(z_eff, dtype=torch.float32, device=dev).reshape(()),
-        torch.as_tensor(a_scale, dtype=torch.float32, device=dev).reshape(()),
-        w_int.contiguous(), w_scale.float().reshape(-1), w_zero.float().reshape(-1),
-        None if bias is None else bias.float(), tuple(strides), pads,
-        corr_a.float().contiguous(), w_zero_is_zero,
-        torch.float32 if out_dtype is None else out_dtype, w_km)
-    return out
+    args = (q_a.contiguous(),
+            torch.as_tensor(z_eff, dtype=torch.float32, device=dev).reshape(()),
+            torch.as_tensor(a_scale, dtype=torch.float32, device=dev).reshape(()),
+            w_int.contiguous(), w_scale.float().reshape(-1), w_zero.float().reshape(-1),
+            None if bias is None else bias.float(), tuple(strides), pads,
+            corr_a.float().contiguous(), w_zero_is_zero,
+            torch.float32 if out_dtype is None else out_dtype)
+    if groups != 1:
+        return qconv2d_grouped_int8(*args, groups, w_km)
+    return qconv2d_int8(*args, w_km)
 
 
 def quant_conv2d_wo(

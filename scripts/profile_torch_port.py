@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Where the time of the port's packed forward goes, on one GPU.
 
-    python3 scripts/profile_torch_port.py [--model resnet50|vit_b_16|vit_b_32] [--batch N]
+    python3 scripts/profile_torch_port.py [--model resnet50|resnext50_32x4d|mobilenet_v2|
+                                                   vit_b_16|vit_b_32] [--batch N]
                                           [--carry float32|bfloat16]
     QTPU_ATTN_INT8=1 python3 scripts/profile_torch_port.py --model vit_b_32   # K9 for K8
     python3 scripts/profile_torch_port.py --runner     # the PTQ runner's steps, ResNet-50 at 224
     python3 scripts/profile_torch_port.py --runner "resnet18@224 cross-entropy"   # another run
 
 Builds the model of chip_smoke.py (ResNet-50 W8A8 with the fused residual
-tail, batch 256 by default; ViT-B/16 W4A8, batch 128 by default; or
+tail, batch 256 by default; ResNeXt-50 32x4d W8A8 likewise, its grouped
+convs on K3g; MobileNetV2 W8A8 with mobile_stack_w8a8's quant section, its
+depthwise convs on the library's float32 conv, batch 256 by default;
+ViT-B/16 W4A8, batch 128 by default; or
 ViT-B/32 weight-only W4 with MSE weight ranges and 32-bit activations,
 batch 256 by default; random weights from seed 0, calibrated on 4 batches
 of 32; the port reads QTPU_ATTN_INT8 at call time), then traces 3
@@ -43,7 +47,7 @@ from collections import defaultdict
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 PORT_KERNELS = ("w8a8_gemm_kernel", "w8a8_wgmma_kernel", "conv1x1_res_kernel",
-                "conv1x1_res_wgmma_kernel", "qconv2d_wgmma_kernel",
+                "conv1x1_res_wgmma_kernel", "qconv2d_wgmma_kernel", "qconv2d_grouped_kernel",
                 "w4a8_gemm_kernel", "w4a8_wgmma_kernel", "ln_kernel", "ln_q_kernel",
                 "ln_q_vec_kernel",
                 "mha_rows_kernel", "wo_gemm_kernel", "mha_rows_int8_kernel", "mha_rows_int8_streamed_kernel",
@@ -168,7 +172,8 @@ def profile_runner(qtt, run_label: str, tmp_dir: str) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", default="resnet50", choices=["resnet50", "vit_b_16", "vit_b_32"])
+    ap.add_argument("--model", default="resnet50",
+                    choices=["resnet50", "resnext50_32x4d", "mobilenet_v2", "vit_b_16", "vit_b_32"])
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--carry", default="float32", choices=["float32", "bfloat16"])
     ap.add_argument("--runner", nargs="?", const="resnet50@224", default=None,
@@ -185,7 +190,7 @@ def main() -> int:
     import quantize_tpu_torch.nn.layers as layers
     import quantize_tpu_torch.ops.qconv as qconv
     import quantize_tpu_torch.ops.qmatmul as qmatmul
-    from chip_smoke import CFG, CFG_W4A8, CFG_WO
+    from chip_smoke import CFG, CFG_MOBILE, CFG_W4A8, CFG_WO
 
     for mod in (qmatmul, qconv, layers):
         for label in RANGES:
@@ -199,7 +204,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp_dir:
             return profile_runner(qtt, args.runner, tmp_dir)
 
-    cfg = {"resnet50": CFG, "vit_b_16": CFG_W4A8, "vit_b_32": CFG_WO}[args.model]
+    cfg = {"resnet50": CFG, "resnext50_32x4d": CFG, "mobilenet_v2": CFG_MOBILE,
+           "vit_b_16": CFG_W4A8, "vit_b_32": CFG_WO}[args.model]
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 

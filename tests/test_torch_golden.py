@@ -12,17 +12,18 @@ those tests' tolerances:
   activations 1; AWQ's (out, in) weight is transposed to (in, out);
 * layers: the quantizer simulation and pack, conv (plain, BN folded,
   into_scale, bias correction, W4A8 MSE, stride 2, W4 weight-only,
-  asymmetric weights), linear, attention, QuantReLU and QuantMaxPool, with
-  the same bounded allowance for quant-step flips. ``conv_w8a8_grouped``
-  waits for the grouped int8 conv and the ``adaround_*`` cases for
-  AdaRound (ROADMAP.md queue 1 items 4 and 6);
+  asymmetric weights, grouped: ``conv_w8a8_grouped``), linear, attention,
+  QuantReLU and QuantMaxPool, with
+  the same bounded allowance for quant-step flips. The ``adaround_*`` cases
+  wait for AdaRound (ROADMAP.md queue 1 item 6);
 * models: the ResNet-18 pipelines (torchvision-layout weights from
   ``tests/golden/weightgen.py`` through ``init_model(torch_state_dict=...)``,
-  then calibration) and the two-block pre-LN attention stacks: every
-  quantizer's calibrated scale/zero (rtol 2e-3), the fp32 logits (2e-3)
-  and the quant logits within the network's own quantization noise with
-  the same argmax. ``mobile_stack_w8a8`` and the CLIP towers wait for
-  queue 1 items 4 and 5.
+  then calibration), the two-block pre-LN attention stacks and the
+  MobileNet-style stack (``mobile_stack_w8a8``: BN-folded depthwise and
+  pointwise convs, a residual block): every quantizer's calibrated
+  scale/zero (rtol 2e-3), the fp32 logits (2e-3) and the quant logits
+  within the network's own quantization noise with the same argmax. The
+  CLIP towers wait for queue 1 item 5.
 """
 import json
 import os
@@ -214,13 +215,14 @@ def _calibrate_and_eval(model, calib_xs, x_eval, packed):
     return out, out_p
 
 
-_CONV = [k for k, c in LAYERS.items() if c["kind"] == "conv_forward" and c["groups"] == 1]
+_CONV = [k for k, c in LAYERS.items() if c["kind"] == "conv_forward"]
 
 
 @pytest.mark.parametrize("case", _CONV)
 def test_conv_replays_the_reference_golden(case):
     c = LAYERS[case]
-    w = _gen(c["w_seed"], (c["out_ch"], c["in_ch"], c["k"], c["k"]), {"scale": 0.5})
+    w = _gen(c["w_seed"], (c["out_ch"], c["in_ch"] // c["groups"], c["k"], c["k"]),
+             {"scale": 0.5})
     b = _gen(c["b_seed"], (c["out_ch"],), {"scale": 0.1})
     ss = None
     if c["bn_folding"]:
@@ -233,7 +235,7 @@ def test_conv_replays_the_reference_golden(case):
     p = c["padding"]
     model = QuantConv(c["in_ch"], c["out_ch"], kernel_size=(c["k"], c["k"]),
                       strides=(c["stride"], c["stride"]), padding=[(p, p), (p, p)],
-                      quant=_layer_cfg(c), device="cpu")
+                      feature_group_count=c["groups"], quant=_layer_cfg(c), device="cpu")
     model.put_var("params", "kernel", _t(np.transpose(w, (2, 3, 1, 0))))  # OIHW -> HWIO
     model.put_var("params", "bias", _t(b))
     gen = {"scale": 1.0, "loc": 0.1}
@@ -526,5 +528,77 @@ def test_mha_stack_pipeline_replays_the_reference_golden(case):
         for xb in batches:
             model(xb, mode="calibrate")
         _check_qparams(model, c, _mha_qpath)
+        _check_logits(_np(model(x_eval, mode="fp32")), c, "fp32")
+        _check_logits(_np(model(x_eval, mode="quant")), c, "quant")
+
+
+# the MobileNet-style stack of test_golden_models.py: (name, in, expanded,
+# out, stride) for its two inverted-residual blocks
+_MOBILE_BLOCKS = (("block1", 8, 32, 8, 1), ("block2", 8, 32, 16, 2))
+
+
+class _MobileStack(torch.nn.Module):
+    def __init__(self, ctx, num_classes):
+        super().__init__()
+
+        def conv(qpath, cin, feats, k, s, pad, groups=1):
+            return QuantConv(cin, feats, (k, k), (s, s), padding=pad, feature_group_count=groups,
+                             quant=ctx.resolve(qpath, "nn_conv2d"), device="cpu")
+
+        self.stem_conv = conv("/stem_conv", 3, 8, 3, 2, [(1, 1), (1, 1)])
+        for bname, cin, cexp, cout, s in _MOBILE_BLOCKS:
+            setattr(self, f"{bname}_expand_conv",
+                    conv(f"/{bname}/expand_conv", cin, cexp, 1, 1, "VALID"))
+            setattr(self, f"{bname}_dw_conv",
+                    conv(f"/{bname}/dw_conv", cexp, cexp, 3, s, [(1, 1), (1, 1)], groups=cexp))
+            setattr(self, f"{bname}_project_conv",
+                    conv(f"/{bname}/project_conv", cexp, cout, 1, 1, "VALID"))
+        self.fc = QuantDense(16, num_classes, quant=ctx.resolve("/fc", "nn_linear"), device="cpu")
+
+    def forward(self, x, mode="fp32"):
+        relu6 = lambda v: torch.clamp(v, 0.0, 6.0)  # noqa: E731
+        x = relu6(self.stem_conv(x, mode=mode))
+        for bname, cin, _, cout, s in _MOBILE_BLOCKS:
+            y = relu6(getattr(self, f"{bname}_expand_conv")(x, mode=mode))
+            y = relu6(getattr(self, f"{bname}_dw_conv")(y, mode=mode))
+            y = getattr(self, f"{bname}_project_conv")(y, mode=mode)
+            x = x + y if (s == 1 and cin == cout) else y
+        return self.fc(x.mean(dim=(1, 2)), mode=mode)
+
+
+def _mobile_params(sd):
+    """BN folded as the reference's conv2d_bn2d feeds QuantConv2d (no conv
+    bias: bias = beta - mean * gamma / sqrt(var + eps))."""
+    p = {}
+    for ours, conv, bn in [("stem_conv", "stem_conv", "stem_bn")] + [
+            (f"{b}_{part}_conv", f"{b}.{part}_conv", f"{b}.{part}_bn")
+            for b, *_ in _MOBILE_BLOCKS for part in ("expand", "dw", "project")]:
+        mult = sd[f"{bn}.weight"] / np.sqrt(sd[f"{bn}.running_var"] + 1e-5)
+        p[f"{ours}/kernel"] = (sd[f"{conv}.weight"] * mult.reshape(-1, 1, 1, 1)).transpose(2, 3, 1, 0)
+        p[f"{ours}/bias"] = sd[f"{bn}.bias"] - sd[f"{bn}.running_mean"] * mult
+    p["fc/kernel"], p["fc/bias"] = sd["fc.weight"].T, sd["fc.bias"]
+    return convert.unflatten(p)
+
+
+def _mobile_qpath(ref_path):
+    """'block1.dw_conv.a_quantizer' -> 'block1_dw_conv/a_quantizer'."""
+    parts = ref_path.split(".")
+    if parts[0] in ("stem_conv", "fc"):
+        return "/".join(parts)
+    return f"{parts[0]}_{parts[1]}/{parts[2]}"
+
+
+def test_mobile_stack_pipeline_replays_the_reference_golden():
+    c = MODELS["mobile_stack_w8a8"]
+    model = _MobileStack(qtt.QuantCtx(c["quant_cfg"]), c["num_classes"])
+    convert.from_jax_variables(model, {"params": _mobile_params(_state_dict(c))})
+    shape = tuple(c["x_shape"])
+    batches = [_t(_nhwc(gen_input(s, shape, c["in_scale"], c["in_loc"])))
+               for s in c["calib_seeds"]]
+    x_eval = _t(_nhwc(gen_input(c["eval_seed"], shape, c["in_scale"], c["in_loc"])))
+    with torch.no_grad():
+        for xb in batches:
+            model(xb, mode="calibrate")
+        _check_qparams(model, c, _mobile_qpath)
         _check_logits(_np(model(x_eval, mode="fp32")), c, "fp32")
         _check_logits(_np(model(x_eval, mode="quant")), c, "quant")

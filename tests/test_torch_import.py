@@ -17,8 +17,12 @@ package on the CPU.
   the same ``.pth``: per-step loss and top-1, calibrated state, val and
   test top-1 within one example; ``model.torch_checkpoint_sha256`` is
   checked before loading.
-* The families whose importers wait (ViT, CLIP, MobileNet, WideResNet)
-  raise not-ported by name.
+* ``import_mobilenet_v2``/``_v3`` and ``import_wideresnet`` (copies)
+  give, from the same seeded torchvision-layout state dicts
+  (``tests/test_import_mobilenet_wrn.py``'s generators) and the same
+  variables tree, JAX's variables bit for bit, BN folded and unfolded; the
+  port's trees have the JAX models' paths and shapes.
+* The families whose importers wait (ViT, CLIP) raise not-ported by name.
 """
 import json
 import os
@@ -53,6 +57,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, _HERE)
 sys.path.insert(0, os.path.join(_HERE, "golden"))
 from test_e2e_ptq import base_cfg  # noqa: E402
+from test_import_mobilenet_wrn import (synth_mobilenet_v2_sd,  # noqa: E402
+                                       synth_mobilenet_v3_small_sd, synth_wrn_sd)
 from weightgen import gen_param  # noqa: E402
 
 with open(os.path.join(_HERE, "golden", "models.json")) as _f:
@@ -230,14 +236,59 @@ def test_reset_observers_drops_qobs_and_keeps_qparams():
     assert "qobs" not in convert.to_numpy(model)
 
 
-@pytest.mark.parametrize("name,item", [("vit_b_16", 5), ("clip_vit-b16", 5), ("clip_rn50", 5),
-                                       ("mobilenet_v2", 4), ("mobilenet_v3_small", 4),
-                                       ("wideresnet28", 4), ("rb_wrn28_10", 4)])
+@pytest.mark.parametrize("name,item", [("vit_b_16", 5), ("clip_vit-b16", 5), ("clip_rn50", 5)])
 def test_importers_not_ported_raise_by_name(name, item):
     with pytest.raises(NotImplementedError, match=f"{name}.*queue 1 item {item}"):
         import_auto.import_torch_checkpoint(name, {}, {"params": {}})
     with pytest.raises(KeyError, match="no torch-checkpoint importer"):
         import_auto.import_torch_checkpoint("alexnet", {}, {"params": {}})
+
+
+# (importer name, registry name, state dict, constructor keywords): WRN-28
+# at widen 2 (the importer reads the depth from the name, not the width)
+_FAMILIES = {
+    "mobilenet_v2": ("mobilenet_v2", lambda: synth_mobilenet_v2_sd(np.random.default_rng(2)), {}),
+    "mobilenet_v3_small": ("mobilenet_v3_small",
+                           lambda: synth_mobilenet_v3_small_sd(np.random.default_rng(3)), {}),
+    "wideresnet28": ("wideresnet28", lambda: synth_wrn_sd(np.random.default_rng(4), depth=28),
+                     {"widen_factor": 2}),
+    "rb_wrn28_10": ("rb_wrn-28-10", lambda: synth_wrn_sd(np.random.default_rng(5), depth=28),
+                    {"widen_factor": 2}),
+}
+
+
+@pytest.mark.parametrize("fold", [True, False])
+@pytest.mark.parametrize("name", sorted(_FAMILIES))
+def test_mobilenet_and_wrn_importers_give_jax_variables(name, fold):
+    """The importer copies against JAX's on one state dict and one tree:
+    the JAX model's (abstract) variables, whose paths and shapes must be
+    the port model's, filled by JAX's importer and by the port's through
+    ``import_into_model``, bit for bit."""
+    registry, make_sd, kw = _FAMILIES[name]
+    quant = {"default": {"weight": {"n_bits": 32}, "activation": {"n_bits": 32},
+                         "bn_folding": fold}}
+    jm = JAX_MODELS.build(registry, num_classes=10, ctx=JaxQuantCtx(quant), **kw)
+    x = jnp.zeros((1, 32, 32, 3), jnp.float32)
+    tree = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), x, mode="calibrate"))
+    tree = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                                  {k: v for k, v in dict(tree).items() if k != "taps"})
+    model = qtt.MODELS.build(registry, num_classes=10, ctx=qtt.QuantCtx(quant), device="cpu",
+                             **kw)
+    before = convert.to_numpy(model)
+    for col in ("params", "batch_stats"):
+        m, t = convert.flatten(before.get(col, {})), convert.flatten(tree.get(col, {}))
+        assert {k: v.shape for k, v in m.items()} == {k: v.shape for k, v in t.items()}, col
+    sd = make_sd()
+    theirs = jax_import_auto.import_torch_checkpoint(name, sd, tree, fold_bn=fold)
+    import_auto.import_into_model(model, name, {k: torch.from_numpy(np.asarray(v))
+                                                for k, v in sd.items()}, fold_bn=fold)
+    mine = convert.to_numpy(model)
+    assert ("batch_stats" in theirs) == ("batch_stats" in mine)
+    for col in ("params", "batch_stats"):
+        m, t = convert.flatten(mine.get(col, {})), convert.flatten(theirs.get(col, {}))
+        assert set(m) == set(t), col
+        for key, val in t.items():
+            np.testing.assert_array_equal(m[key], val, err_msg=f"{col}/{key}")
 
 
 def test_resnet_family_names_go_to_the_resnet_importer():

@@ -229,9 +229,17 @@ def test_resolve_padding_same_matches_jax_semantics():
 
 
 def test_grouped_conv_raises():
+    """A grouped conv runs (kernel K3g; its plain version on the CPU),
+    bit-equal to JAX's; input channels that do not split into the groups
+    of the kernel's input width raise ValueError before any kernel."""
     x, a_s, a_z, w, w_s, w_z, b = _conv_case(6, 8, 8, 3, True, seed=1)
-    with pytest.raises(NotImplementedError, match="grouped"):
-        quant_conv2d(_t(x), _t(a_s), _t(a_z), 0, 255, _t(w[:, :, :4]), _t(w_s), _t(w_z), _t(b),
+    got = quant_conv2d(_t(x), _t(a_s), _t(a_z), 0, 255, _t(w[:, :, :4]), _t(w_s), _t(w_z), _t(b),
+                       groups=2)
+    want = jax_quant_conv2d(jnp.asarray(x), a_s, a_z, 0, 255, jnp.asarray(w[:, :, :4]),
+                            jnp.asarray(w_s), jnp.asarray(w_z), jnp.asarray(b), groups=2)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    with pytest.raises(ValueError, match="groups"):
+        quant_conv2d(_t(x), _t(a_s), _t(a_z), 0, 255, _t(w[:, :, :3]), _t(w_s), _t(w_z), _t(b),
                      groups=2)
 
 

@@ -456,22 +456,6 @@ def test_public_api_surface():
         assert hasattr(qtt, name), name
 
 
-def test_resnext_runs_float_modes_and_raises_in_packed_grouped_conv():
-    ctx = qtt.QuantCtx({"default": {
-        "weight": {"n_bits": 8, "symmetric": True, "granularity": "channel",
-                   "range": {"name": "minmax"}},
-        "activation": {"n_bits": 8, "symmetric": False, "range": {"name": "minmax"}},
-        "bn_folding": True}})
-    model = MODELS.build("resnext50_32x4d", num_classes=4, ctx=ctx, device="cpu")
-    x = np.random.default_rng(0).normal(size=(1, 32, 32, 3)).astype(np.float32)
-    qtt.init_model(model, x, device="cpu")
-    qtt.pack_model(model, x, device="cpu")
-    with torch.no_grad():
-        assert model(torch.from_numpy(x), mode="quant").shape == (1, 4)
-        with pytest.raises(NotImplementedError, match="grouped"):
-            model(torch.from_numpy(x), mode="packed")
-
-
 def test_kmajor_weight_is_the_transposed_kernel_made_once():
     """K3 reads the HWIO kernel as (Co, KH*KW*Ci) rows, Ci zero-padded to a
     multiple of 16. A packed QuantConv makes that copy once, when its weight

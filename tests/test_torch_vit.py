@@ -329,12 +329,35 @@ def test_vit_family_is_registered_with_flax_paths():
     assert tuple(m.get_var("params", "pos_embedding").shape) == (1, 5, 768)
 
 
-def test_even_channel_int4_conv_pack_is_not_ported():
-    conv = QuantConv(4, 8, (2, 2), (2, 2), "VALID", quant=LayerQuantCfg(weight=WEIGHT, activation=ACT),
-                     device="cpu")
-    conv.init_params(torch.Generator().manual_seed(0))
-    x = torch.randn(1, 4, 4, 4)
+def test_even_channel_int4_conv_packs_w_p4c_as_jax():
+    """An int4 conv with an even input width stores its weight as int4
+    pairs along the input channels (``packed/w_p4c``): the bytes JAX packs,
+    the deploy variables JAX's, and the packed forward, from the port's pack
+    and from JAX's deploy variables, bit-equal to eager JAX's."""
+    from quantize_tpu.nn.layers import QuantConv as JQuantConv
+
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 8, 8, 4)).astype(np.float32)
+    jm = JQuantConv(8, (2, 2), strides=(2, 2), padding="VALID",
+                    quant=JCfg(weight=WEIGHT, activation=ACT))
+    v = dict(jm.init(jax.random.PRNGKey(2), jnp.asarray(x), mode="calibrate"))
+    v.pop("taps", None)
+    v = jax.device_get(v)
+    deploy = jax.device_get(jax_pack_model(jm, v, jnp.asarray(x)))
+    want = np.asarray(jm.apply(deploy, jnp.asarray(x), mode="packed"))
+    conv = QuantConv(4, 8, (2, 2), (2, 2), "VALID",
+                     quant=LayerQuantCfg(weight=WEIGHT, activation=ACT), device="cpu")
+    convert.from_jax_variables(conv, v)
+    port_deploy = qtt.pack_model(conv, x, device="cpu")
+    assert {c: set(d) for c, d in port_deploy.items()} == \
+        {c: set(convert.flatten(d)) for c, d in deploy.items()}
+    assert "w_p4c" in port_deploy["packed"] and "w_int" not in port_deploy["packed"]
+    np.testing.assert_array_equal(port_deploy["packed"]["w_p4c"].numpy(),
+                                  deploy["packed"]["w_p4c"])
+    assert port_deploy["packed"]["w_p4c"].shape == (2, 2, 2, 8)
+    fresh = QuantConv(4, 8, (2, 2), (2, 2), "VALID",
+                      quant=LayerQuantCfg(weight=WEIGHT, activation=ACT), device="cpu")
+    convert.from_jax_variables(fresh, deploy)
     with torch.no_grad():
-        conv(x, mode="calibrate")
-        with pytest.raises(NotImplementedError, match="w_p4c"):
-            conv(x, mode="pack")
+        for m in (conv, fresh):
+            np.testing.assert_array_equal(m(torch.from_numpy(x), mode="packed").numpy(), want)
