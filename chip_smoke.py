@@ -36,7 +36,9 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    BN unfolded), calibrated on 4 batches of 32, packed, then 4 requests of
    256 with the fused residual tail, counted as in phase 2: K3g (the grouped
    int8 conv) 16, K3 21, K2 16, K1 1 and KQ 54 per forward, also at bf16
-   carry; packed within 2e-2 of the quant simulation, bf16 carry within
+   carry, every K3g launch on its wgmma route (tensor cores over
+   block-diagonal slices; the launches by route are printed, at both
+   carries); packed within 2e-2 of the quant simulation, bf16 carry within
    5e-2; every K3g call of one recorded forward at each carry (16 each)
    bit-equal to its plain version, the other kernels at each signature; the
    forward timed beside the float32 forward (TF32 off), K3g's time a forward
@@ -46,11 +48,15 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    trace).
 2b. K3g alone on random operands (``GROUPED_SHAPES``: the golden case's
    groups 2 with Ci/G 4, ResNeXt-101 32x8d's and 64x4d's widths, group
-   widths 1, 2 and 3, asymmetric weights, stride 2 with JAX's asymmetric
-   SAME padding, bf16 output, a group wider than 64 channels, a 5 x 5
-   kernel), each bit for bit, with its time beside its bound and the library
-   call's; then ``GROUPED_REFUSED`` (3 x 3 taps over 1,024 channels a group)
-   raises ValueError by name before launch.
+   widths 1, 2 and 3, asymmetric weights on both routes, stride 2 with JAX's
+   asymmetric SAME padding, bf16 output, a group wider than 64 channels,
+   5 x 5 kernels on both routes, a 1 x 1 grouped kernel, C not a multiple
+   of 64), each on
+   the route its shape selects (both routes run), bit for bit, with its time
+   beside its bound and the library call's; then ``GROUPED_REFUSED`` (3 x 3
+   taps over 1,024 input channels a group, 32 output channels: the dp4a
+   route's smallest tile exceeds shared memory, and the wgmma route takes
+   only Ci/G == Co/G) raises ValueError by name before launch.
 2c. MobileNetV2 W8A8 (``mobile_stack_w8a8``'s quant section), 1000 classes,
    224 x 224, random weights from seed 0, calibrated on 4 batches of 32 and
    packed, then 4 requests of 256: K3 35 (the stem, 16 expand, 17 project
@@ -344,32 +350,43 @@ W8A8_SHAPES = ((25600, 768, 2304, True, "wgmma"), (25600, 768, 3072, True, "wgmm
                (200, 40, 1000, False, "mma_sync"))
 # the route each served launch must take
 SERVED_ROUTE = {"conv1x1_residual": "wgmma", "w4a8_gemm": "wgmma", "w8a8_gemm": "wgmma",
-                "layernorm_quant_int8": "vector"}
+                "layernorm_quant_int8": "vector", "qconv2d_grouped": "wgmma"}
 
 
-# (N, H, W, Ci, Co, G, k, stride, z_w == 0, out dtype) of the K3g phase
-# (tests/test_torch_grouped_route.py's GROUPED_SHAPES): the golden case's
-# shape (G 2, Ci/G 4), ResNeXt-101 32x8d's widths (Ci/G 8-64, batch 32) and
-# 64x4d's G = 64, group widths 1, 2 and 3, asymmetric weights (the row-sum
-# term), stride 2 with JAX's asymmetric SAME padding (even H), bf16 output,
-# more than 64 output channels a group (a group split across blocks), and a
-# 5 x 5 kernel
-GROUPED_SHAPES = ((2, 8, 8, 8, 12, 2, 3, 1, True, "float32"),
-                  (32, 56, 56, 256, 256, 32, 3, 1, True, "float32"),
-                  (32, 56, 56, 512, 512, 32, 3, 2, True, "bfloat16"),
-                  (32, 28, 28, 1024, 1024, 32, 3, 2, True, "float32"),
-                  (32, 7, 7, 2048, 2048, 32, 3, 1, True, "float32"),
-                  (32, 28, 28, 256, 256, 64, 3, 1, True, "float32"),
-                  (32, 14, 14, 2048, 2048, 64, 3, 1, True, "bfloat16"),
-                  (8, 28, 28, 96, 96, 96, 3, 1, False, "float32"),
-                  (8, 28, 28, 192, 192, 96, 3, 2, False, "float32"),
-                  (8, 29, 29, 288, 576, 96, 3, 2, False, "bfloat16"),
-                  (8, 16, 16, 64, 64, 4, 3, 1, False, "float32"),
-                  (8, 20, 20, 8, 260, 2, 3, 2, False, "float32"),
-                  (8, 22, 22, 20, 30, 5, 5, 2, False, "float32"))
-# a shape K3g refuses before launch (3 x 3 taps over 1,024 input channels a
-# group: its smallest tile needs more shared memory than a block has)
-GROUPED_REFUSED = (1, 4, 4, 2048, 64, 2, 3, 1, True, "float32")
+# (N, H, W, Ci, Co, G, k, stride, z_w == 0, out dtype, route) of the K3g
+# phase (tests/test_torch_grouped_route.py's GROUPED_SHAPES): the golden
+# case's shape (G 2, Ci/G 4), ResNeXt-101 32x8d's widths (Ci/G 8-64, batch
+# 32) and 64x4d's G = 64, group widths 1, 2 and 3, asymmetric weights (the
+# row-sum term), stride 2 with JAX's asymmetric SAME padding (even H), bf16
+# output, more than 64 output channels a group (a group split across
+# blocks), a 5 x 5 kernel; then asymmetric weights on the wgmma route at
+# Ci/G 4 (stride 2, bf16), 8 (a 1 x 1 kernel, ragged M), 32 and 64, Ci/G 8
+# with C = 96, not a multiple of 64 (the dp4a route), and a 5 x 5 kernel at
+# Ci/G = Co/G 4 (the wgmma route)
+GROUPED_SHAPES = ((2, 8, 8, 8, 12, 2, 3, 1, True, "float32", "dp4a"),
+                  (32, 56, 56, 256, 256, 32, 3, 1, True, "float32", "wgmma"),
+                  (32, 56, 56, 512, 512, 32, 3, 2, True, "bfloat16", "wgmma"),
+                  (32, 28, 28, 1024, 1024, 32, 3, 2, True, "float32", "wgmma"),
+                  (32, 7, 7, 2048, 2048, 32, 3, 1, True, "float32", "wgmma"),
+                  (32, 28, 28, 256, 256, 64, 3, 1, True, "float32", "wgmma"),
+                  (32, 14, 14, 2048, 2048, 64, 3, 1, True, "bfloat16", "wgmma"),
+                  (8, 28, 28, 96, 96, 96, 3, 1, False, "float32", "dp4a"),
+                  (8, 28, 28, 192, 192, 96, 3, 2, False, "float32", "dp4a"),
+                  (8, 29, 29, 288, 576, 96, 3, 2, False, "bfloat16", "dp4a"),
+                  (8, 16, 16, 64, 64, 4, 3, 1, False, "float32", "wgmma"),
+                  (8, 20, 20, 8, 260, 2, 3, 2, False, "float32", "dp4a"),
+                  (8, 22, 22, 20, 30, 5, 5, 2, False, "float32", "dp4a"),
+                  (32, 56, 56, 128, 128, 32, 3, 2, False, "bfloat16", "wgmma"),
+                  (32, 15, 15, 256, 256, 32, 1, 1, False, "float32", "wgmma"),
+                  (8, 28, 28, 1024, 1024, 32, 3, 1, False, "float32", "wgmma"),
+                  (8, 14, 14, 2048, 2048, 32, 3, 1, False, "float32", "wgmma"),
+                  (8, 28, 28, 96, 96, 12, 3, 1, True, "float32", "dp4a"),
+                  (8, 22, 22, 128, 128, 32, 5, 2, False, "float32", "wgmma"))
+# a shape K3g refuses before launch (3 x 3 taps over 1,024 input channels
+# and 32 output channels a group: the wgmma route takes only Ci/G == Co/G,
+# and the dp4a route's smallest tile needs more shared memory than a block
+# has)
+GROUPED_REFUSED = (1, 4, 4, 2048, 64, 2, 3, 1, True, "float32", "dp4a")
 
 
 # (M, K, N, residual dtype, output dtype, relu, bias, route) of the K2 phase:
@@ -535,8 +552,8 @@ def work(name: str, args) -> tuple:
                 sum(map(_nbytes, (q, w, cs, ws, bias, res))) + m * n * _itemsize(out_dtype))
     if name in ("qconv2d", "qconv2d_grouped"):
         # K3g's products run over each group's own channels (w's Ci/G), at
-        # the int8 peak of the table (the tensor cores'; K3g sums on the CUDA
-        # cores)
+        # the int8 peak of the table (the tensor cores'), without the zeros
+        # its wgmma route multiplies in block-diagonal slices
         q, _, _, w, ws, wz, bias, strides, pads, corr, _, out_dtype = args[:12]
         n_img = q.shape[0]
         kh, kw, ci, co = w.shape
@@ -842,7 +859,7 @@ def serve(model, requests, per_fwd: dict, label: str, classes: int = 1000) -> tu
 
 
 def check_routes(name: str, n: int, label: str) -> dict:
-    """Every one of the ``n`` launches of kernel ``name`` (K1, K2, K4 or K7)
+    """Every one of the ``n`` launches of kernel ``name`` (K1, K2, K3g, K4 or K7)
     since the counts were zeroed took its ``SERVED_ROUTE``."""
     routes = dict(kernel_fn(name).route_launches)
     want = {**{r: 0 for r in routes}, SERVED_ROUTE[name]: n}
@@ -1361,6 +1378,7 @@ def resnext_phase(qtt, batch, card, dev) -> list:
     requests = [batch(256) for _ in range(4)]
     with torch.inference_mode(), qtt.fused_residual(True):
         outs, counts = serve(model, requests, RESNEXT_PER_FWD, "resnext50_32x4d")
+        k3g_routes = check_routes("qconv2d_grouped", counts["qconv2d_grouped"], "resnext50_32x4d")
         for name in ("conv1x1_residual", "w8a8_gemm"):
             check_routes(name, counts[name], "resnext50_32x4d")
         x0, packed = requests[0], outs[0]
@@ -1371,6 +1389,8 @@ def resnext_phase(qtt, batch, card, dev) -> list:
         torch.cuda.synchronize()
         check(launch_counts() == {**{k: 0 for k in launch_counts()}, **RESNEXT_PER_FWD},
               f"resnext50_32x4d bf16 carry: launches {launch_counts()}")
+        check_routes("qconv2d_grouped", RESNEXT_PER_FWD["qconv2d_grouped"],
+                     "resnext50_32x4d bf16 carry")
         r_sim, r_bf16 = rel(packed, sim), rel(packed_bf16, packed)
         log(f"resnext50_32x4d agreement (relative to max|logits|): packed vs quant-sim "
             f"{r_sim:.3e} (<= 2e-2), bf16 carry vs f32 {r_bf16:.3e} (<= 5e-2); argmax agreement "
@@ -1403,6 +1423,7 @@ def resnext_phase(qtt, batch, card, dev) -> list:
                 f"{256e3 / ms:.1f} img/s [{card}]")
         entries = kernel_entries({"qconv2d_grouped": by_signature(records[0]["qconv2d_grouped"])},
                                  counts, max_err, ("qconv2d_grouped",))
+        entries[0]["launches_by_route"] = k3g_routes
         # K3 and K2 at ResNeXt's widths, outside the JSON
         kernel_entries(records[0], counts, max_err, ("qconv2d", "conv1x1_residual"),
                        "resnext50_32x4d")
@@ -1499,10 +1520,10 @@ def wrn_phase(qtt, card, dev) -> None:
 def grouped_args(shape, dev, gen):
     """K3g's arguments on random operands at ``shape`` (``GROUPED_SHAPES``)."""
     import torch
-    from quantize_tpu_torch.ops.qconv import (conv_zero_correction_map, grouped_weight,
+    from quantize_tpu_torch.ops.qconv import (conv_zero_correction_map, grouped_kernel_weight,
                                               resolve_padding)
 
-    n, h, w, ci, co, g, k, s, wz0, dt = shape
+    n, h, w, ci, co, g, k, s, wz0, dt, _ = shape
     q = torch.randint(-128, 128, (n, h, w, ci), generator=gen, device=dev, dtype=torch.int8)
     w_int = torch.randint(-127, 128, (k, k, ci // g, co), generator=gen, device=dev,
                           dtype=torch.int8)
@@ -1512,30 +1533,39 @@ def grouped_args(shape, dev, gen):
             torch.rand(co, generator=gen, device=dev) * 0.01, w_zero,
             torch.randn(co, generator=gen, device=dev), (s, s), pads,
             conv_zero_correction_map(w_int, h, w, (s, s), pads), wz0, getattr(torch, dt), g,
-            grouped_weight(w_int, g))
+            grouped_kernel_weight(w_int, g))
 
 
 def grouped_phase(dev, card) -> int:
     """K3g on random operands at the shapes no model above gives it
-    (``GROUPED_SHAPES``, module docstring, phase 2b), bit for bit against the plain version, with its
-    time beside its bound and the library call's; then a shape it refuses
-    (``GROUPED_REFUSED``) raises ValueError by name before launch."""
+    (``GROUPED_SHAPES``, module docstring, phase 2b), each on the route its
+    shape selects (both routes run), bit for bit against the plain version,
+    with its time beside its bound and the library call's; then a shape it
+    refuses (``GROUPED_REFUSED``) raises ValueError by name before launch."""
     import torch
     from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
     from quantize_tpu_torch.ops.qconv import qconv2d_grouped_int8
 
     gen = torch.Generator(device=dev).manual_seed(3)
+    taken = set()
     for shape in GROUPED_SHAPES:
         args = grouped_args(shape, dev, gen)
+        reset_launch_counts()
         compare("qconv2d_grouped", args)
+        took = [r for r, c in qconv2d_grouped_int8.route_launches.items() if c]
+        check(took == [shape[-1]], f"qconv2d_grouped at {shape}: route {took}, expected "
+              f"{shape[-1]}")
+        taken.add(shape[-1])
         ops, peak, nbytes = work("qconv2d_grouped", args)
         b_ms, b_by = bound_ms(ops, peak, nbytes)
         k_ms = cuda_ms(lambda: qconv2d_grouped_int8(*args), reps=5, inner=10)
         lib = library_call("qconv2d_grouped", args)
         l_ms = cuda_ms(lib, reps=5, inner=5)
         log(f"kernel qconv2d_grouped {describe('qconv2d_grouped', args)} z_w "
-            f"{'= 0' if shape[8] else '!= 0'}: bit-equal, {k_ms:.4f} ms (bound {b_ms:.4f} ms by "
-            f"{b_by}, {b_ms / k_ms:.1%} of it), library {l_ms:.4f} ms [{card}]")
+            f"{'= 0' if shape[8] else '!= 0'}: route {shape[-1]}, bit-equal, {k_ms:.4f} ms "
+            f"(bound {b_ms:.4f} ms by {b_by}, {b_ms / k_ms:.1%} of it), library {l_ms:.4f} ms "
+            f"[{card}]")
+    check(taken == {"wgmma", "dp4a"}, f"qconv2d_grouped: routes run {taken}, expected both")
     args = grouped_args(GROUPED_REFUSED, dev, gen)
     reset_launch_counts()
     try:

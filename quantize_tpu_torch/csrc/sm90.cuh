@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's warp-specialized
-// kernels (wo_gemm.cu, qconv2d.cu, w4a8_gemm.cu, conv1x1_residual.cu):
+// kernels (wo_gemm.cu, qconv2d.cu, qconv2d_grouped.cu, w4a8_gemm.cu,
+// conv1x1_residual.cu, w8a8_gemm.cu):
 // mbarriers, cp.async with a barrier arrival, TMA loads and stores, the
 // 128- and 64-byte-swizzled wgmma
 // shared-memory descriptors, the int8 wgmma instructions and the
@@ -151,6 +152,23 @@ __device__ __forceinline__ uint64_t sw64_desc(const void* tile) {
 // warpgroup's 64 rows (g = lane / 4, t = lane % 4).
 template <int BN>
 struct Wgmma;
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(int (&d)[16], uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+  }
+};
 
 template <>
 struct Wgmma<64> {

@@ -46,9 +46,9 @@ from typing import Any, Mapping, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, grouped_weight, kmajor_weight,
-                         quant_conv2d, quant_conv2d_wo, s2d_block_padding, s2d_kernel,
-                         space_to_depth)
+from ..ops.qconv import (conv_nhwc, conv_zero_correction_map, grouped_kernel_weight,
+                         kmajor_weight, quant_conv2d, quant_conv2d_wo, s2d_block_padding,
+                         s2d_kernel, space_to_depth)
 from ..ops.layernorm import layernorm, layernorm_quant_int8
 from ..ops.qconv1x1 import conv1x1_residual
 from ..ops.qmatmul import (kmajor_packed, pack_int4_splithalf, quant_matmul_w4a8,
@@ -390,10 +390,12 @@ class QuantConv(_QuantLayerBase):
             # the int8 kernels' own copies of the weight, made here once per
             # packed weight (at pack or load time) as buffers outside the
             # packed collection: K3's and K2's K-major copy (for the stem
-            # also the space-to-depth weight and its copy), or K3g's
+            # also the space-to-depth weight and its copy), or the copy
+            # K3g's route for this shape reads
             w_int = unpack_int4_pairs(out, axis=2) if leaf == "w_p4c" else out
             if self.feature_group_count > 1:
-                self.register_buffer("w_grouped", grouped_weight(w_int, self.feature_group_count),
+                self.register_buffer("w_grouped",
+                                     grouped_kernel_weight(w_int, self.feature_group_count),
                                      persistent=False)
             else:
                 self.register_buffer("w_kmajor", kmajor_weight(w_int), persistent=False)

@@ -8,7 +8,9 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
   its launches by route in ``conv1x1_residual_gemm.route_launches``)
 * K3 :func:`~.qconv.qconv2d_int8` (``csrc/qconv2d.cu``)
 * K3g :func:`~.qconv.qconv2d_grouped_int8` (``csrc/qconv2d_grouped.cu``; the
-  grouped int8 conv)
+  grouped int8 conv; its launches by route, tensor-core ``wgmma`` over
+  block-diagonal slices or CUDA-core ``dp4a``, in
+  ``qconv2d_grouped_int8.route_launches``)
 * K4 :func:`~.qmatmul.w4a8_gemm` (``csrc/w4a8_gemm.cu``; its launches by
   route in ``w4a8_gemm.route_launches``)
 * K5 :func:`~.qmatmul.wo_gemm` (``csrc/wo_gemm.cu``)
@@ -48,7 +50,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     mha_rows_int8.absmax_launches = 0
     for routes in (w4a8_gemm.route_launches, conv1x1_residual_gemm.route_launches,
-                   layernorm_quant_int8_rows.route_launches, w8a8_gemm.route_launches):
+                   layernorm_quant_int8_rows.route_launches, w8a8_gemm.route_launches,
+                   qconv2d_grouped_int8.route_launches):
         for route in routes:
             routes[route] = 0
 

@@ -31,7 +31,7 @@ KERNELS = {
     "w8a8_gemm": ("w8a8_gemm", "qtt_w8a8_gemm", [_P] * 10 + [_I] * 6 + [_P]),
     "conv1x1_residual": ("conv1x1_residual", "qtt_conv1x1_residual", [_P] * 10 + [_I] * 7 + [_P]),
     "qconv2d": ("qconv2d", "qtt_qconv2d", [_P] * 9 + [_I] * 16 + [_P]),
-    "qconv2d_grouped": ("qconv2d_grouped", "qtt_qconv2d_grouped", [_P] * 9 + [_I] * 18 + [_P]),
+    "qconv2d_grouped": ("qconv2d_grouped", "qtt_qconv2d_grouped", [_P] * 9 + [_I] * 19 + [_P]),
     "w4a8_gemm": ("w4a8_gemm", "qtt_w4a8_gemm", [_P] * 10 + [_I] * 5 + [_P]),
     "layernorm": ("layernorm", "qtt_layernorm", [_P] * 4 + [_I] * 2 + [_F] + [_I] * 2 + [_P]),
     "layernorm_quant_int8": ("layernorm", "qtt_layernorm_q",

@@ -15,9 +15,13 @@ is packed or loaded, and keeps outside the packed variables; it takes Ci in
 multiples of 16: the wrapper zero-pads fewer channels (the space-to-depth
 stem's 12, ViT's patch embedding's 3), which adds nothing to the sums.
 A grouped conv (``groups > 1``, ResNeXt) launches :func:`qconv2d_grouped_int8`,
-the CUDA-core kernel ``csrc/qconv2d_grouped.cu``, over its own copy of the
-weight (:func:`grouped_weight`), or runs :func:`qconv2d_grouped_int8_plain`
-on CPU tensors.
+``csrc/qconv2d_grouped.cu``, on one of two routes chosen from the shape
+(:func:`_grouped_route`): a tensor-core implicit GEMM over block-diagonal
+slices of 32 (or 64) channels where Ci/G == Co/G is 4-64 (every ResNeXt of
+the model zoo), over its block-diagonal K-major copy of the weight
+(:func:`blockdiag_weight`), else a CUDA-core ``__dp4a`` kernel over its word
+copy (:func:`grouped_weight`); :func:`grouped_kernel_weight` makes the copy
+a shape's route reads. CPU tensors run :func:`qconv2d_grouped_int8_plain`.
 
 The int8 conv pads with q = 0, but a padded position must contribute zero
 to the float result while a real q = 0 position contributes ``z_a·s_a·ŵ``;
@@ -188,10 +192,10 @@ def qconv2d_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
 qconv2d_int8.launches = 0
 
 
-# K3g's tile (``csrc/qconv2d_grouped.cu``): a block of 256 threads covers bp
-# output pixels and up to 64 output channels (whole groups where a group has
-# at most 64, else 64 channels of one group), with the block's weights and
-# its im2col patch rows staged in shared memory as 4-byte words
+# K3g's dp4a route (``csrc/qconv2d_grouped.cu``): a block of 256 threads
+# covers bp output pixels and up to 64 output channels (whole groups where a
+# group has at most 64, else 64 channels of one group), with the block's
+# weights and its im2col patch rows staged in shared memory as 4-byte words
 K3G_CHANNELS = 64
 K3G_PIXELS = (64, 32, 16, 8, 4)
 K3G_SMEM_TWO_BLOCKS = 113 * 1024  # two blocks an SM where it fits
@@ -240,6 +244,62 @@ def grouped_weight(w_int: torch.Tensor, groups: int) -> torch.Tensor:
     return w.permute(3, 0, 1, 4, 2).contiguous()
 
 
+# K3g's wgmma route (``csrc/qconv2d_grouped.cu``, namespace wgg): Ci/G ==
+# Co/G of these widths; a block computes 128 output pixels by 64 output
+# channels, slices of 32 channels (64 at Ci/G = 64) against a block-diagonal
+# weight
+K3G_WGMMA_WIDTHS = (4, 8, 16, 32, 64)
+K3G_WGMMA_BN = 64
+
+
+def _grouped_slice(cig: int) -> int:
+    """The channels of one slice of K3g's wgmma route: 32 (whole groups of
+    ``cig`` = Ci/G <= 32 channels) or one group of 64."""
+    return max(32, cig)
+
+
+def _grouped_route(taps: int, cig: int, cog: int, groups: int, aligned: bool = True) -> str:
+    """Which kernel of ``csrc/qconv2d_grouped.cu`` takes a grouped conv of
+    ``taps`` = KH*KW taps, ``cig``/``cog`` input/output channels a group
+    and ``groups`` groups, chosen from the shape before launch: ``"wgmma"``
+    where Ci/G == Co/G is one of 4, 8, 16, 32 and 64, the C = G * Ci/G
+    channels are a multiple of 64 (a block's 64 output channels are whole
+    slices), the K of a slice (``taps`` * its channels) is below 2^17 (int32
+    sums of at most 2^14 a product cannot overflow) and the activation and
+    the weight copy are 16-byte ``aligned``; else ``"dp4a"``."""
+    if (cig == cog and cig in K3G_WGMMA_WIDTHS and groups * cig % K3G_WGMMA_BN == 0
+            and taps * _grouped_slice(cig) < 1 << 17 and aligned):
+        return "wgmma"
+    return "dp4a"
+
+
+def blockdiag_weight(w_int: torch.Tensor, groups: int) -> torch.Tensor:
+    """The wgmma route's copy of an HWIO int8 kernel (kh, kw, Ci/G, Co) with
+    Ci/G == Co/G: (Co, KH*KW*NS) int8, K-major, NS = ``_grouped_slice(Ci/G)``.
+    Row co holds, for each tap in (kh, kw) order, the NS input channels of
+    co's slice (channels NS * (co // NS) ..): ``w_int[kh, kw, :, co]`` at
+    co's group's place in the slice, zeros at the other groups' channels."""
+    kh, kw, cig, co = w_int.shape
+    ns, taps = _grouped_slice(cig), kh * kw
+    w = w_int.reshape(taps, cig, co).permute(2, 0, 1)  # (Co, taps, Ci/G)
+    # group g's channels start at g * Ci/G, at g * Ci/G mod NS in its slice
+    start = (torch.arange(co, device=w_int.device) // (co // groups)) * cig % ns
+    idx = (start.reshape(co, 1, 1) + torch.arange(cig, device=w_int.device)).expand(co, taps, cig)
+    out = torch.zeros((co, taps, ns), dtype=torch.int8, device=w_int.device)
+    return out.scatter_(2, idx, w).reshape(co, taps * ns)
+
+
+def grouped_kernel_weight(w_int: torch.Tensor, groups: int) -> torch.Tensor:
+    """The copy of an HWIO int8 kernel that the route of its shape reads
+    (:func:`_grouped_route`): :func:`blockdiag_weight` for ``"wgmma"``,
+    :func:`grouped_weight` for ``"dp4a"``. ``QuantConv`` makes it once, when
+    its weight is packed or loaded."""
+    kh, kw, cig, co = w_int.shape
+    if _grouped_route(kh * kw, cig, co // groups, groups) == "wgmma":
+        return blockdiag_weight(w_int, groups)
+    return grouped_weight(w_int, groups)
+
+
 def qconv2d_grouped_int8_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
                                w_int: torch.Tensor, w_scale: torch.Tensor,
                                w_zero: torch.Tensor, bias: Optional[torch.Tensor],
@@ -277,10 +337,20 @@ def qconv2d_grouped_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.
                          groups: int, w_g: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel K3g: int8 NHWC ``q_a`` (N, H, W, Ci) conv int8 HWIO ``w_int``
     (kh, kw, Ci/G, Co) in ``groups`` = G groups, with explicit ``pads`` and
-    the W8A8 epilogue; ``corr_a`` is the (1, H', W', Co) f32 correction map.
-    ``w_g`` is ``grouped_weight(w_int, groups)`` made beforehand (made here
-    when None). Returns (N, H', W', Co) in ``out_dtype``. A shape whose tile
-    does not fit in shared memory raises ValueError before launch."""
+    the W8A8 epilogue; ``corr_a`` is the (1, H', W', Co) f32 correction map,
+    ``conv_zero_correction_map(w_int, H, W, strides, pads)``. Returns (N,
+    H', W', Co) in ``out_dtype``.
+
+    CPU tensors take :func:`qconv2d_grouped_int8_plain`; CUDA tensors launch
+    one of the two kernels of ``csrc/qconv2d_grouped.cu``, chosen from the
+    shape before launch (:func:`_grouped_route`; the launches of each are
+    counted in ``qconv2d_grouped_int8.route_launches``), or raise. ``w_g`` is
+    the copy that route reads, ``grouped_kernel_weight(w_int, groups)`` made
+    beforehand; it is made here when None or of the other route's layout (a
+    misaligned activation takes the dp4a route). A shape whose dp4a tile does
+    not fit in shared memory raises ValueError before launch. A failure on
+    either route raises; nothing is retried on the other route or on the
+    CPU."""
     dev = q_a.device
     if dev.type == "cpu":
         return qconv2d_grouped_int8_plain(q_a, z_eff, a_scale, w_int, w_scale, w_zero, bias,
@@ -297,8 +367,15 @@ def qconv2d_grouped_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.
     sh, sw = strides
     oh = (h + pt + pb - kh) // sh + 1
     ow = (w_sp + pl + pr - kw) // sw + 1
-    cog = co // groups
-    gb, bp, _, _ = _grouped_tile(kh * kw, cig, cog, groups)
+    cog, taps = co // groups, kh * kw
+    aligned = q_a.data_ptr() % 16 == 0 and (w_g is None or w_g.data_ptr() % 16 == 0)
+    route = _grouped_route(taps, cig, cog, groups, aligned)
+    if route == "wgmma":
+        gb = bp = 0
+        g_shape, make = (co, taps * _grouped_slice(cig)), blockdiag_weight
+    else:
+        gb, bp, _, _ = _grouped_tile(taps, cig, cog, groups)
+        g_shape, make = (groups, taps, -(-cig // 4), cog, 4), grouped_weight
     _build.require(q_a, "q_a", dev, torch.int8)
     _build.require(corr_a, "corr_a", dev, torch.float32, (1, oh, ow, co))
     for name, t in (("w_scale", w_scale), ("w_zero", w_zero)):
@@ -308,22 +385,25 @@ def qconv2d_grouped_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.
     _build.require(a_scale, "a_scale", dev, torch.float32, ())
     _build.require(z_eff, "z_eff", dev, torch.float32, ())
     out_code = _build.dtype_code(out_dtype)
-    if w_g is None:
-        w_g = grouped_weight(w_int, groups)
-    _build.require(w_g, "w_g", dev, torch.int8, (groups, kh * kw, -(-cig // 4), cog, 4))
+    if w_g is None or tuple(w_g.shape) != g_shape:
+        w_g = make(w_int, groups)
+    _build.require(w_g, "w_g", dev, torch.int8, g_shape)
     out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=dev)
     fn = _build.kernel_fn("qconv2d_grouped")
     with torch.cuda.device(dev):
         err = fn(_build.ptr(q_a), _build.ptr(w_g), _build.ptr(corr_a), _build.ptr(w_scale),
                  _build.ptr(w_zero), _build.ptr(bias), _build.ptr(a_scale), _build.ptr(z_eff),
                  _build.ptr(out), n, h, w_sp, ci, oh, ow, co, kh, kw, sh, sw, pt, pl, groups,
-                 gb, bp, int(bool(w_zero_is_zero)), out_code, _build.current_stream(dev))
-    _build.check(err, "qconv2d_grouped")
+                 gb, bp, int(bool(w_zero_is_zero)), out_code, int(route == "wgmma"),
+                 _build.current_stream(dev))
+    _build.check(err, f"qconv2d_grouped ({route})")
     qconv2d_grouped_int8.launches += 1
+    qconv2d_grouped_int8.route_launches[route] += 1
     return out
 
 
 qconv2d_grouped_int8.launches = 0
+qconv2d_grouped_int8.route_launches = {"wgmma": 0, "dp4a": 0}
 
 
 def quant_conv2d(
@@ -351,7 +431,7 @@ def quant_conv2d(
     then only read for its shape). ``out_dtype``: the dtype of the result
     (the epilogue stays f32). ``w_km``: the kernel's own copy of the weight,
     made once by the caller that holds it: ``kmajor_weight(w_int)`` for K3
-    (``groups == 1``), ``grouped_weight(w_int, groups)`` for K3g.
+    (``groups == 1``), ``grouped_kernel_weight(w_int, groups)`` for K3g.
     """
     n, h, w_sp, ci = x.shape
     if ci != groups * w_int.shape[2] or w_int.shape[3] % groups:

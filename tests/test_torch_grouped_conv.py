@@ -48,7 +48,7 @@ W8_ASYM = {"n_bits": 8, "symmetric": False, "granularity": "channel",
 A8 = {"n_bits": 8, "symmetric": False, "granularity": "layer", "range": {"name": "minmax"}}
 
 # (N, H, W, Ci, Co, G, k, stride, z_w == 0, out dtype): chip_smoke.py's
-# GROUPED_SHAPES at a small batch and size
+# GROUPED_SHAPES at a small batch and size (both K3g routes' shapes)
 SHAPES = (
     (2, 8, 8, 8, 12, 2, 3, 1, True, "float32"),
     (1, 8, 8, 128, 128, 32, 3, 1, True, "float32"),
@@ -61,6 +61,12 @@ SHAPES = (
     (2, 8, 8, 64, 64, 4, 3, 1, False, "float32"),
     (1, 10, 10, 8, 260, 2, 3, 2, False, "float32"),
     (1, 11, 11, 20, 30, 5, 5, 2, False, "float32"),
+    (1, 8, 8, 128, 128, 32, 3, 2, False, "bfloat16"),
+    (2, 7, 7, 256, 256, 32, 1, 1, False, "float32"),
+    (1, 6, 6, 64, 64, 2, 3, 1, False, "float32"),
+    (1, 6, 6, 128, 128, 2, 3, 1, False, "float32"),
+    (1, 6, 6, 96, 96, 12, 3, 1, True, "float32"),
+    (1, 9, 9, 64, 64, 16, 5, 2, False, "float32"),
 )
 
 
