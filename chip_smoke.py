@@ -90,7 +90,14 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    in JAX); then MobileNetV2 from such a checkpoint with the model and quant
    sections of ``ptq_mbv2_w8only_in1k.yaml`` (8-bit MinMax weights, 32-bit
    activations: weight-only; its convs on the library's float32 conv, as in
-   JAX, its classifier on K5). Each reaches a test top-1 in [0, 100] and writes its
+   JAX, its classifier on K5); then CLIP ViT-B/16 zero-shot from an
+   OpenAI-CLIP-layout checkpoint the script writes (``clip_state_dict``,
+   seed 5) with the model (the five prompt templates) and quant sections of
+   ``clip_vitb16_zeroshot_in1k.yaml``: the runner computes the zero-shot
+   weights over the 10 class names after the import, its packed forward is
+   counted as in phase 5a and gated at 5e-2 (the ViT gate), and no NCHW
+   forward is compared (none is independent of the port). Each reaches a
+   test top-1 in [0, 100] and writes its
    checkpoints, config and log; an imported model's fp32 logits on a test
    batch are within 1e-4 of max|logits| of an independent NCHW forward of
    the state dict with its BatchNorms unfolded, and a wrong
@@ -131,6 +138,35 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    the quant simulation and within 5e-2 with a bf16 carry. One request is
    served again with ``QTPU_ATTN_INT8=1``: K9 12 and K8 0 per forward, the
    logits within 5e-2 of the default path.
+5a. CLIP ViT-B/16 W8A8 (``CFG``), 1000 classes, full width (vision 768 wide,
+   12 layers, 12 heads, patch 16 at 224, S = 197 padded to 200; text 512
+   wide, 12 layers, 8 heads, context 77 padded to 80, vocabulary 49,408;
+   embedding 512), random weights from seed 0: init, calibration of the
+   image tower on 4 batches of 32, the zero-shot weights over 1000 class
+   names x the five templates of ``configs/datasets/imagenet/prompts.yaml``
+   (5,000 prompts, ``HashTokenizer``) through the fp32 text tower, pack,
+   then 4 requests of 128 at f32 carry counted as above: K3 1 (the patch
+   conv), K1 36, K5 12, K7 24 (vector route), K8 12, KQ 13 a forward (also at
+   bf16 carry); packed within 5e-2 of the simulation, bf16 within 5e-2 of
+   f32; every kernel at each signature of one forward at each carry
+   against its plain version. Then the text tower: ``precompute`` in
+   calibrate, quant, pack and packed mode over the 5,000 prompts; one
+   packed pass counted: K8 12 (causal, S 80, valid 77: the first causal K8
+   launches on a model path), K7 24, K1 36, K5 12, KQ 12; its zero-shot
+   weights within 5e-2 (max abs, unit vectors) of quant mode's; every K8
+   call of one recorded packed pass held against its plain version as it
+   is made (rtol 1e-4 / atol 1e-5), K1, K7 and KQ bit for bit, K5 within
+   its limit; the pass timed beside the fp32 pass, each kernel at the text
+   widths beside its bound, plain version and library call (causal K8:
+   SDPA with the causal and key masks).
+5b. CLIP RN50 W8A8's image tower (stages 3-4-6-3 at width 64, the attention
+   pool 2,048 wide with 32 heads), 1000 classes, 224, seed 0: calibrated on
+   4 x 32, zero-shot weights as in 5a, packed, 4 requests of 128: K3 55,
+   K1 4, KQ 59 a forward; packed within 2e-2 of the simulation (the CNN
+   gate); every kernel call of one recorded forward bit-equal; the
+   attention pool's mean token (49 positions) on the card against the same
+   sum / float32 count on the CPU, beside ``Tensor.mean``'s, relative to
+   max|token|; timed as above, each kernel at its shapes.
 6. Long sequences and wide heads: ViT-B/16 W4A8 as in phase 4 at
    ``image_size=384`` (S = 577 padded to 584, the usual fine-tuning
    resolution), calibrated on 4 batches of 8, then one request of 32 images
@@ -274,6 +310,25 @@ CFG_MOBILE = {"default": {
                    "range": {"name": "minmax"}},
     "bn_folding": True}}
 MBV2_W8_CFG = "configs/runners/ptq/minmax/ptq_mbv2_w8only_in1k.yaml"
+# CLIP ViT-B/16 W8A8, image tower (S = 197 padded to 200): the patch conv on
+# K3, each block's fused q/k/v, c_fc and c_proj on K1, its weight-only
+# out-projection on K5, ln_1 and ln_2 fused into their consumers' quantize
+# (K7), the attention on K8, KQ before the patch conv and each c_proj;
+# ln_pre and ln_post are flax's float LayerNorm (no kernel)
+CLIP_VIT_PER_FWD = {"qconv2d": 1, "w8a8_gemm": 36, "wo_gemm": 12, "layernorm_quant_int8": 24,
+                    "mha_rows": 12, "quantize_act_int8": 13}
+# the text tower's packed pass (S = 77 padded to 80, K8 causal)
+CLIP_TEXT_PER_PASS = {"w8a8_gemm": 36, "wo_gemm": 12, "layernorm_quant_int8": 24,
+                      "mha_rows": 12, "quantize_act_int8": 12}
+# CLIP RN50 W8A8 image tower: the 3 stem convs, 48 block convs and 4
+# downsamples on K3 (no fused residual tail: the identity joins after a
+# separate ReLU path), the attention pool's q/k/v/c projections on K1, KQ
+# before each
+CLIP_RN_PER_FWD = {"qconv2d": 55, "w8a8_gemm": 4, "quantize_act_int8": 59}
+# configs/datasets/imagenet/prompts.yaml's templates, over 1000 class names
+CLIP_CFG = "configs/runners/ptq/clip_vitb16_zeroshot_in1k.yaml"
+CLIP_CLASSES = 1000
+
 # the runner phase: the CPU config as users run it (TestCNN, 32 x 32), then
 # at 224 x 224 on synthetic images: the same config at ResNet-50's full width,
 # as ptq_rn50_w8a8_in1k_16shots.yaml sets its model and quant sections, from
@@ -282,7 +337,9 @@ MBV2_W8_CFG = "configs/runners/ptq/minmax/ptq_mbv2_w8only_in1k.yaml"
 # cross-entropy config (MSE weights and activations, CE on the head's
 # activations; W8A8 packed) and of the bias-correction AWQ config (MSE W8
 # weight-only, BiasCorrect on every layer, AWQ with q_group_size 128 on the
-# head; its packed path reaches no kernel, as in JAX)
+# head; its packed path reaches no kernel, as in JAX); MobileNetV2 weight-only;
+# CLIP ViT-B/16 zero-shot from an OpenAI-CLIP-layout checkpoint with the CLIP
+# config's model (the five prompt templates) and quant sections
 RUNNER_CFG = "configs/runners/ptq/minmax/ptq_rn18_w8a8_synthetic.yaml"
 RUNNER_224 = ["train_dataset.image_size=224", "val_dataset.image_size=224",
               "test_dataset.image_size=224"]
@@ -296,7 +353,9 @@ RUNNER_RUNS = (("testcnn", "testcnn", None, False, TESTCNN_PER_FWD),
                ("resnet18@224 cross-entropy", "resnet18", CE_CFG, True, RESNET18_PER_FWD),
                ("resnet18@224 bias-correct + AWQ", "resnet18", AWQ_CFG, True, {}),
                ("mobilenet_v2@224 W8 weight-only from a torch checkpoint", "mobilenet_v2",
-                MBV2_W8_CFG, True, MOBILENET_WO_PER_FWD))
+                MBV2_W8_CFG, True, MOBILENET_WO_PER_FWD),
+               ("clip_vit-b16@224 zero-shot from a CLIP checkpoint", "clip_vit-b16", CLIP_CFG,
+                True, CLIP_VIT_PER_FWD))
 # torchvision ResNets: (blocks per stage, bottleneck, groups, width per group)
 TORCHVISION_RESNETS = {"resnet18": ((2, 2, 2, 2), False, 1, 64),
                        "resnet50": ((3, 4, 6, 3), True, 1, 64),
@@ -435,13 +494,16 @@ class _Recording:
     kept (keyed by its signature and its index), else the first call of each
     signature with the count of its calls."""
 
-    def __init__(self, orig, calls, every=False):
+    def __init__(self, orig, calls, every=False, errs=None, name=""):
         self.orig, self.calls, self.every = orig, calls, every
+        self.errs, self.name = errs, name
 
     def __call__(self, *args):
         key = (_sig(args), len(self.calls)) if self.every else _sig(args)
         entry = self.calls.setdefault(key, [args, 0])
         entry[1] += 1
+        if self.errs is not None:  # held against the plain version there and then
+            self.errs.append(compare(self.name, args))
         return self.orig(*args)
 
     def __getattr__(self, name):  # the wrapper's other counters (K4's routes)
@@ -460,10 +522,13 @@ class Recorder:
     """Swaps the module-level kernel wrappers the port calls (under every
     name a module imported them) for recorders that keep the first call of
     each distinct signature and count calls; the kernels named in ``every``
-    keep every call."""
+    keep every call, and those named in ``compare_each`` compare every call
+    with the plain version as it is made (``errs``: its max abs errors),
+    keeping no more than its first call of each signature."""
 
-    def __init__(self, every=()):
-        self.every = every
+    def __init__(self, every=(), compare_each=()):
+        self.every, self.compare_each = every, compare_each
+        self.errs = {name: [] for name in compare_each}
         import quantize_tpu_torch.nn.layers as layers
         import quantize_tpu_torch.ops.attention as attention
         import quantize_tpu_torch.ops.layernorm as layernorm
@@ -492,7 +557,8 @@ class Recorder:
             for mod, attr in sites:
                 orig = getattr(mod, attr)
                 self.saved.append((mod, attr, orig))
-                setattr(mod, attr, _Recording(orig, self.calls[name], name in self.every))
+                setattr(mod, attr, _Recording(orig, self.calls[name], name in self.every,
+                                              self.errs.get(name), name))
         return self
 
     def __exit__(self, *exc):
@@ -580,20 +646,22 @@ def work(name: str, args) -> tuple:
         x = args[0]
         # float32 ops per element: divide, subtract, round, two clamps, shift
         return 6 * x.numel(), PEAK_F32, _nbytes(x) + x.numel()
-    qkv, heads, s, _, out_dtype, valid = args
+    qkv, heads, s, causal, out_dtype, valid = args
     import torch
 
     rows, three_e = qkv.shape
     b, e = rows // s, three_e // 3
     d, v = e // heads, valid or s
-    # q.k and ex.v over the valid rows and keys at the card's peak for their
-    # type: K9 int8, K8 bf16 (the tensor cores) or float32 (the CUDA cores:
-    # the f32 carry takes no TF32)
+    # q.k and ex.v over the valid rows and the keys each attends (all valid
+    # keys, or with the causal mask the v (v + 1) / 2 pairs at or below the
+    # diagonal) at the card's peak for their type: K9 int8, K8 bf16 (the
+    # tensor cores) or float32 (the CUDA cores: the f32 carry takes no TF32)
+    pairs = v * (v + 1) // 2 if causal else v * v
     if name == "mha_rows_int8":
         peak = PEAK_INT8_OPS
     else:
         peak = PEAK_BF16 if qkv.dtype == torch.bfloat16 else PEAK_F32
-    return 4 * b * heads * v * v * d, peak, _nbytes(qkv) + rows * e * _itemsize(out_dtype)
+    return 4 * b * heads * pairs * d, peak, _nbytes(qkv) + rows * e * _itemsize(out_dtype)
 
 
 def bound_ms(ops: int, peak: float, nbytes: int) -> tuple:
@@ -610,7 +678,8 @@ def library_call(name: str, args):
     F.layer_norm (K6; plus the quantize ops for K7, no single call does
     both); bf16 ``torch.mm`` with a float32 result on the dequantized weight
     plus the bias (K5; both operands cast to bf16 beforehand);
-    F.scaled_dot_product_attention with the key mask (K8, and K9 in bf16);
+    F.scaled_dot_product_attention with the key mask, and the causal mask
+    where the call is causal (K8, and K9 in bf16);
     ``torch.quantize_per_tensor`` (KQ, the nearest call: round(x / s) + zp
     to a quantized int8 tensor, its scale and zero point taken to the host
     beforehand). None where the library call does not take the shape."""
@@ -687,7 +756,10 @@ def library_call(name: str, args):
     b, e = rows // s, three_e // 3
     d = e // heads
     q, k, v = qkv.view(b, s, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
-    mask = (torch.arange(s, device=qkv.device) < (valid or s)).reshape(1, 1, 1, s)
+    pos = torch.arange(s, device=qkv.device)
+    mask = (pos < (valid or s)).reshape(1, 1, 1, s)
+    if causal:  # the key mask and the causal mask in one boolean mask
+        mask = mask & (pos.reshape(s, 1) >= pos.reshape(1, s))
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, is_causal=False)
 
 
@@ -1089,6 +1161,93 @@ def torchvision_state_dict(arch: str, num_classes: int, seed: int) -> dict:
     return sd
 
 
+def clip_state_dict(cfg: dict, image_size: int, seed: int) -> dict:
+    """An OpenAI-CLIP-layout ``state_dict`` for a ``CLIP_CONFIGS``-style
+    ``cfg`` (a ViT or a ModifiedResNet image tower, the causal text tower)
+    from a seeded ``torch.Generator`` (on the host): linears and
+    ``in_proj_weight`` ~ N(0, 1/fan_in), He-normal convs, LayerNorms with
+    gamma ~ 1 + 0.1 N(0, 1) and beta ~ 0.1 N(0, 1), BatchNorms as
+    :func:`torchvision_state_dict`'s, embeddings and projections at the
+    reference's init scales, ``logit_scale`` log(1 / 0.07)."""
+    import math
+
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def normal(key, shape, std):
+        sd[key] = torch.randn(shape, generator=g) * std
+
+    def linear(key, out, inp):
+        normal(f"{key}.weight", (out, inp), inp ** -0.5)
+        normal(f"{key}.bias", (out,), 0.01)
+
+    def ln(key, c):
+        sd[f"{key}.weight"] = 1.0 + 0.1 * torch.randn(c, generator=g)
+        normal(f"{key}.bias", (c,), 0.1)
+
+    def conv_bn(conv, bn, co, ci, k):
+        normal(f"{conv}.weight", (co, ci, k, k), math.sqrt(2.0 / (ci * k * k)))
+        sd[f"{bn}.weight"] = 1.0 + 0.1 * torch.randn(co, generator=g)
+        normal(f"{bn}.bias", (co,), 0.1)
+        normal(f"{bn}.running_mean", (co,), 0.1)
+        sd[f"{bn}.running_var"] = 0.5 + torch.rand(co, generator=g)
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(1000)
+
+    def resblocks(prefix, width, layers):
+        for i in range(layers):
+            p = f"{prefix}.resblocks.{i}"
+            ln(f"{p}.ln_1", width)
+            normal(f"{p}.attn.in_proj_weight", (3 * width, width), width ** -0.5)
+            normal(f"{p}.attn.in_proj_bias", (3 * width,), 0.01)
+            linear(f"{p}.attn.out_proj", width, width)
+            ln(f"{p}.ln_2", width)
+            linear(f"{p}.mlp.c_fc", 4 * width, width)
+            linear(f"{p}.mlp.c_proj", width, 4 * width)
+
+    tw, embed = cfg["transformer_width"], cfg["embed_dim"]
+    normal("token_embedding.weight", (cfg["vocab_size"], tw), 0.02)
+    normal("positional_embedding", (cfg["context_length"], tw), 0.01)
+    resblocks("transformer", tw, cfg["transformer_layers"])
+    ln("ln_final", tw)
+    normal("text_projection", (tw, embed), tw ** -0.5)
+    sd["logit_scale"] = torch.tensor(math.log(1 / 0.07))
+    width, layers = cfg["vision_width"], cfg["vision_layers"]
+    if isinstance(layers, int):
+        patch = cfg["vision_patch_size"]
+        normal("visual.conv1.weight", (width, 3, patch, patch), (3 * patch * patch) ** -0.5)
+        normal("visual.class_embedding", (width,), width ** -0.5)
+        normal("visual.positional_embedding", ((image_size // patch) ** 2 + 1, width),
+               width ** -0.5)
+        ln("visual.ln_pre", width)
+        resblocks("visual.transformer", width, layers)
+        ln("visual.ln_post", width)
+        normal("visual.proj", (width, embed), width ** -0.5)
+        return sd
+    stem = ((width // 2, 3), (width // 2, width // 2), (width, width // 2))
+    for i, (co, ci) in enumerate(stem, 1):
+        conv_bn(f"visual.conv{i}", f"visual.bn{i}", co, ci, 3)
+    in_planes = width
+    for stage, n_blocks in enumerate(layers):
+        planes = width * 2 ** stage
+        for b in range(n_blocks):
+            p = f"visual.layer{stage + 1}.{b}"
+            for i, (co, ci, k) in enumerate(((planes, in_planes, 1), (planes, planes, 3),
+                                             (planes * 4, planes, 1)), 1):
+                conv_bn(f"{p}.conv{i}", f"{p}.bn{i}", co, ci, k)
+            if b == 0 and (stage > 0 or in_planes != planes * 4):
+                conv_bn(f"{p}.downsample.0", f"{p}.downsample.1", planes * 4, in_planes, 1)
+            in_planes = planes * 4
+    side = image_size // 32
+    normal("visual.attnpool.positional_embedding", (side * side + 1, width * 32),
+           (width * 32) ** -0.5)
+    for name, out in (("q_proj", width * 32), ("k_proj", width * 32), ("v_proj", width * 32),
+                      ("c_proj", embed)):
+        linear(f"visual.attnpool.{name}", out, width * 32)
+    return sd
+
+
 def torchvision_forward(sd: dict, arch: str, x_nchw):
     """An independent float32 forward of a torchvision ResNet, ResNeXt or
     ``mobilenet_v2`` state dict in NCHW, BatchNorms unfolded (eval mode), as
@@ -1161,6 +1320,8 @@ def runner_config(out_dir, label: str, model: str, source, ckpt) -> list:
         src.merge_from_yaml(source)
         check(src.model.name == model, f"runner {label}: {source} is not {model}")
         section["quant"] = {"_replace_": True, **src.quant.to_dict()}
+        if src.model.prompts:  # CLIP's zero-shot templates
+            section["model"]["prompts"] = list(src.model.prompts)
     extra = Path(out_dir) / "run.yaml"
     extra.write_text(json.dumps(section))
     return ["--cfg", RUNNER_CFG, str(extra), "--opts", *opts]
@@ -1182,8 +1343,14 @@ def runner_phase(qtt, card, dev) -> None:
         for arch in sorted({m for _, m, _, imported, _ in RUNNER_RUNS if imported}):
             t0 = time.time()
             ckpts[arch] = Path(ckpt_dir) / f"{arch}.pth"
-            torch.save(torchvision_state_dict(arch, 10, seed=5), ckpts[arch])
-            log(f"runner: a torchvision-layout {arch} state dict (10 classes, seed 5) written in "
+            if arch.startswith("clip_"):
+                from quantize_tpu_torch.models.clip.model import CLIP_CONFIGS
+
+                sd, layout = clip_state_dict(CLIP_CONFIGS["ViT-B/16"], 224, seed=5), "OpenAI-CLIP"
+            else:
+                sd, layout = torchvision_state_dict(arch, 10, seed=5), "torchvision"
+            torch.save(sd, ckpts[arch])
+            log(f"runner: a {layout}-layout {arch} state dict (seed 5) written in "
                 f"{time.time() - t0:.2f} s")
         for label, model_name, source, imported, per_fwd in RUNNER_RUNS:
             runner_run(qtt, card, dev, label, model_name, source,
@@ -1243,10 +1410,19 @@ def runner_run(qtt, card, dev, label: str, model_name: str, source, ckpt, per_fw
         runner, = built
         cfg = runner.cfg
         batches = list(runner._prefetch(runner.test_loader))
+        clip = model_name.startswith("clip_")
+        if clip:
+            w = runner.model.get_var("zeroshot", "weights")
+            norms = w.norm(dim=0)
+            check(tuple(w.shape) == (512, 10) and bool(((norms - 1).abs() < 1e-4).all()),
+                  f"runner {label}: the zero-shot weights were not computed")
+            log(f"runner {label}: zero-shot weights {tuple(w.shape)} from 10 class names x "
+                f"{len(cfg.model.prompts)} prompts")
         if ckpt is not None:
             check(len(import_s) == 1, f"runner {label}: the checkpoint was not imported once")
             log(f"runner {label}: import (load, verify sha256, fold, reset observers) "
                 f"{import_s[0]:.3f} s [{card}]")
+        if ckpt is not None and not clip:
             # the import against an independent NCHW forward of the state
             # dict with its BatchNorms unfolded
             sd = {k: v.to(dev) for k, v in torch.load(ckpt, weights_only=True).items()}
@@ -1288,18 +1464,31 @@ def runner_run(qtt, card, dev, label: str, model_name: str, source, ckpt, per_fw
             top1_p = float((packed.argmax(-1) == labels)[valid].float().mean()) * 100
             top1_q = float((sim.argmax(-1) == labels)[valid].float().mean()) * 100
             r_sim = rel(packed, sim)
-            log(f"runner {label}: packed vs quant-mode logits {r_sim:.3e} (<= 2e-2); test "
+            if clip:
+                # the ViT gate on the image tower's output: a random CLIP's
+                # zero-shot logits are exp(logit_scale) times cosines near 0
+                # (clip_rn_phase), whose relative reading is printed beside
+                x0 = batches[0]["img"]
+                r_gate = rel(fresh.model.clip.encode_image(x0, mode="packed"),
+                             runner.model.clip.encode_image(x0, mode="quant"))
+                what, limit = "image features", 5e-2
+                log(f"runner {label}: packed vs quant-mode logits {r_sim:.3e} of max|logits| "
+                    f"({float(sim.abs().max()):.4f})")
+            else:
+                r_gate, what, limit = r_sim, "logits", 2e-2
+            log(f"runner {label}: packed vs quant-mode {what} {r_gate:.3e} (<= {limit:g}); test "
                 f"top-1 packed {top1_p:.2f}% beside quant {top1_q:.2f}%")
-            check(r_sim <= 2e-2, f"runner {label}: packed vs quant-mode agreement failed")
+            check(r_gate <= limit, f"runner {label}: packed vs quant-mode agreement failed")
             with Recorder() as rec:
                 fresh.model(batches[0]["img"], mode="packed")
             max_err = {}
             n = check_kernels([rec.calls], tuple(per_fwd), max_err)
             log(f"runner {label}: {n} kernel-vs-plain comparisons passed; max abs err {max_err}")
             # the shapes no earlier phase gives the kernels: ResNet-50's
-            # 10-class head (K1), all of TestCNN's and ResNet-18's
+            # 10-class head (K1), all of TestCNN's and ResNet-18's (CLIP's
+            # are the CLIP phase's)
             new_shapes = ("w8a8_gemm",) if per_fwd is RESNET_PER_FWD else tuple(per_fwd)
-            if ckpt is None or model_name != "resnet50":
+            if (ckpt is None or model_name != "resnet50") and not clip:
                 kernel_entries(rec.calls, counts, max_err, new_shapes, f"runner {label}")
             if model_name != "testcnn":
                 packed_ms = cuda_ms(lambda: fresh.model(batches[0]["img"], mode="packed"))
@@ -1752,6 +1941,221 @@ def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
     return entries
 
 
+def clip_tokens():
+    """(1000, 5, 77) int32 prompt tokens: ``CLIP_CLASSES`` class names times
+    the config's five templates, through the hash tokenizer over CLIP's
+    vocabulary of 49,408."""
+    from quantize_tpu_torch.models.clip import HashTokenizer, class_prompt_tokens
+    from quantize_tpu_torch.utils import Config
+
+    src = Config()
+    src.merge_from_yaml(CLIP_CFG)
+    return class_prompt_tokens([f"class {i}" for i in range(CLIP_CLASSES)],
+                               list(src.model.prompts), HashTokenizer(49408), 77)
+
+
+def clip_phase(qtt, batch, card, dev) -> None:
+    """CLIP ViT-B/16 W8A8 (module docstring, phase 5a): the image tower
+    packed and served, then the text tower calibrated, packed and run
+    packed over the 5,000 prompts, every causal K8 call of one packed pass
+    held against its plain version as it is made."""
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    t0 = time.time()
+    model = qtt.MODELS.build("clip_vit-b16", num_classes=CLIP_CLASSES, ctx=qtt.QuantCtx(CFG))
+    sample = batch(32)
+    qtt.init_model(model, sample, seed=0)
+    qtt.calibrate_model(model, [batch(32) for _ in range(4)])
+    toks = clip_tokens()
+    n_prompts = toks.shape[0] * toks.shape[1]
+    t1 = time.time()
+    model.precompute(toks, mode="fp32")  # the runner's way: the float text tower
+    torch.cuda.synchronize()
+    fp32_text_s = time.time() - t1
+    qtt.pack_model(model, sample)
+    torch.cuda.synchronize()
+    log(f"clip_vit-b16 W8A8 set-up (init, calibrate 4x32, fp32 zero-shot weights over "
+        f"{n_prompts} prompts in {fp32_text_s:.2f} s, pack) {time.time() - t0:.1f} s")
+    requests = [batch(128) for _ in range(4)]
+    max_err = {}
+    with torch.inference_mode():
+        outs, counts = serve(model, requests, CLIP_VIT_PER_FWD, "clip_vit-b16",
+                             classes=CLIP_CLASSES)
+        for name in ("w8a8_gemm", "layernorm_quant_int8"):
+            check_routes(name, counts[name], "clip_vit-b16")
+        x0, packed = requests[0], outs[0]
+        sim = model(x0, mode="quant")
+        reset_launch_counts()
+        with qtt.packed_carry(torch.bfloat16):
+            packed_bf16 = model(x0, mode="packed")
+        torch.cuda.synchronize()
+        check(launch_counts() == {**{k: 0 for k in launch_counts()}, **CLIP_VIT_PER_FWD},
+              f"clip_vit-b16 bf16 carry: launches {launch_counts()}")
+        r_sim, r_bf16 = rel(packed, sim), rel(packed_bf16, packed)
+        r_emb = rel(model.clip.encode_image(x0, mode="packed"),
+                    model.clip.encode_image(x0, mode="quant"))
+        log(f"clip_vit-b16 agreement (relative to max|logits|): packed vs quant-sim {r_sim:.3e} "
+            f"(<= 5e-2), bf16 carry vs f32 {r_bf16:.3e} (<= 5e-2); argmax agreement packed vs "
+            f"quant-sim {float((packed.argmax(-1) == sim.argmax(-1)).float().mean()):.4f}; image "
+            f"features packed vs quant-sim {r_emb:.3e} of max|feature|")
+        check(r_sim <= 5e-2 and r_bf16 <= 5e-2, "clip_vit-b16 agreement failed")
+        del sim, packed_bf16
+        records = []
+        for carry in (torch.float32, torch.bfloat16):
+            with qtt.packed_carry(carry), Recorder() as rec:
+                model(requests[1], mode="packed")
+            records.append(rec.calls)
+        n = check_kernels(records, tuple(CLIP_VIT_PER_FWD), max_err)
+        log(f"clip_vit-b16 image tower kernels: {n} kernel-vs-plain comparisons passed; max abs "
+            f"err {max_err}")
+        times = {}
+        for label, carry in (("packed f32 carry", torch.float32),
+                             ("packed bf16 carry", torch.bfloat16)):
+            with qtt.packed_carry(carry):
+                times[label] = cuda_ms(lambda: model(requests[2], mode="packed"))
+        times["fp32 forward (yardstick)"] = cuda_ms(lambda: model(requests[2], mode="fp32"))
+        for label, ms in times.items():
+            log(f"time: clip_vit-b16 image tower {label}: {ms:.3f} ms per batch of 128, "
+                f"{128e3 / ms:.1f} img/s [{card}]")
+        where_it_goes(model, requests[2], f"clip_vit-b16 image tower packed, batch 128, f32 "
+                      f"carry [{card}]")
+        del records, outs
+
+    # the text tower: calibrate, quant, pack, then its packed pass (K8 causal)
+    t0 = time.time()
+    model.precompute(toks, mode="calibrate")
+    quant_emb = model.precompute(toks, mode="quant")
+    model.precompute(toks, mode="pack")
+    torch.cuda.synchronize()
+    log(f"clip_vit-b16 text tower: calibrate, quant and pack passes over {n_prompts} prompts "
+        f"{time.time() - t0:.1f} s")
+    with torch.inference_mode():
+        model.precompute(toks, mode="packed")  # first call outside the counted run
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        packed_emb = model.precompute(toks, mode="packed")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"clip_vit-b16 text tower: one packed pass over {n_prompts} prompts with launches "
+            f"{counts}")
+        for name, c in counts.items():
+            check(c == CLIP_TEXT_PER_PASS.get(name, 0),
+                  f"clip text tower: {name} launched {c} times, expected "
+                  f"{CLIP_TEXT_PER_PASS.get(name, 0)}")
+        for name in ("w8a8_gemm", "layernorm_quant_int8"):
+            check_routes(name, counts[name], "clip_vit-b16 text tower")
+        weights = model.get_var("zeroshot", "weights")
+        err = float((packed_emb - quant_emb).abs().max())
+        check(tuple(weights.shape) == (512, CLIP_CLASSES) and bool(torch.isfinite(weights).all()),
+              "clip text tower: zero-shot weights not finite or of the wrong shape")
+        log(f"clip_vit-b16 text tower: packed zero-shot weights vs quant mode max abs {err:.3e} "
+            f"(unit vectors, <= 5e-2)")
+        check(err <= 5e-2, "clip text tower: packed vs quant-mode agreement failed")
+        # one recorded packed pass: every causal K8 call held against its
+        # plain version as it is made; the other kernels at each signature
+        with Recorder(compare_each=("mha_rows",)) as rec:
+            model.precompute(toks, mode="packed")
+        k8 = rec.errs["mha_rows"]
+        check(len(k8) == CLIP_TEXT_PER_PASS["mha_rows"],
+              f"clip text tower: {len(k8)} K8 calls compared, expected 12")
+        (k8_args, _), = rec.calls["mha_rows"].values()
+        check(k8_args[3] is True and k8_args[2] == 80 and k8_args[5] == 77,
+              f"clip text tower: K8 called with {describe('mha_rows', k8_args)} "
+              f"causal={k8_args[3]}")
+        max_err["mha_rows"] = max(k8)
+        log(f"clip_vit-b16 text tower: all {len(k8)} causal K8 calls of one packed pass "
+            f"({describe('mha_rows', k8_args)}) within rtol 1e-4 / atol 1e-5 of the plain "
+            f"version, max abs err {max(k8):.3e}")
+        names = tuple(n for n in CLIP_TEXT_PER_PASS if n != "mha_rows")
+        n = check_kernels([rec.calls], names, max_err)
+        log(f"clip_vit-b16 text tower kernels: {n} more kernel-vs-plain comparisons passed; max "
+            f"abs err {max_err}")
+        text_ms = cuda_ms(lambda: model.precompute(toks, mode="packed"), reps=3, warmup=1)
+        fp32_ms = cuda_ms(lambda: model.precompute(toks, mode="fp32"), reps=3, warmup=1)
+        log(f"time: clip_vit-b16 text tower packed pass over {n_prompts} prompts: {text_ms:.3f} ms "
+            f"(fp32 pass {fp32_ms:.3f} ms) [{card}]")
+        from scripts.profile_torch_port import profile_calls
+
+        profile_calls(lambda: model.precompute(toks, mode="packed"),
+                      f"clip_vit-b16 text tower packed pass, {n_prompts} prompts [{card}]", n_fwd=2)
+        kernel_entries(rec.calls, counts, max_err, tuple(CLIP_TEXT_PER_PASS), "clip text tower")
+    del model, requests, rec, quant_emb, packed_emb
+    torch.cuda.empty_cache()
+
+
+def clip_rn_phase(qtt, batch, card, dev) -> None:
+    """CLIP RN50 W8A8's image tower (module docstring, phase 5b)."""
+    import torch
+
+    t0 = time.time()
+    model = qtt.MODELS.build("clip_rn50", num_classes=CLIP_CLASSES, ctx=qtt.QuantCtx(CFG))
+    sample = batch(32)
+    qtt.init_model(model, sample, seed=0)
+    qtt.calibrate_model(model, [batch(32) for _ in range(4)])
+    model.precompute(clip_tokens(), mode="fp32")
+    qtt.pack_model(model, sample)
+    torch.cuda.synchronize()
+    log(f"clip_rn50 W8A8 set-up (init, calibrate 4x32, fp32 zero-shot weights, pack) "
+        f"{time.time() - t0:.1f} s")
+    requests = [batch(128) for _ in range(4)]
+    with torch.inference_mode():
+        outs, counts = serve(model, requests, CLIP_RN_PER_FWD, "clip_rn50", classes=CLIP_CLASSES)
+        check_routes("w8a8_gemm", counts["w8a8_gemm"], "clip_rn50")
+        x0, packed = requests[0], outs[0]
+        sim = model(x0, mode="quant")
+        # the CNN gate on the tower's output: with random weights the
+        # zero-shot logits are exp(logit_scale) times cosines of nearly
+        # orthogonal embeddings, so max|logits| is small and the logits'
+        # relative reading magnifies the same feature error (printed beside)
+        r_emb = rel(model.clip.encode_image(x0, mode="packed"),
+                    model.clip.encode_image(x0, mode="quant"))
+        r_sim = rel(packed, sim)
+        same = float((packed.argmax(-1) == sim.argmax(-1)).float().mean())
+        log(f"clip_rn50 agreement: image features packed vs quant-sim {r_emb:.3e} of max|feature| "
+            f"(<= 2e-2); zero-shot logits {r_sim:.3e} of max|logits| "
+            f"({float(sim.abs().max()):.4f}); argmax agreement {same:.4f}")
+        check(r_emb <= 2e-2, "clip_rn50 agreement failed")
+        del sim
+        # every kernel call of one recorded forward, and the attention
+        # pool's input for its mean token
+        pool_in = []
+        hook = model.clip.visual.attnpool.register_forward_pre_hook(
+            lambda mod, args: pool_in.append(args[0]))
+        with Recorder(every=tuple(CLIP_RN_PER_FWD)) as rec:
+            model(requests[1], mode="packed")
+        hook.remove()
+        max_err = {}
+        n = check_kernels([rec.calls], tuple(CLIP_RN_PER_FWD), max_err)
+        log(f"clip_rn50 kernels: {n} kernel-vs-plain comparisons passed (every call of one "
+            f"forward, bit-equal); max abs err {max_err}")
+        x = pool_in[0]
+        seq = x.reshape(x.shape[0], -1, x.shape[-1]).float()
+        count = torch.tensor(float(seq.shape[1]), dtype=torch.float32)
+        card_mean = seq.sum(dim=1) / count.to(dev)
+        cpu_mean = seq.cpu().sum(dim=1) / count
+        scale = float(cpu_mean.abs().max())
+        r_div = float((card_mean.cpu() - cpu_mean).abs().max()) / scale
+        r_mean = float((seq.mean(dim=1).cpu() - seq.cpu().mean(dim=1)).abs().max()) / scale
+        log(f"clip_rn50 attention pool mean token over {seq.shape[1]} positions, card vs CPU: "
+            f"sum / float32 count {r_div:.3e}, Tensor.mean {r_mean:.3e} of max|token|")
+        times = {}
+        for label, carry in (("packed f32 carry", torch.float32),
+                             ("packed bf16 carry", torch.bfloat16)):
+            with qtt.packed_carry(carry):
+                times[label] = cuda_ms(lambda: model(requests[2], mode="packed"))
+        times["fp32 forward (yardstick)"] = cuda_ms(lambda: model(requests[2], mode="fp32"))
+        for label, ms in times.items():
+            log(f"time: clip_rn50 image tower {label}: {ms:.3f} ms per batch of 128, "
+                f"{128e3 / ms:.1f} img/s [{card}]")
+        where_it_goes(model, requests[2], f"clip_rn50 image tower packed, batch 128, f32 carry "
+                      f"[{card}]")
+        kernel_entries({k: by_signature(v) for k, v in rec.calls.items()}, counts, max_err,
+                       tuple(CLIP_RN_PER_FWD), "clip_rn50")
+    del model, requests, outs, rec, pool_in
+    torch.cuda.empty_cache()
+
+
 def long_attention_phase(qtt, card, dev) -> None:
     """ViT-B/16 W4A8 at 384 x 384 (phase 6), and K8 / K9 at the long
     shapes the dispatch sends them."""
@@ -2001,6 +2405,12 @@ def main() -> int:
     t0 = time.time()
     entries += vit32_phase(qtt, batch, card, vit_err)
     log(f"vit_b_32 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    clip_phase(qtt, batch, card, dev)
+    log(f"clip_vit-b16 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    clip_rn_phase(qtt, batch, card, dev)
+    log(f"clip_rn50 phase {time.time() - t0:.1f} s")
     t0 = time.time()
     long_attention_phase(qtt, card, dev)
     log(f"long attention phase {time.time() - t0:.1f} s")

@@ -10,7 +10,7 @@ from .transforms import TRANSFORMS, build_transform
 from ..utils.registry import not_ported
 
 DATASETS.register_dict({
-    name: not_ported(f"the {name!r} dataset", 7)
+    name: not_ported(f"the {name!r} dataset", 5)
     for name in ("cifar10", "cifar100", "cifar10c", "imagenet", "imagenet_a", "imagenet_r",
                  "imagenet_v2", "imagenet_sketch", "imagenet_c")
 })

@@ -1,5 +1,5 @@
-"""Model zoo registry (the ResNet, MobileNet, WideResNet and ViT families and
-the test CNNs; CLIP not yet) and :func:`build_model`.
+"""Model zoo registry (the ResNet, MobileNet, WideResNet, ViT and CLIP
+families and the test CNNs) and :func:`build_model`.
 
 Constructors take ``(num_classes, ctx, device="cuda")``; ``ctx`` is a
 :class:`~quantize_tpu_torch.nn.intercept.QuantCtx` (None builds the FP32
@@ -13,6 +13,7 @@ from ..nn.intercept import QuantCtx
 from ..utils.config import Config
 from ..utils.registry import Registry
 from . import mobilenet, resnet, vit, wideresnet
+from .clip import CLIP_MODELS
 from .testnet import TestCNN, TrajNet
 
 MODELS = Registry("models")
@@ -43,6 +44,7 @@ MODELS.register_dict({
     "testcnn": TestCNN,
     "trajnet": TrajNet,
 })
+MODELS.register_dict(CLIP_MODELS)
 
 _RESERVED_MODEL_KEYS = {
     "name", "num_classes", "classnames", "prompts", "checkpoint", "pretrained",

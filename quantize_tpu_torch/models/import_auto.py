@@ -6,9 +6,8 @@ dict) to the right converter, the role of the reference's pretrained-weight
 loading inside ``build_model`` (``modelzoo/load.py:12``). The converters
 work on the variables as nested dicts of numpy arrays under the flax names;
 :func:`import_into_model` takes them from a port model and loads the result
-back into its modules. The ResNet, MobileNet and WideResNet importers are
-ported; the ViT and CLIP importers raise not-ported, naming the ROADMAP.md
-queue 1 item that brings them.
+back into its modules. Every importer of the JAX package is ported: the
+ResNet, MobileNet, WideResNet, torchvision ViT and OpenAI CLIP families.
 """
 from __future__ import annotations
 
@@ -18,9 +17,10 @@ import torch
 
 from .. import convert
 from ..nn.variables import collections
-from ..utils.registry import not_ported_error
+from .import_clip import import_clip
 from .import_mobilenet import import_mobilenet_v1, import_mobilenet_v2, import_mobilenet_v3
 from .import_resnet import import_resnet
+from .import_vit import import_vit
 from .import_wideresnet import import_wideresnet
 
 _VIT_LAYERS = {"vit_b_16": 12, "vit_b_32": 12, "vit_l_16": 24,
@@ -33,9 +33,9 @@ _IMPORT_COLLECTIONS = ("params", "batch_stats", "qparams")
 def _importer_for(model_name: str) -> Callable[..., Dict[str, Any]]:
     name = model_name.lower()
     if name in _VIT_LAYERS:
-        raise not_ported_error(f"the torchvision ViT checkpoint importer ({model_name!r})", 5)
+        return lambda sd, v, **_kw: import_vit(sd, v, num_layers=_VIT_LAYERS[name])
     if name.startswith("clip_"):
-        raise not_ported_error(f"the CLIP checkpoint importer ({model_name!r})", 5)
+        return lambda sd, v, fold_bn=True, **_kw: import_clip(sd, v, fold_bn=fold_bn)
     if name == "mobilenet_v1":
         return import_mobilenet_v1
     if name == "mobilenet_v2":

@@ -27,7 +27,10 @@ def relu6(x: torch.Tensor) -> torch.Tensor:
 
 
 def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
-    return relu6(x + 3.0) / 6.0
+    # a true division, as eager JAX's: on CUDA PyTorch turns a division by
+    # a Python scalar into a multiplication by its float32 reciprocal
+    six = torch.tensor(6.0, dtype=torch.float32, device=x.device)
+    return relu6(x + 3.0) / six
 
 
 def hard_swish(x: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,15 @@
-"""LayerNorm with the fused kernel path for packed inference.
+"""LayerNorms: the fused kernel path for packed inference, and flax's own.
 
-PyTorch counterpart of ``quantize_tpu/nn/norm.py``: parameters ``scale``
-and ``bias`` under the flax names, float32 statistics in every mode, and
-kernel K6 (:func:`~quantize_tpu_torch.ops.layernorm.layernorm`) in packed
-mode. ``params_tuple()`` hands the raw tensors to a consumer layer that
-fuses the normalize into its activation quantize (kernel K7).
+:class:`FusedLayerNorm` is the PyTorch counterpart of
+``quantize_tpu/nn/norm.py``: parameters ``scale`` and ``bias`` under the
+flax names, float32 statistics in every mode, and kernel K6
+(:func:`~quantize_tpu_torch.ops.layernorm.layernorm`) in packed mode.
+``params_tuple()`` hands the raw tensors to a consumer layer that fuses the
+normalize into its activation quantize (kernel K7).
+
+:class:`LayerNorm` is ``flax.linen.LayerNorm`` (CLIP's ``ln_pre``,
+``ln_post`` and ``ln_final``): no kernel in any mode, flax's order of
+operations.
 """
 from __future__ import annotations
 
@@ -40,3 +45,25 @@ class FusedLayerNorm(VarModule):
         their own quantize (``QuantDense``/``QuantMultiheadAttention``
         ``pre_norm``)."""
         return self.get_var("params", "scale"), self.get_var("params", "bias"), self.epsilon
+
+
+class LayerNorm(FusedLayerNorm):
+    """``flax.linen.LayerNorm`` over the last axis (FusedLayerNorm's
+    parameters, none of its kernels), in flax's order of operations
+    (``flax/linen/normalization.py``, 0.12): statistics in at least float32,
+    the "fast" variance ``max(0, mean(x^2) - mean(x)^2)``, then ``(x - mean)
+    * (rsqrt(var + eps) * scale) + bias``. The means are sums divided by a
+    float32 tensor (on CUDA PyTorch turns a division by a Python scalar, and
+    ``Tensor.mean``, into a multiplication by the reciprocal). The output
+    takes the promoted dtype of ``x`` and the float32 parameters, as flax's
+    does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale, bias = self.get_var("params", "scale"), self.get_var("params", "bias")
+        x32 = x.float()
+        n = torch.tensor(float(x.shape[-1]), dtype=torch.float32, device=x.device)
+        mu = x32.sum(dim=-1, keepdim=True) / n
+        mu2 = (x32 * x32).sum(dim=-1, keepdim=True) / n
+        var = torch.clamp_min(mu2 - mu * mu, 0.0)
+        y = (x32 - mu) * (torch.rsqrt(var + self.epsilon) * scale)
+        return (y + bias).to(torch.promote_types(x.dtype, torch.float32))

@@ -5,7 +5,7 @@ A copy of ``pack_int4_pairs`` / ``unpack_int4_pairs`` of
 weight (``packed/w_p4c``, pairs along the kernel's input-channel axis), so
 that the port loads and writes the JAX package's bytes as they are. The
 dense ``tpack``/``tunpack`` stream packing is not ported yet (ROADMAP.md
-queue 1 item 7).
+queue 1 item 6).
 """
 from __future__ import annotations
 

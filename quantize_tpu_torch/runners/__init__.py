@@ -19,8 +19,8 @@ from .base import BasicRunner
 from .ptq import PTQ
 
 RUNNERS = Registry("runners")
-RUNNERS.register_dict({"ptq": PTQ, "qat": not_ported("the QAT runner", 6),
-                       "adaround": not_ported("the AdaRound runner", 6)})
+RUNNERS.register_dict({"ptq": PTQ, "qat": not_ported("the QAT runner", 2),
+                       "adaround": not_ported("the AdaRound runner", 2)})
 
 
 def build_runner(cfg, train_loader=None, val_loader=None, test_loader=None,
@@ -40,7 +40,7 @@ def execute_runner(cfg, device="cuda") -> Optional[dict]:
     """Build loaders + runner, calibrate, then test from the best checkpoint
     (reference ``runner/__init__.py:41-77``)."""
     if cfg.train and cfg.train.elastic:
-        raise not_ported_error("the fault-tolerant run (train.elastic)", 7)
+        raise not_ported_error("the fault-tolerant run (train.elastic)", 6)
     logger = get_logger()
     train_loader = _loader(cfg, "train")
     val_loader = _loader(cfg, "val")

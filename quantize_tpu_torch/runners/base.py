@@ -91,14 +91,15 @@ class BasicRunner:
     def init_variables(self, sample_batch: Dict[str, np.ndarray], seed: int = 0) -> None:
         """Initialise the parameters from ``seed`` and run one calibrate
         pass over ``sample_batch`` (JAX's ``model.init`` in calibrate mode),
-        then import ``cfg.model.torch_checkpoint`` where one is set; a no-op
-        once the variables are set. CLIP's zero-shot weights wait for the
-        CLIP model (ROADMAP.md, queue 1 item 5)."""
+        then import ``cfg.model.torch_checkpoint`` where one is set and, for
+        CLIP, compute the zero-shot weights; a no-op once the variables are
+        set."""
         if self._initialized:
             return
         api.init_model(self.model, sample_batch["img"], seed=seed, device=self.device)
         self._initialized = True
         self._maybe_import_torch_checkpoint()
+        self._maybe_precompute_zeroshot()
 
     def _maybe_import_torch_checkpoint(self) -> None:
         """``cfg.model.torch_checkpoint``: convert a user-provided torch
@@ -131,6 +132,22 @@ class BasicRunner:
         import_into_model(self.model, str(self.cfg.model.name), sd, fold_bn=fold,
                           into_scale=into_scale)
         reset_observers(self.model)
+
+    def _maybe_precompute_zeroshot(self) -> None:
+        """CLIP's zero-shot weights: one pass of the text tower in fp32 over
+        the class prompts (``cfg.model.classnames``, which the runner takes
+        from the dataset, else ``str(i)``, times ``cfg.model.prompts``), as
+        the reference's ``CLIPModel.zeroshot_classifier`` does."""
+        from ..models.clip import CLIPZeroShot, build_zeroshot
+
+        if not isinstance(self.model, CLIPZeroShot):
+            return
+        classnames = list(self.cfg.model.classnames or [])
+        if not classnames:
+            classnames = [str(i) for i in range(self.model.num_classes)]
+        prompts = list(self.cfg.model.prompts or [])
+        self.logger.info(f"precomputing CLIP zero-shot weights for {len(classnames)} classes")
+        build_zeroshot(self.model, classnames, prompts or None)
 
     # -- steps (overridden by subclasses) ---------------------------------
     def train_step(self, batch, epoch: int, it: int, total_iters: int):
@@ -214,7 +231,7 @@ class BasicRunner:
         packed buffers)."""
         if not zipfile.is_zipfile(path):
             # the JAX runner pickles flax msgpack bytes; torch.save writes a zip
-            raise not_ported_error(f"reading the JAX package's checkpoint {path!r}", 7)
+            raise not_ported_error(f"reading the JAX package's checkpoint {path!r}", 4)
         payload = torch.load(path, map_location="cpu", weights_only=True)
         self.variables = payload["variables"]
         self.logger.info(f"checkpoint loaded from {path}")

@@ -14,16 +14,19 @@ those tests' tolerances:
   into_scale, bias correction, W4A8 MSE, stride 2, W4 weight-only,
   asymmetric weights, grouped: ``conv_w8a8_grouped``), linear, attention,
   QuantReLU and QuantMaxPool, with
-  the same bounded allowance for quant-step flips. The ``adaround_*`` cases
-  wait for AdaRound (ROADMAP.md queue 1 item 6);
+  the same bounded allowance for quant-step flips. The four ``adaround_*``
+  cases wait for AdaRound (ROADMAP.md queue 1 item 2);
 * models: the ResNet-18 pipelines (torchvision-layout weights from
   ``tests/golden/weightgen.py`` through ``init_model(torch_state_dict=...)``,
   then calibration), the two-block pre-LN attention stacks and the
   MobileNet-style stack (``mobile_stack_w8a8``: BN-folded depthwise and
-  pointwise convs, a residual block): every quantizer's calibrated
-  scale/zero (rtol 2e-3), the fp32 logits (2e-3) and the quant logits
-  within the network's own quantization noise with the same argmax. The
-  CLIP towers wait for queue 1 item 5.
+  pointwise convs, a residual block) and the reference's own CLIP towers
+  (``clip_vit_tower_w8a8``: the ViT tower, its LayerNorms live;
+  ``clip_rn_tower_w8a8``: ModifiedResNet with BN folded and the attention
+  pool scoped to 32 bits, whose reference quantizers are inert): every
+  quantizer's calibrated scale/zero (rtol 2e-3), the fp32 logits (2e-3) and
+  the quant logits within the network's own quantization noise with the
+  same argmax. Every model case replays.
 """
 import json
 import os
@@ -42,6 +45,7 @@ from quantize_tpu_torch.nn.norm import FusedLayerNorm
 from quantize_tpu_torch.nn.quantizer import Quantizer, awq_group
 from quantize_tpu_torch.quant.observers import AWQ, BiasCorrect, build_observer
 from quantize_tpu_torch.quant.qspec import QuantSpec
+from quantize_tpu_torch.models.clip.model import CLIPVisionTransformer, ModifiedResNet
 from quantize_tpu_torch.models.import_torch import fold_bn
 
 torch.set_num_threads(2)
@@ -371,7 +375,9 @@ def _check_qparams(model, c, path_map):
     checked = skipped = 0
     for ref_path, rec in c["qparams"].items():
         q = path_map(ref_path)
-        if c.get("skip_q") and q.endswith(c["skip_q"]):
+        # None: a site the mapper excludes (the CLIP attention pool's inert
+        # reference quantizers)
+        if q is None or (c.get("skip_q") and q.endswith(c["skip_q"])):
             skipped += 1
             continue
         for field in ("scale", "zero") + (("awq_scale",) if "awq_scale" in rec else ()):
@@ -600,5 +606,106 @@ def test_mobile_stack_pipeline_replays_the_reference_golden():
         for xb in batches:
             model(xb, mode="calibrate")
         _check_qparams(model, c, _mobile_qpath)
+        _check_logits(_np(model(x_eval, mode="fp32")), c, "fp32")
+        _check_logits(_np(model(x_eval, mode="quant")), c, "quant")
+
+
+# the reference's own CLIP towers (tests/test_golden_models.py)
+
+def _clip_vit_params(c, sd):
+    d, p = c["width"], {}
+    p["conv1/kernel"] = sd["conv1.weight"].transpose(2, 3, 1, 0)
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        p[name] = sd[name]
+    for ln in ("ln_pre", "ln_post"):
+        p[f"{ln}/scale"], p[f"{ln}/bias"] = sd[f"{ln}.weight"], sd[f"{ln}.bias"]
+    for i in range(c["layers"]):
+        pre, blk = f"transformer.resblocks.{i}.", f"transformer/resblock_{i}"
+        iw, ib = sd[pre + "attn.in_proj_weight"], sd[pre + "attn.in_proj_bias"]
+        dense = {"attn/q_proj": (iw[:d], ib[:d]), "attn/k_proj": (iw[d:2 * d], ib[d:2 * d]),
+                 "attn/v_proj": (iw[2 * d:], ib[2 * d:]),
+                 "attn/out_proj": (sd[pre + "attn.out_proj.weight"],
+                                   sd[pre + "attn.out_proj.bias"]),
+                 "c_fc": (sd[pre + "mlp.c_fc.weight"], sd[pre + "mlp.c_fc.bias"]),
+                 "c_proj": (sd[pre + "mlp.c_proj.weight"], sd[pre + "mlp.c_proj.bias"])}
+        for name, (w, b) in dense.items():
+            p[f"{blk}/{name}/kernel"], p[f"{blk}/{name}/bias"] = w.T, b
+        for ln in ("ln_1", "ln_2"):
+            p[f"{blk}/{ln}/scale"] = sd[f"{pre}{ln}.weight"]
+            p[f"{blk}/{ln}/bias"] = sd[f"{pre}{ln}.bias"]
+    return convert.unflatten(p)
+
+
+def _clip_vit_qpath(ref_path):
+    parts = ref_path.split(".")
+    if parts[0] == "conv1":
+        return f"conv1/{parts[-1]}"
+    blk = f"transformer/resblock_{parts[2]}"
+    if parts[3] == "attn":
+        return f"{blk}/{_MHA_QMAP[parts[-1]].replace('self_attention', 'attn')}"
+    assert parts[3] == "mlp", ref_path  # mlp.c_fc / mlp.c_proj sit flat in the block
+    return f"{blk}/{parts[4]}/{parts[-1]}"
+
+
+def _clip_rn_params(c, sd):
+    p = {}
+
+    def conv_fold(ours, conv, bn):
+        w, b, _ = fold_bn(sd[f"{conv}.weight"], None, sd[f"{bn}.weight"], sd[f"{bn}.bias"],
+                          sd[f"{bn}.running_mean"], sd[f"{bn}.running_var"])
+        p[f"{ours}/kernel"], p[f"{ours}/bias"] = w.transpose(2, 3, 1, 0), b
+
+    for i in (1, 2, 3):
+        conv_fold(f"conv{i}", f"conv{i}", f"bn{i}")
+    for stage in (1, 2, 3, 4):
+        pre = f"layer{stage}.0."
+        for i in (1, 2, 3):
+            conv_fold(f"layer{stage}_0/conv{i}", pre + f"conv{i}", pre + f"bn{i}")
+        if f"{pre}downsample.0.weight" in sd:
+            conv_fold(f"layer{stage}_0/downsample_conv", pre + "downsample.0", pre + "downsample.1")
+    p["attnpool/positional_embedding"] = sd["attnpool.positional_embedding"]
+    for proj in ("q_proj", "k_proj", "v_proj", "c_proj"):
+        p[f"attnpool/{proj}/kernel"] = sd[f"attnpool.{proj}.weight"].T
+        p[f"attnpool/{proj}/bias"] = sd[f"attnpool.{proj}.bias"]
+    return convert.unflatten(p)
+
+
+def _clip_rn_qpath(ref_path):
+    parts = ref_path.split(".")
+    if parts[0].startswith("layer"):
+        blk = f"{parts[0]}_{parts[1]}"
+        conv = "downsample_conv" if parts[2] == "downsample" else parts[2]
+        return f"{blk}/{conv}/{parts[-1]}"
+    if parts[0].startswith("conv"):
+        return f"{parts[0]}/{parts[-1]}"
+    assert parts[0] == "attnpool", ref_path
+    return None  # inert in the reference (never calibrated): skipped, as in JAX's replay
+
+
+@pytest.mark.parametrize("case", ["clip_vit_tower_w8a8", "clip_rn_tower_w8a8"])
+def test_clip_tower_replays_the_reference_golden(case):
+    """The reference's own CLIP VisionTransformer and ModifiedResNet towers
+    (tests/test_golden_models.py), the port's towers built from the quant
+    config, the state dict carried in (BN folded for the RN tower), then
+    calibrated on the fixture's batches."""
+    c = MODELS[case]
+    ctx = qtt.QuantCtx(c["quant_cfg"])
+    shape = tuple(c["x_shape"])
+    if c["kind"] == "clip_vit":
+        model = CLIPVisionTransformer(c["patch"], c["width"], c["layers"], c["heads"], c["out_dim"],
+                                      image_size=shape[2], ctx=ctx, device="cpu")
+        params, qpath = _clip_vit_params(c, _state_dict(c)), _clip_vit_qpath
+    else:
+        model = ModifiedResNet(tuple(c["layers"]), c["out_dim"], c["heads"], c["width"],
+                               image_size=shape[2], ctx=ctx, device="cpu")
+        params, qpath = _clip_rn_params(c, _state_dict(c)), _clip_rn_qpath
+    convert.from_jax_variables(model, {"params": params})
+    batches = [_t(_nhwc(gen_input(s, shape, c["in_scale"], c["in_loc"])))
+               for s in c["calib_seeds"]]
+    x_eval = _t(_nhwc(gen_input(c["eval_seed"], shape, c["in_scale"], c["in_loc"])))
+    with torch.no_grad():
+        for xb in batches:
+            model(xb, mode="calibrate")
+        _check_qparams(model, c, qpath)
         _check_logits(_np(model(x_eval, mode="fp32")), c, "fp32")
         _check_logits(_np(model(x_eval, mode="quant")), c, "quant")

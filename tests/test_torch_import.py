@@ -22,7 +22,9 @@ package on the CPU.
   (``tests/test_import_mobilenet_wrn.py``'s generators) and the same
   variables tree, JAX's variables bit for bit, BN folded and unfolded; the
   port's trees have the JAX models' paths and shapes.
-* The families whose importers wait (ViT, CLIP) raise not-ported by name.
+* No family waits: a model with no importer raises KeyError by name. The
+  torchvision ViT and CLIP importers are held against JAX's in
+  ``tests/test_torch_clip_import.py``.
 """
 import json
 import os
@@ -236,10 +238,7 @@ def test_reset_observers_drops_qobs_and_keeps_qparams():
     assert "qobs" not in convert.to_numpy(model)
 
 
-@pytest.mark.parametrize("name,item", [("vit_b_16", 5), ("clip_vit-b16", 5), ("clip_rn50", 5)])
-def test_importers_not_ported_raise_by_name(name, item):
-    with pytest.raises(NotImplementedError, match=f"{name}.*queue 1 item {item}"):
-        import_auto.import_torch_checkpoint(name, {}, {"params": {}})
+def test_a_model_without_an_importer_raises_by_name():
     with pytest.raises(KeyError, match="no torch-checkpoint importer"):
         import_auto.import_torch_checkpoint("alexnet", {}, {"params": {}})
 

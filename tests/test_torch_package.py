@@ -52,7 +52,10 @@ def test_port_imports_no_jax_and_nothing_of_quantize_tpu():
     ported = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {"cli.py", "data/base.py", "data/synthetic.py", "data/transforms.py",
             "models/testnet.py", "runners/base.py", "runners/ptq.py", "runners/__init__.py",
-            "utils/log.py", "utils/meters.py"} <= ported
+            "utils/log.py", "utils/meters.py", "models/clip/__init__.py", "models/clip/model.py",
+            "models/clip/tokenizer.py", "models/clip/textfix.py",
+            "models/clip/prompt_learning.py", "models/import_clip.py",
+            "models/import_vit.py"} <= ported
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -223,6 +226,20 @@ def test_cuda_scale_zero_is_a_true_division(cuda_card):
         gpu = compute_scale_zero(xmin.cuda(), xmax.cuda(), n_bits, symmetric, signed)
         for a, b in zip(cpu, gpu):
             assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_hard_sigmoid_is_a_true_division(cuda_card):
+    """MobileNetV3's hard sigmoid on the card equals the CPU's (and eager
+    JAX's) true float32 division by 6 bit for bit over [-8, 8]; a division
+    by a Python scalar would be a multiplication by the rounded reciprocal
+    on CUDA."""
+    from quantize_tpu_torch.models.mobilenet import hard_sigmoid, hard_swish
+
+    x = torch.linspace(-8.0, 8.0, 1 << 20, dtype=torch.float32)
+    x = torch.cat([x, torch.randn(1 << 16, generator=torch.Generator().manual_seed(6)) * 4])
+    for fn in (hard_sigmoid, hard_swish):
+        assert torch.equal(fn(x.cuda()).cpu(), fn(x))
 
 
 def _assert_within_bf16_ulps(got, want, ulps):

@@ -296,19 +296,19 @@ def test_runner_checkpoint_loads_bit_equal(runs):
 @pytest.mark.parametrize("name", ["qat", "adaround"])
 def test_runners_not_ported_raise(tmp_path, name):
     cfg = Config(base_cfg(tmp_path, runner=name).to_dict())
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         runners.build_runner(cfg, device="cpu")
 
 
 def test_elastic_and_jax_checkpoints_raise_not_ported(tmp_path):
     cfg = Config(base_cfg(tmp_path, train_extra={"elastic": {"max_restarts": 1}}).to_dict())
-    with pytest.raises(NotImplementedError, match="train.elastic.*queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="train.elastic.*queue 1 item 6"):
         runners.execute_runner(cfg, device="cpu")
     jax_ckpt = tmp_path / "jax_ckpt.pkl"
     runner = jax_runners.build_runner(base_cfg(tmp_path))
     runner.save_checkpoint(str(jax_ckpt))
     port = runners.build_runner(Config(base_cfg(tmp_path).to_dict()), device="cpu")
-    with pytest.raises(NotImplementedError, match="JAX package's checkpoint.*queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="JAX package's checkpoint.*queue 1 item 4"):
         port.load_checkpoint(str(jax_ckpt))
 
 
