@@ -200,6 +200,38 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    flips (one exp rounding moves one ex8 by a step and one row of one head
    by at most 2.05 * sv) on at most 1e-3 of the (row, head) groups (the
    count is printed).
+7a. QAT: ViT-B/16 W4A8 with the model, quant, runner, optimizer and
+   schedule sections of ``QAT_CFG`` (W4 per-channel symmetric MinMax
+   weights, A8 per-tensor asymmetric ``maminmax`` activations with momentum
+   0.1; Adam, lr 1e-5, constant), 1000 classes, 224 x 224 seeded synthetic
+   images, float32 with TF32 off: 2 calibration batches of 64 through
+   ``QAT.train_step``, the ``calibrated_epoch`` switch, then 3 QAT steps of
+   64. One step on 2 images from the same variables on the card and, on a
+   copy of the model, on the CPU: the loss within 1e-4 relative, every
+   ``params`` and ``qparams`` leaf a finite gradient, the same leaves with a
+   nonzero gradient (above 1e-6 of their collection's largest entry), each
+   collection's gradient within 1e-2 of its L2 norm. The losses finite; the
+   median step time (CUDA events, the first step left out) and the peak
+   memory allocated printed, and where a step's device time goes
+   (``scripts/profile_torch_port.py``'s trace of 2 steps). The trained
+   model packed and served: 4
+   requests of 128, launches as phase 4's per forward, packed within 5e-2
+   of its quant mode.
+7b. AdaRound: MobileNetV2 W4 weight-only with ``ADAROUND_CFG``'s sections
+   (W4 per-channel symmetric MinMax weights with ``adaround.apply``, 32-bit
+   activations, BN folded; Adam lr 1e-3, beta dynamic), blockwise, 2 cached
+   batches of 32 at 224, ``max_epoch`` 2: all 53 layers reconstructed (52
+   convs and the classifier), h(V) at init within 1e-5 of the fractional
+   part of w / s - z, every final loss finite and every V moved; the packed
+   ints of every layer equal to round(floor(w / s - z) + h(V)) bit for
+   bit; 4 requests of 128 served packed (the convs on the library's float
+   conv, the classifier on K5: 1 a forward) within 2e-2 of the trained quant
+   mode, K5's call within its limit of its plain version; the time per
+   layer-step and in all printed.
+7c. TestCNN through the CLI on ``RUNNER_CFG`` with the QAT and AdaRound
+   base configs layered on it (``TRAIN_CLI_RUNS``: QAT, AdaRound joint and
+   sequential): a test top-1 in [0, 100] over 256, a checkpoint (holding
+   ``adaround`` for AdaRound), the time from config to test result printed.
 8. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
@@ -216,6 +248,7 @@ line.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -356,6 +389,23 @@ RUNNER_RUNS = (("testcnn", "testcnn", None, False, TESTCNN_PER_FWD),
                 MBV2_W8_CFG, True, MOBILENET_WO_PER_FWD),
                ("clip_vit-b16@224 zero-shot from a CLIP checkpoint", "clip_vit-b16", CLIP_CFG,
                 True, CLIP_VIT_PER_FWD))
+# phase 7: the ImageNet configs whose model, quant, runner, optimizer and
+# schedule sections the training runs take (on seeded synthetic images), the
+# base configs the TestCNN runs through the CLI layer on RUNNER_CFG, and the
+# TestCNN runs: (label, base config, --opts)
+QAT_CFG = "configs/runners/qat/qat_vitb16_w4a8_in1k.yaml"
+ADAROUND_CFG = "configs/runners/adaround/adaround_mbv2_w4_in1k.yaml"
+TRAIN_CLI_RUNS = (("qat", "configs/runners/qat/base.yaml", []),
+                  ("adaround joint", "configs/runners/adaround/base.yaml",
+                   ["runner.reconstruction=joint"]),
+                  ("adaround sequential", "configs/runners/adaround/base.yaml",
+                   ["runner.reconstruction=sequential"]))
+# MobileNetV2's AdaRound layers: the stem, 17 depthwise, 16 expand and 17
+# project convs, the head conv and the classifier
+MOBILENET_ADA_LAYERS = 53
+# phase 7's image size and batches: QAT's calibration and training batch,
+# AdaRound's cached batch, and the served requests
+TRAIN_IMAGE, QAT_BATCH, ADA_BATCH, TRAIN_REQUEST = 224, 64, 32, 128
 # torchvision ResNets: (blocks per stage, bottleneck, groups, width per group)
 TORCHVISION_RESNETS = {"resnet18": ((2, 2, 2, 2), False, 1, 64),
                        "resnet50": ((3, 4, 6, 3), True, 1, 64),
@@ -2329,6 +2379,346 @@ def conv1x1_phase(dev) -> int:
     return len(CONV1X1_SHAPES)
 
 
+# -- phase 7: training ---------------------------------------------------------------
+
+class ArrayLoader:
+    """Batches of numpy arrays: what a runner reads of a loader (iteration,
+    ``len`` and ``batch_size``)."""
+
+    def __init__(self, batches):
+        self.batches, self.batch_size = batches, len(batches[0]["label"])
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+def train_config(path: str, out_dir, train: dict, **runner):
+    """The model, quant, runner, optimizer and lr_scheduler sections of the
+    config at ``path`` (its ``_base_`` chain resolved; the dataset sections
+    left out), ``train`` as the train section and ``runner`` over its
+    runner section."""
+    from quantize_tpu_torch.utils import Config
+
+    src = Config()
+    src.merge_from_yaml(path)
+    return Config({"seed": 0, "output_dir": str(out_dir), "model": src.model.to_dict(),
+                   "runner": {**src.runner.to_dict(), **runner}, "quant": src.quant.to_dict(),
+                   "optimizer": src.optimizer.to_dict(),
+                   "lr_scheduler": src.lr_scheduler.to_dict(),
+                   "train": {"print_freq": 1000, **train}})
+
+
+def nonzero_leaves(grads: dict) -> set:
+    """The leaves whose gradient's largest entry exceeds 1e-6 of the largest
+    entry of its collection's gradients."""
+    top = {}
+    for k, g in grads.items():
+        col = k.split("/", 1)[0]
+        top[col] = max(top.get(col, 0.0), 0.0 if g is None else float(g.abs().max()))
+    return {k for k, g in grads.items()
+            if g is not None and float(g.abs().max()) > 1e-6 * top[k.split("/", 1)[0]]}
+
+
+def fp32_loss_and_grads(model, img, label):
+    """The QAT loss of an fp32-mode forward, its logits and the ``params``
+    gradients."""
+    import torch
+    from quantize_tpu_torch.nn.variables import trainable
+    from quantize_tpu_torch.runners.base import masked_cross_entropy
+
+    leaves = trainable(model, ("params",))
+    logits = model(img, mode="fp32")
+    loss = masked_cross_entropy(logits, label)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), logits.detach(), dict(zip(leaves, grads))
+
+
+def qat_phase(qtt, card, dev) -> None:
+    """ViT-B/16 W4A8 QAT on the card, then served packed (module docstring,
+    phase 7a)."""
+    import copy
+    import tempfile
+
+    import torch
+    import quantize_tpu_torch.runners as runners
+    from quantize_tpu_torch.nn.variables import trainable
+    from quantize_tpu_torch.runners.qat import TRAINABLE, loss_and_grads
+    from quantize_tpu_torch.utils import Logger
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def batch(n):
+        return {"img": torch.randn((n, TRAIN_IMAGE, TRAIN_IMAGE, 3), generator=gen, device=dev),
+                "label": torch.randint(0, 1000, (n,), generator=gen, device=dev)}
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        Logger(out_dir)  # the runner logs there, as the CLI sets it up
+        t0 = time.time()
+        cfg = train_config(QAT_CFG, out_dir, {"calibrated_epoch": 1, "max_epoch": 1})
+        runner = runners.build_runner(cfg, device=dev)
+        check(isinstance(runner, runners.QAT) and cfg.model.name == "vit_b_16"
+              and cfg.optimizer.name == "adam", f"qat: {QAT_CFG} built {type(runner).__name__}")
+        calib = [batch(QAT_BATCH) for _ in range(2)]
+        runner.init_variables(calib[0])
+        for i, b in enumerate(calib):
+            runner.train_step(b, 0, i, len(calib))
+        runner.update(0)  # the calibrated_epoch switch builds the optimizer
+        check(runner.initialized, "qat: the calibrated_epoch switch did not happen")
+        torch.cuda.synchronize()
+        log(f"qat vit_b_16 W4A8 ({QAT_CFG}'s model and quant sections, Adam lr "
+            f"{cfg.optimizer.lr}): set-up (init, 2 calibration steps of {QAT_BATCH}, the switch) "
+            f"{time.time() - t0:.1f} s")
+
+        # one step on 2 images from the same variables, on the card and on a
+        # copy of the model on the CPU. In fp32 mode only the float32
+        # arithmetic differs; in quant mode an ulp of it can move an
+        # activation across a rounding boundary of the 8-bit grid, and the
+        # W4A8 network carries each such step on, so the CPU's own movement
+        # under a 1e-6 relative perturbation of the input is printed beside
+        small = batch(2)
+        x_c, y_c = small["img"].cpu(), small["label"].cpu()
+        cpu_model = copy.deepcopy(runner.model).to("cpu")
+        keys = set(trainable(runner.model, TRAINABLE))
+        t0 = time.time()
+        steps = {mode: (fn(runner.model, small["img"], small["label"]), fn(cpu_model, x_c, y_c))
+                 for mode, fn in (("fp32", fp32_loss_and_grads), ("quant", loss_and_grads))}
+        pert = torch.Generator().manual_seed(11)
+        x_p = x_c * (1 + 1e-6 * torch.randn(x_c.shape, generator=pert))
+        spread = loss_and_grads(cpu_model, x_p, y_c)
+        cpu_s = time.time() - t0
+        (loss_g, _, grads_g), (loss_c, _, grads_c) = steps["quant"]
+        check(set(grads_g) == set(grads_c) == keys and len(keys) > 0,
+              "qat: the trainable leaves differ between the card and the CPU")
+        for key, g in grads_g.items():
+            check(g is not None and bool(torch.isfinite(g).all()),
+                  f"qat: {key} got no finite gradient")
+        # nonzero: above 1e-6 of its collection's largest entry (a symmetric
+        # quantizer's zero point gets float32 noise, two equal sums' difference)
+        nonzero_g, nonzero_c = nonzero_leaves(grads_g), nonzero_leaves(grads_c)
+        check(nonzero_g == nonzero_c, f"qat: leaves with a nonzero gradient differ: "
+              f"{sorted(nonzero_g ^ nonzero_c)[:5]}")
+        log(f"qat vit_b_16: one step on 2 images, card vs CPU: {len(keys)} trainable leaves, "
+            f"{len(nonzero_g)} with a nonzero gradient on both, all finite (the CPU's three "
+            f"steps {cpu_s:.1f} s)")
+        for mode, limits in (("fp32", (1e-4, 1e-2)), ("quant", (1e-2, 1e-1))):
+            (loss_g, _, grads_g), (loss_c, _, grads_c) = steps[mode]
+            r_loss = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+            line = (f"qat vit_b_16: {mode} mode, card vs CPU: loss {float(loss_g):.6f} vs "
+                    f"{float(loss_c):.6f} ({r_loss:.2e} relative, <= {limits[0]:g}")
+            if mode == "quant":
+                line += (f"; the CPU's own under a 1e-6 perturbation of the input "
+                         f"{abs(float(spread[0]) - float(loss_c)) / abs(float(loss_c)):.2e}")
+            log(line + ")")
+            check(r_loss <= limits[0], f"qat: the {mode}-mode loss on the card disagrees")
+            for col in TRAINABLE if mode == "quant" else ("params",):
+                ks = sorted(k for k in keys if k.startswith(col + "/"))
+                c = torch.cat([grads_c[k].reshape(-1) for k in ks])
+                r = float((torch.cat([grads_g[k].cpu().reshape(-1) for k in ks]) - c).norm()
+                          / c.norm())
+                line = (f"qat vit_b_16: {mode} mode, {col} gradient ({len(ks)} leaves) "
+                        f"|card - CPU| / |CPU| {r:.3e} (<= {limits[1]:g}")
+                if mode == "quant":
+                    p = torch.cat([spread[2][k].reshape(-1) for k in ks])
+                    line += f"; the CPU's own {float((p - c).norm() / c.norm()):.3e}"
+                log(line + ")")
+                check(r <= limits[1], f"qat: the {mode}-mode {col} gradient on the card disagrees")
+        del cpu_model, steps, spread, grads_g, grads_c
+
+        # 3 QAT steps of 64
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, losses = [], []
+        for i, b in enumerate([batch(QAT_BATCH) for _ in range(3)]):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss, _, _ = runner.train_step(b, 1, i, 3)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.append(loss)
+        check(all(math.isfinite(x) for x in losses), f"qat: losses {losses}")
+        peak = torch.cuda.max_memory_allocated(dev)
+        log(f"time: qat vit_b_16 W4A8 train step, batch {QAT_BATCH} (quant-mode forward, backward, Adam "
+            f"over {len(keys)} leaves): median {statistics.median(ms[1:]):.1f} ms of steps 2-3 "
+            f"(steps {', '.join(f'{x:.1f}' for x in ms)} ms); losses "
+            f"{', '.join(f'{x:.4f}' for x in losses)}; peak memory allocated "
+            f"{peak / 2**30:.2f} GiB [{card}]")
+        from scripts.profile_torch_port import profile_calls
+
+        b = batch(QAT_BATCH)
+        profile_calls(lambda: runner.train_step(b, 1, 0, 3),
+                      f"qat vit_b_16 W4A8 train step, batch {QAT_BATCH} [{card}]", n_fwd=2)
+
+        # the trained model packed and served
+        model = runner.model
+        t0 = time.time()
+        qtt.pack_model(model, calib[0]["img"], device=dev)
+        torch.cuda.synchronize()
+        log(f"qat vit_b_16: pack {time.time() - t0:.1f} s")
+        requests = [batch(TRAIN_REQUEST)["img"] for _ in range(4)]
+        with torch.inference_mode():
+            outs, _ = serve(model, requests, VIT_PER_FWD, "qat vit_b_16 (trained)")
+            r_sim = rel(outs[0], model(requests[0], mode="quant"))
+        log(f"qat vit_b_16: packed vs the trained model's quant mode {r_sim:.3e} of max|logits| "
+            f"(<= 5e-2)")
+        check(r_sim <= 5e-2, "qat: the packed trained model disagrees with its quant mode")
+    del runner, model, requests, outs, calib
+    torch.cuda.empty_cache()
+
+
+def adaround_phase(qtt, card, dev) -> None:
+    """MobileNetV2 W4 weight-only AdaRound, blockwise, at full width, then
+    served packed (module docstring, phase 7b)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import quantize_tpu_torch.runners as runners
+    from quantize_tpu_torch.nn.variables import trainable
+    from quantize_tpu_torch.ops.qmatmul import unpack_int4_splithalf
+    from quantize_tpu_torch.quant.adaround import rect_sigmoid
+    from quantize_tpu_torch.quant.pack import unpack_int4_pairs
+    from quantize_tpu_torch.utils import Logger
+
+    rng = np.random.default_rng(8)
+    batches = [{"img": rng.standard_normal((ADA_BATCH, TRAIN_IMAGE, TRAIN_IMAGE, 3),
+                                           dtype=np.float32),
+                "label": rng.integers(0, 1000, ADA_BATCH).astype(np.int32)} for _ in range(2)]
+    with tempfile.TemporaryDirectory() as out_dir:
+        Logger(out_dir)
+        cfg = train_config(ADAROUND_CFG, out_dir, {"max_epoch": 2}, reconstruction="blockwise")
+        runner = runners.build_runner(cfg, ArrayLoader(batches), device=dev)
+        check(isinstance(runner, runners.AdaRound) and cfg.model.name == "mobilenet_v2"
+              and cfg.runner.beta == "dynamic", f"adaround: {ADAROUND_CFG} built "
+              f"{type(runner).__name__}")
+        v_init, layer_s = {}, []
+        init, reconstruct = runner._init_adaround, runner.reconstruct_layer
+
+        def init_and_keep(img):
+            init(img)
+            v_init.update({k: v.detach().clone()
+                           for k, v in trainable(runner.model, ("adaround",)).items()})
+
+        def timed(*args):
+            torch.cuda.synchronize()
+            t = time.time()
+            loss = reconstruct(*args)
+            layer_s.append(time.time() - t)
+            return loss
+
+        runner._init_adaround, runner.reconstruct_layer = init_and_keep, timed
+        t0 = time.time()
+        runner.run()
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        model = runner.model
+        layers = runner.ada_layers()
+        losses = runner.layer_losses
+        check(len(losses) == len(layers) == MOBILENET_ADA_LAYERS
+              and set(losses) == set(layers),
+              f"adaround: {len(losses)} layers reconstructed of {len(layers)}, expected "
+              f"{MOBILENET_ADA_LAYERS}")
+        check(all(math.isfinite(x) for x in losses.values()), "adaround: a final loss is not finite")
+        steps = cfg.train.max_epoch * len(batches)
+        log(f"adaround mobilenet_v2 W4 ({ADAROUND_CFG}'s model and quant sections, Adam lr "
+            f"{cfg.optimizer.lr}, beta dynamic), blockwise: {len(losses)} layers x {steps} steps "
+            f"over {len(batches)} cached batches of {ADA_BATCH}; final losses "
+            f"{min(losses.values()):.4g}-{max(losses.values()):.4g}")
+        log(f"time: adaround mobilenet_v2 blockwise: {sum(layer_s) / (len(losses) * steps) * 1e3:.2f} "
+            f"ms a layer-step ({sum(layer_s):.2f} s over {len(losses) * steps} layer-steps), "
+            f"{total:.1f} s in all (calibration, capture to the host, reconstruction) [{card}]")
+
+        init_err, moved = 0.0, 0
+        torch.set_grad_enabled(False)
+        for path, layer in layers.items():
+            w = layer.get_var("params", "kernel")
+            q = layer.w_quantizer
+            v_over = w / q.get_var("qparams", "scale") - q.get_var("qparams", "zero")
+            frac = (v_over - torch.floor(v_over)).clamp(-0.1 + 1e-6, 1.1 - 1e-6)
+            v0 = v_init[f"adaround/{path}/w_quantizer/V"]
+            init_err = max(init_err, float((rect_sigmoid(v0) - frac).abs().max()))
+            moved += not torch.equal(q.get_var("adaround", "V"), v0)
+        log(f"adaround: h(V_init) vs the fractional part of w / s - z: max abs {init_err:.2e} "
+            f"(<= 1e-5); {moved} of {len(layers)} V moved")
+        check(init_err <= 1e-5, "adaround: h(V_init) is not the fractional part")
+        check(moved == len(layers), "adaround: a V did not move")
+
+        sample = torch.from_numpy(batches[0]["img"]).to(dev)
+        qtt.pack_model(model, sample, device=dev)
+        n_ints = 0
+        for path, layer in layers.items():
+            q = layer.w_quantizer
+            w = layer.get_var("params", "kernel")
+            v_over = w / q.get_var("qparams", "scale") - q.get_var("qparams", "zero")
+            want = torch.clamp(torch.round(torch.floor(v_over)
+                                           + rect_sigmoid(q.get_var("adaround", "V"))),
+                               q.spec.qmin, q.spec.qmax)
+            if layer.has_var("packed", "w_p4c"):
+                got = unpack_int4_pairs(layer.get_var("packed", "w_p4c"), axis=2)
+            elif layer.has_var("packed", "w_p4"):
+                got = unpack_int4_splithalf(layer.get_var("packed", "w_p4"))
+            else:
+                got = layer.get_var("packed", "w_int")
+            check(bool(torch.equal(got.float(), want)),
+                  f"adaround: {path}: the packed ints are not the AdaRound rounding")
+            n_ints += want.numel()
+        log(f"adaround: the packed ints of all {len(layers)} layers ({n_ints} weights) equal "
+            f"round(floor(w / s - z) + h(V)) bit for bit")
+
+        gen = torch.Generator(device=dev).manual_seed(9)
+        requests = [torch.randn((TRAIN_REQUEST, TRAIN_IMAGE, TRAIN_IMAGE, 3), generator=gen,
+                                device=dev) for _ in range(4)]
+        with torch.inference_mode():
+            outs, _ = serve(model, requests, MOBILENET_WO_PER_FWD, "adaround mobilenet_v2 (trained)")
+            r_sim = rel(outs[0], model(requests[0], mode="quant"))
+            with Recorder() as rec:
+                model(requests[1], mode="packed")
+        max_err = {}
+        n = check_kernels([rec.calls], tuple(MOBILENET_WO_PER_FWD), max_err)
+        log(f"adaround: packed vs the trained model's quant mode {r_sim:.3e} of max|logits| "
+            f"(<= 2e-2); {n} kernel-vs-plain comparisons passed (K5 within its limit), max abs "
+            f"err {max_err}")
+        check(r_sim <= 2e-2, "adaround: the packed trained model disagrees with its quant mode")
+        torch.set_grad_enabled(True)
+    del runner, model, requests, outs, rec
+    torch.cuda.empty_cache()
+
+
+def train_cli_phase(card, dev) -> None:
+    """TestCNN through the CLI with QAT and with AdaRound, joint and
+    sequential (module docstring, phase 7c)."""
+    import re
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from quantize_tpu_torch import cli
+
+    for label, base, opts in TRAIN_CLI_RUNS:
+        with tempfile.TemporaryDirectory() as out_dir:
+            argv = ["--cfg", RUNNER_CFG, base, "--output-dir", out_dir, "--device", str(dev),
+                    "--opts", "model.name=testcnn", "train_loader.batch_size=64",
+                    "train.max_epoch=1", *opts]
+            t0 = time.time()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            out = Path(out_dir)
+            found = re.findall(r"test result: \{'top1': ([-+.\deE]+|nan), 'n': (\d+)\}",
+                               (out / "output.log").read_text())
+            check(len(found) == 1, f"runner {label}: no test result in output.log")
+            top1, n_test = float(found[0][0]), int(found[0][1])
+            check(0.0 <= top1 <= 100.0 and n_test == 256,
+                  f"runner {label}: test top-1 {top1} over {n_test} examples")
+            ckpt = torch.load(out / "ckpt_last.pkl", weights_only=True)["variables"]
+            check(("adaround" in ckpt) == label.startswith("adaround"),
+                  f"runner {label}: the checkpoint's collections {sorted(ckpt)}")
+            log(f"runner {label} (TestCNN through the CLI, {base}): config to test result "
+                f"{wall:.2f} s, test top-1 {top1:.2f}% over {n_test} [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -2414,6 +2804,15 @@ def main() -> int:
     t0 = time.time()
     long_attention_phase(qtt, card, dev)
     log(f"long attention phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    qat_phase(qtt, card, dev)
+    log(f"qat phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    adaround_phase(qtt, card, dev)
+    log(f"adaround phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    train_cli_phase(card, dev)
+    log(f"training runs through the CLI {time.time() - t0:.1f} s")
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
         "ResNeXt-50's, "

@@ -3,8 +3,8 @@
 The port runs the JAX package's serving paths on an NVIDIA H100: build
 -> init (one calibrate pass) -> calibration -> pack -> packed forward
 through hand-written int8 tensor-core kernels (``csrc/*.cu``, built with
-nvcc at first use); and its PTQ runner from a YAML config
-(:func:`execute_runner`, ``python -m quantize_tpu_torch.cli``). It imports
+nvcc at first use); and its PTQ, QAT and AdaRound runners from a YAML
+config (:func:`execute_runner`, ``python -m quantize_tpu_torch.cli``). It imports
 no JAX and nothing of ``quantize_tpu``. Entry points run on CUDA unless the
 caller passes ``device="cpu"``, where every kernel wrapper runs its plain
 PyTorch version.

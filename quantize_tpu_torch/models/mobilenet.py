@@ -23,7 +23,10 @@ from .resnet import ResNet, _Stage
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(x, 0.0, 6.0)
+    # minimum(maximum(x, 0), 6), as JAX's: at exactly 0 or 6 both split the
+    # gradient (0.5 passes), where torch.clamp would pass all of it; a
+    # convolution over a patch of zeros with a zero bias lands on 0 exactly
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
 
 
 def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,14 @@
 
 PyTorch counterpart of ``quantize_tpu/nn/layers.py``. Models are built
 quantized from config; FP32 behaviour is the ``'fp32'`` mode (or
-``n_bits >= 32``). Modes: ``fp32``, ``calibrate``, ``quant``, ``pack`` and
-``packed``. The packed dispatch mirrors ``layers.py:236-305`` (dense) and
+``n_bits >= 32``). Modes: ``fp32``, ``calibrate``, ``quant``, ``pack``,
+``packed`` and ``init_adaround`` (the float forward, each AdaRound weight
+quantizer writing its ``adaround/V``).
+
+:class:`capture_taps` records layer inputs and outputs with forward hooks,
+the reference AdaRound runner's own mechanism, where JAX sows them into its
+``taps`` collection (and its ``tap_io`` / ``tap_io_quant`` modes are fp32 /
+quant forwards under the hooks here). The packed dispatch mirrors ``layers.py:236-305`` (dense) and
 ``layers.py:399-539`` (conv):
 
 * conv weights of at most 4 bits with an even input width a group are
@@ -41,7 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -93,7 +99,7 @@ class LayerQuantCfg:
 
 FP32 = LayerQuantCfg(weight={"n_bits": 32}, activation={"n_bits": 32})
 
-_MODES = ("fp32", "calibrate", "quant", "pack", "packed")
+_MODES = ("fp32", "calibrate", "quant", "pack", "packed", "init_adaround")
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
@@ -559,3 +565,42 @@ class QuantGlobalAvgPool(_ActQuantLayer):
 
     def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
         return self._quantize_in(x, mode).mean(dim=(1, 2))
+
+
+# the layers whose outputs JAX sows into its ``taps`` collection
+TAP_LAYERS = (QuantDense, QuantConv, QuantReLU, QuantMaxPool, QuantGlobalAvgPool)
+
+
+class capture_taps:
+    """Record each call's input (``inputs=True``) and output of the model's
+    tap layers, by flax path: ``taps[path] = {"in": [...], "out": [...]}``,
+    one entry a call, the paths in the order of their first call. ``store``
+    maps each recorded tensor (the host copy of a blockwise capture);
+    ``paths`` picks the modules."""
+
+    def __init__(self, model: torch.nn.Module, inputs: bool = False,
+                 store: Optional[Callable[[torch.Tensor], Any]] = None, paths=None):
+        self.model, self.inputs = model, inputs
+        self.store = store or (lambda t: t)
+        self.paths = None if paths is None else set(paths)
+        self.taps: Dict[str, Dict[str, list]] = {}
+
+    def _hook(self, path, mod, args, kwargs, out):
+        rec = self.taps.setdefault(path, {"in": [], "out": []})
+        if self.inputs:
+            rec["in"].append(self.store(args[0] if args else kwargs["x"]))
+        rec["out"].append(self.store(out))
+
+    def __enter__(self):
+        self.handles = []
+        for name, mod in self.model.named_modules():
+            path = name.replace(".", "/")
+            if isinstance(mod, TAP_LAYERS) and (self.paths is None or path in self.paths):
+                self.handles.append(mod.register_forward_hook(
+                    lambda m, a, k, o, path=path: self._hook(path, m, a, k, o),
+                    with_kwargs=True))
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()

@@ -12,8 +12,15 @@ quantization; AWQ pre-scales the weight along its in-channel axis and, with
 ``q_group_size``, quantizes per group), ``'export_qparams'``
 ((scale·static, zero) for the layer's pack step), ``'pack'`` ((q,
 scale·static, zero); AWQ packs the pre-scaled weight) and
-``'awq_vector'`` (the AWQ scale, or None). AdaRound is not ported yet and
-raises.
+``'awq_vector'`` (the AWQ scale, or None) and ``'init_adaround'`` (with an
+AdaRound spec: write ``adaround/V`` so that h(V) is the fractional part of
+``x / scale - zero``, taken before any AWQ pre-scale, as JAX does). Once
+``V`` exists, ``'quant'`` and ``'pack'`` round with
+:func:`~quantize_tpu_torch.quant.adaround.adaround_round`, also on both AWQ
+branches.
+
+``qparams`` and ``adaround`` are buffers: a runner that trains them
+updates them in place (:func:`~quantize_tpu_torch.nn.variables.trainable`).
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..quant.adaround import adaround_round, init_v
 from ..quant.fakequant import dequantize_core, fake_quant, quantize_core
 from ..quant.observers import build_observer, group_unview, group_view
 from ..quant.qspec import QuantSpec, broadcast_to_axis
@@ -47,9 +55,6 @@ class Quantizer(VarModule):
 
     def __init__(self, spec: QuantSpec, n_channels: int, device=None):
         super().__init__()
-        if spec.adaround:
-            raise NotImplementedError(
-                "AdaRound is not ported to quantize_tpu_torch yet; see ROADMAP.md")
         self.spec = spec
         self.n_channels = int(n_channels)
         if spec.enabled:
@@ -112,6 +117,16 @@ class Quantizer(VarModule):
         awq_scale = self._awq_scale()
         g = awq_group(spec)
         eff = s if ss is None else s * ss
+        if mode == "init_adaround":
+            if spec.adaround:
+                v = x / broadcast_to_axis(s, x.ndim, spec.channel_axis) - broadcast_to_axis(
+                    z, x.ndim, spec.channel_axis)
+                self.put_var("adaround", "V", init_v(v.detach()))
+            return self._apply_static(x)
+        round_fn = None
+        if spec.adaround and self.has_var("adaround", "V"):
+            v_off = self.get_var("adaround", "V")
+            round_fn = lambda t: adaround_round(t, v_off)  # noqa: E731
         if mode == "export_qparams":
             return eff, z
         if mode == "pack":
@@ -119,30 +134,27 @@ class Quantizer(VarModule):
             if awq_scale is not None:
                 xs = x * broadcast_to_axis(awq_scale, x.ndim, self.awq_in_axis)
                 if g:
-                    q = quantize_core(group_view(xs, g), s, z, spec.qmin, spec.qmax, 0)
+                    q = quantize_core(group_view(xs, g), s, z, spec.qmin, spec.qmax, 0, round_fn)
                     q = group_unview(q, xs.shape)
                 else:
-                    q = quantize_core(xs, s, z, spec.qmin, spec.qmax, spec.channel_axis)
+                    q = quantize_core(xs, s, z, spec.qmin, spec.qmax, spec.channel_axis, round_fn)
                 return q.detach(), eff, z
-            q = quantize_core(x, s, z, spec.qmin, spec.qmax, spec.channel_axis)
+            q = quantize_core(x, s, z, spec.qmin, spec.qmax, spec.channel_axis, round_fn)
             return q.detach(), eff, z
         if mode == "awq_vector":
             return awq_scale
-        if mode == "init_adaround":
-            raise NotImplementedError(
-                "quantizer mode 'init_adaround' (AdaRound) is not ported to "
-                "quantize_tpu_torch yet; see ROADMAP.md")
         if mode != "quant":
             raise ValueError(f"unknown quantizer mode {mode!r}")
         if awq_scale is not None and g:
             # grouped AWQ simulation: scale by awq, quantize per (out, in/g) group
             aws_b = broadcast_to_axis(awq_scale, x.ndim, self.awq_in_axis)
             xs = x * aws_b
-            q = quantize_core(group_view(xs, g), s, z, spec.qmin, spec.qmax, 0)
+            q = quantize_core(group_view(xs, g), s, z, spec.qmin, spec.qmax, 0, round_fn)
             deq = dequantize_core(q, s, z, channel_axis=0)
             return group_unview(deq, xs.shape) / aws_b
         return fake_quant(x, s, z, spec.qmin, spec.qmax, channel_axis=spec.channel_axis,
-                          static_scale=ss, awq_scale=awq_scale, awq_axis=self.awq_in_axis)
+                          static_scale=ss, awq_scale=awq_scale, awq_axis=self.awq_in_axis,
+                          round_fn=round_fn)
 
 
 def reset_observers(model: torch.nn.Module):

@@ -12,7 +12,7 @@ their leaf (``kernel``, ``bias``), every other collection as buffers named
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -81,3 +81,19 @@ def collections(model: nn.Module) -> Dict[str, Dict[str, torch.Tensor]]:
             key = f"{path}/{leaf}" if path else leaf
             out.setdefault(col, {})[key] = t
     return out
+
+
+def trainable(model: nn.Module, names: Sequence[str]) -> Dict[str, torch.Tensor]:
+    """``{"collection/path/leaf": tensor}`` over the collections ``names``,
+    in flax key order (collection, then path part by part), each tensor the
+    model's own: an optimizer updates it in place
+    (:class:`~quantize_tpu_torch.optim.Optimizer`), and a gradient reaches a
+    buffer (``qparams``, ``adaround``) once it requires one. QAT trains
+    ``params`` and ``qparams``, AdaRound ``adaround``.
+
+    ``VarModule.put_var`` replaces a buffer with a new tensor, so a leaf
+    written that way leaves this dict's tensor behind: look the leaves up
+    again after any such write (the optimizer keys its state by name)."""
+    flat = collections(model)
+    out = {f"{col}/{key}": t for col in names for key, t in flat.get(col, {}).items()}
+    return dict(sorted(out.items(), key=lambda kv: tuple(kv[0].split("/"))))

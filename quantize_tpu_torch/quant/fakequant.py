@@ -5,11 +5,16 @@ writes rounding as ``v + stop_gradient(round(v) - v)``; here the same
 straight-through estimator is a ``torch.autograd.Function`` whose backward
 passes the gradient unchanged. The clamp uses ``where`` with strict
 inequalities, so an input exactly at qmin/qmax passes the full gradient,
-like torch ``clamp`` and the JAX ``ste_clamp``.
+like torch ``clamp`` and the JAX ``ste_clamp``. AdaRound's rounding
+(``ste_floor_plus``) comes in through the ``round_fn`` argument of
+:func:`quantize_core` and :func:`fake_quant`.
+
+The JAX package's bf16 simulation switch (``set_quant_sim_dtype``) has no
+caller there and is not ported (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -40,6 +45,13 @@ def ste_clamp(q: torch.Tensor, qmin: float, qmax: float) -> torch.Tensor:
     return torch.where(q > qmax, hi, torch.where(q < qmin, lo, q))
 
 
+def ste_floor_plus(v: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
+    """AdaRound's rounding ``round(floor(v) + frac)``: the gradient reaches
+    only ``frac`` (``floor`` passes none), and the hard rounding is
+    straight-through."""
+    return ste_round(torch.floor(v).detach() + frac)
+
+
 def quantize_core(
     x: torch.Tensor,
     scale: torch.Tensor,
@@ -47,12 +59,13 @@ def quantize_core(
     qmin: float,
     qmax: float,
     channel_axis: int = -1,
+    round_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """``clamp(round(x/scale - zero), qmin, qmax)`` (still float dtype)."""
+    """``clamp(round_fn(x/scale - zero), qmin, qmax)`` (still float dtype)."""
     s = broadcast_to_axis(scale, x.ndim, channel_axis)
     z = broadcast_to_axis(zero, x.ndim, channel_axis)
     v = x / s - z
-    return ste_clamp(ste_round(v), qmin, qmax)
+    return ste_clamp((round_fn or ste_round)(v), qmin, qmax)
 
 
 def dequantize_core(
@@ -81,6 +94,7 @@ def fake_quant(
     static_scale: Optional[torch.Tensor] = None,
     awq_scale: Optional[torch.Tensor] = None,
     awq_axis: int = -2,
+    round_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Simulated quantization: quantize then dequantize. With ``awq_scale``
     the input is pre-scaled along ``awq_axis`` (the in-channel axis) before
@@ -88,7 +102,7 @@ def fake_quant(
     if awq_scale is not None:
         aws = broadcast_to_axis(awq_scale, x.ndim, awq_axis)
         x = x * aws
-    q = quantize_core(x, scale, zero, qmin, qmax, channel_axis)
+    q = quantize_core(x, scale, zero, qmin, qmax, channel_axis, round_fn)
     out = dequantize_core(q, scale, zero, channel_axis, static_scale)
     return out if awq_scale is None else out / aws
 

@@ -5,8 +5,9 @@ reference's ``RUNNERS`` / ``build_runner`` / ``execute_runner``,
 ``runner/__init__.py:13-77``): builds the dataloaders, injects
 ``num_classes`` from the dataset into the model config, runs calibration,
 then re-evaluates the best checkpoint on the test split, all on ``device``
-(CUDA unless the caller asks for the CPU). PTQ is ported; ``qat`` and
-``adaround``, and ``train.elastic``, raise NotImplementedError.
+(CUDA unless the caller asks for the CPU). The three runners are ported:
+``ptq``, ``qat`` and ``adaround``; ``train.elastic`` raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -14,13 +15,14 @@ from typing import Optional
 
 from ..data import build_dataloader, build_transform
 from ..utils import get_logger
-from ..utils.registry import Registry, not_ported, not_ported_error
+from ..utils.registry import Registry, not_ported_error
+from .adaround import AdaRound
 from .base import BasicRunner
 from .ptq import PTQ
+from .qat import QAT
 
 RUNNERS = Registry("runners")
-RUNNERS.register_dict({"ptq": PTQ, "qat": not_ported("the QAT runner", 2),
-                       "adaround": not_ported("the AdaRound runner", 2)})
+RUNNERS.register_dict({"ptq": PTQ, "qat": QAT, "adaround": AdaRound})
 
 
 def build_runner(cfg, train_loader=None, val_loader=None, test_loader=None,
@@ -37,7 +39,7 @@ def _loader(cfg, which: str):
 
 
 def execute_runner(cfg, device="cuda") -> Optional[dict]:
-    """Build loaders + runner, calibrate, then test from the best checkpoint
+    """Build loaders + runner, run it, then test from the best checkpoint
     (reference ``runner/__init__.py:41-77``)."""
     if cfg.train and cfg.train.elastic:
         raise not_ported_error("the fault-tolerant run (train.elastic)", 6)
@@ -66,4 +68,4 @@ def execute_runner(cfg, device="cuda") -> Optional[dict]:
     return result
 
 
-__all__ = ["RUNNERS", "BasicRunner", "PTQ", "build_runner", "execute_runner"]
+__all__ = ["RUNNERS", "AdaRound", "BasicRunner", "PTQ", "QAT", "build_runner", "execute_runner"]

@@ -17,6 +17,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from .. import api, convert
 from ..models import build_model
@@ -45,6 +46,14 @@ def masked_topk_correct(logits: torch.Tensor, labels: torch.Tensor, k: int = 1):
     topk = torch.argsort(-logits, dim=-1, stable=True)[:, :k]  # jnp.argsort is stable
     correct = (topk == labels[:, None]).any(dim=-1) & valid
     return correct.sum(), valid.sum()
+
+
+def masked_cross_entropy(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy over the labels >= 0 (padding is -1), as
+    optax's ``softmax_cross_entropy_with_integer_labels`` masked."""
+    valid = label >= 0
+    loss = F.cross_entropy(logits.float(), label.clamp(min=0).long(), reduction="none")
+    return (loss * valid).sum() / valid.sum().clamp(min=1)
 
 
 class BasicRunner:

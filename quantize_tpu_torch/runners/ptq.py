@@ -8,9 +8,8 @@ evaluates with fake-quant enabled and saves the best checkpoint.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
-from .base import BasicRunner, masked_topk_correct
+from .base import BasicRunner, masked_cross_entropy, masked_topk_correct
 
 
 class PTQ(BasicRunner):
@@ -20,10 +19,7 @@ class PTQ(BasicRunner):
         img, label = batch["img"], batch["label"]
         with torch.no_grad():
             logits = self.model(img, mode="calibrate").float()
-        # optax.softmax_cross_entropy_with_integer_labels, padding (-1) masked out
-        valid = label >= 0
-        loss = F.cross_entropy(logits, label.clamp(min=0).long(), reduction="none")
-        loss = (loss * valid).sum() / valid.sum().clamp(min=1)
+        loss = masked_cross_entropy(logits, label)
         c, t = masked_topk_correct(logits, label)
         return float(loss), float(100.0 * c / t.clamp(min=1)), len(label)
 

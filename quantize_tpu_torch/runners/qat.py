@@ -1,0 +1,90 @@
+"""QAT runner: calibration epochs, then STE fine-tuning through fake quant.
+
+PyTorch counterpart of ``quantize_tpu/runners/qat.py`` (the reference
+``QAT`` runner, ``runner/qat.py:14``): epochs below ``calibrated_epoch``
+calibrate as PTQ does; at the switch an optimizer is built over the weights
+*and* the quantizers' scale/zero (``params`` and every ``qparams`` leaf,
+``static_scale`` and ``awq_scale`` included), and training proceeds with
+the masked cross-entropy through the quant-mode graph (straight-through
+gradients; BatchNorm on its running statistics). ``optimizer.
+qparams_lr_scale`` gives ``qparams`` an optimizer of their own whose
+updates it scales (optax's ``multi_transform``).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..nn.variables import trainable
+from ..optim import Chain, Optimizer, Partition, Scale, build_optimizer
+from .base import masked_cross_entropy, masked_topk_correct
+from .ptq import PTQ
+
+TRAINABLE = ("params", "qparams")
+
+
+def loss_and_grads(model: torch.nn.Module, img: torch.Tensor, label: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Optional[torch.Tensor]]]:
+    """The masked cross-entropy of ``model``'s quant-mode forward, its
+    logits, and its gradient for every trainable leaf (``params`` and
+    ``qparams``; None where none reaches a leaf)."""
+    leaves = trainable(model, TRAINABLE)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    logits = model(img, mode="quant")
+    loss = masked_cross_entropy(logits, label)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), logits.detach(), dict(zip(leaves, grads))
+
+
+class QAT(PTQ):
+    name = "qat"
+
+    def __init__(self, cfg, *loaders, device="cuda"):
+        super().__init__(cfg, *loaders, device=device)
+        self.calibrated_epoch = int(cfg.train.calibrated_epoch or 1)
+        self.max_epoch += self.calibrated_epoch
+        self.initialized = False
+        self.optimizer = None
+
+    def build_optim(self) -> None:
+        steps = len(self.train_loader) if self.train_loader is not None else 1
+        tx = build_optimizer(self.cfg, steps_per_epoch=steps)
+        # an update scale for scale/zero (1.0: one optimizer over all leaves,
+        # as the reference, runner/qat.py:43-49)
+        qs = float(getattr(self.cfg.optimizer, "qparams_lr_scale", None) or 1.0)
+        if qs != 1.0:
+            tx = Partition({"main": tx,
+                            "qparams": Chain(build_optimizer(self.cfg, steps_per_epoch=steps),
+                                             Scale(qs))},
+                           lambda key: "qparams" if key.startswith("qparams/") else "main")
+        self.optimizer = Optimizer(tx, trainable(self.model, TRAINABLE))
+
+    def train_step(self, batch, epoch, it, total_iters):
+        if not self.initialized:
+            return super().train_step(batch, epoch, it, total_iters)
+        img, label = batch["img"], batch["label"]
+        loss, logits, grads = loss_and_grads(self.model, img, label)
+        self.optimizer.step(trainable(self.model, TRAINABLE), grads)
+        c, t = masked_topk_correct(logits, label)
+        return float(loss), float(100.0 * c / t.clamp(min=1)), len(label)
+
+    def update(self, epoch):
+        cfg = self.cfg
+        if (epoch + 1) == self.calibrated_epoch:
+            eval_result = self.evaluate(self.val_loader, quantized=True) if self.val_loader else None
+            self.save_model(eval_result)
+            self.build_optim()
+            self.initialized = True
+            return
+        eval_result = None
+        if (epoch + 1) == self.max_epoch:
+            if self.val_loader is not None:
+                eval_result = self.evaluate(self.val_loader, quantized=True)
+            self.save_model(eval_result)
+            return
+        if cfg.train.eval_freq and (epoch + 1) % cfg.train.eval_freq == 0:
+            eval_result = self.evaluate(self.val_loader, quantized=True)
+        if cfg.train.save_freq and (epoch + 1) % cfg.train.save_freq == 0:
+            self.save_model(eval_result)

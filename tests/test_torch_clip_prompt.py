@@ -85,3 +85,45 @@ def test_gradient_reaches_the_context_as_jax(case):
     grad, want = case["grad"]
     assert grad is not None and float(grad.norm()) > 0
     np.testing.assert_allclose(grad.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+
+def test_coop_context_trains_as_jax():
+    """tests/test_prompt_learning.py::test_coop_ctx_is_trainable's case (2
+    classes, 2 context vectors, 4 images): the gradient of the mean
+    cross-entropy with respect to ``ctx`` equals ``jax.grad``'s within 1e-4
+    of its largest entry, and one Adam step of the port's optimizer moves
+    the context as optax's does (rtol 1e-6)."""
+    from quantize_tpu_torch.optim import Optimizer, build_optimizer
+    from quantize_tpu_torch.utils import Config
+
+    jm = JCoOp(backbone="ViT-B/16", num_classes=2, n_ctx=2, config_overrides=TINY,
+               classnames=["cat", "dog"])
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.normal(size=(4, 32, 32, 3)).astype(np.float32))
+    y = jnp.asarray([0, 1, 0, 1])
+    variables = jax.device_get(dict(jax.jit(jm.init)(jax.random.PRNGKey(0), x)))
+
+    def loss_fn(ctx_p):
+        params = {**variables["params"], "ctx": ctx_p}
+        logits = jm.apply({**variables, "params": params}, x)
+        return optax.softmax_cross_entropy_with_integer_labels(logits, y).mean()
+
+    ctx0 = variables["params"]["ctx"]
+    want = np.asarray(jax.jit(jax.grad(loss_fn))(ctx0))
+    tm = CoOpCLIP("ViT-B/16", 2, n_ctx=2, config_overrides=TINY, classnames=["cat", "dog"],
+                  image_size=32, device="cpu")
+    convert.from_jax_variables(tm, variables)
+    ctx = tm.get_var("params", "ctx")
+    loss = F.cross_entropy(tm(torch.tensor(np.asarray(x))), torch.tensor([0, 1, 0, 1]))
+    got, = torch.autograd.grad(loss, [ctx])
+    assert float(got.norm()) > 0
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
+
+    cfg = Config({"optimizer": {"name": "adam", "lr": 1e-3}, "lr_scheduler": {"name": "constant"}})
+    tx = optax.adam(1e-3)
+    updates, _ = tx.update(jnp.asarray(want), tx.init(jnp.asarray(ctx0)))
+    opt = Optimizer(build_optimizer(cfg), {"params/ctx": ctx})
+    opt.step({"params/ctx": ctx}, {"params/ctx": torch.from_numpy(want.copy())})
+    np.testing.assert_allclose(ctx.detach().numpy(), np.asarray(optax.apply_updates(ctx0, updates)),
+                               rtol=1e-6)
+    assert not np.array_equal(ctx.detach().numpy(), ctx0)

@@ -14,8 +14,10 @@ those tests' tolerances:
   into_scale, bias correction, W4A8 MSE, stride 2, W4 weight-only,
   asymmetric weights, grouped: ``conv_w8a8_grouped``), linear, attention,
   QuantReLU and QuantMaxPool, with
-  the same bounded allowance for quant-step flips. The four ``adaround_*``
-  cases wait for AdaRound (ROADMAP.md queue 1 item 2);
+  the same bounded allowance for quant-step flips, and the four
+  ``adaround_*`` cases (h(V), the regularization at β 20 and 2, V's
+  initialization and the AdaRound rounding) at
+  ``tests/test_golden_layers.py``'s tolerances;
 * models: the ResNet-18 pipelines (torchvision-layout weights from
   ``tests/golden/weightgen.py`` through ``init_model(torch_state_dict=...)``,
   then calibration), the two-block pre-LN attention stacks and the
@@ -43,6 +45,7 @@ from quantize_tpu_torch.nn.layers import (LayerQuantCfg, QuantConv, QuantDense, 
                                           QuantReLU)
 from quantize_tpu_torch.nn.norm import FusedLayerNorm
 from quantize_tpu_torch.nn.quantizer import Quantizer, awq_group
+from quantize_tpu_torch.quant import adaround
 from quantize_tpu_torch.quant.observers import AWQ, BiasCorrect, build_observer
 from quantize_tpu_torch.quant.qspec import QuantSpec
 from quantize_tpu_torch.models.clip.model import CLIPVisionTransformer, ModifiedResNet
@@ -338,6 +341,29 @@ def test_act_layers_replay_the_reference_golden(case):
         (c["x_shape"][0], c["x_shape"][1]) + tuple(out.shape[1:3]))
     _close(out, _nhwc(ref), rtol=1e-4, atol=1e-4, step=float(np.abs(out).max()) * 0.02 + 0.02,
            name=case)
+
+
+@pytest.mark.parametrize("case", ["adaround_recv", "adaround_reg_b20", "adaround_reg_b2",
+                                  "adaround_init_forward"])
+def test_adaround_replays_the_reference_golden(case):
+    """tests/test_golden_layers.py's AdaRound checks, one case each."""
+    if case == "adaround_init_forward":
+        c = LAYERS[case]
+        x = _t(_gen(c["x_seed"], tuple(c["x_shape"]), c["x_gen"]))
+        v = adaround.init_v(x)
+        np.testing.assert_allclose(_np(v).reshape(-1), c["v_init"], rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(_np(adaround.adaround_round(x, v)).reshape(-1), c["out"],
+                                   rtol=1e-5, atol=1e-6)
+        return
+    c = LAYERS["adaround_recv"]
+    v = _t(_gen(c["v_seed"], tuple(c["v_shape"]), c["v_gen"]))
+    if case == "adaround_recv":
+        np.testing.assert_allclose(_np(adaround.rect_sigmoid(v)).reshape(-1), c["out"],
+                                   rtol=1e-5, atol=1e-6)
+        return
+    beta = 20.0 if case == "adaround_reg_b20" else 2.0
+    np.testing.assert_allclose(float(adaround.regularization(v, beta)), LAYERS[case]["out"][0],
+                               rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------------------

@@ -295,9 +295,30 @@ def test_runner_checkpoint_loads_bit_equal(runs):
 
 @pytest.mark.parametrize("name", ["qat", "adaround"])
 def test_runners_not_ported_raise(tmp_path, name):
-    cfg = Config(base_cfg(tmp_path, runner=name).to_dict())
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        runners.build_runner(cfg, device="cpu")
+    """Neither training runner raises not-ported: ``build_runner`` makes a
+    working QAT and AdaRound runner, and ``execute_runner`` runs each on
+    TestCNN on the CPU to a finite top-1; its best checkpoint (AdaRound's
+    holding ``adaround``) reloads bit-equal."""
+    quant = None
+    if name == "adaround":
+        quant = {"default": {"weight": {"n_bits": 4, "symmetric": True, "signed": True,
+                                        "granularity": "channel", "range": {"name": "minmax"},
+                                        "adaround": {"apply": True}}}}
+    cfg = Config(base_cfg(tmp_path, runner=name, quant_extra=quant,
+                          train_extra={"calibrated_epoch": 1, "eval_freq": 1}).to_dict())
+    assert isinstance(runners.build_runner(cfg, device="cpu"),
+                      runners.QAT if name == "qat" else runners.AdaRound)
+    result = runners.execute_runner(cfg, device="cpu")
+    assert np.isfinite(result["top1"]) and 0.0 <= result["top1"] <= 100.0 and result["n"] == 128
+    fresh = runners.build_runner(cfg, device="cpu")
+    fresh.load_checkpoint(cfg.runner.best)
+    want = torch.load(cfg.runner.best, weights_only=True)["variables"]
+    assert ("adaround" in want) == (name == "adaround")
+    got = convert.to_numpy(fresh.model)
+    for col, tree in want.items():
+        flat = convert.flatten(got[col])
+        for key, t in convert.flatten(tree).items():
+            np.testing.assert_array_equal(flat[key], t.numpy(), err_msg=f"{col}/{key}")
 
 
 def test_elastic_and_jax_checkpoints_raise_not_ported(tmp_path):
