@@ -232,7 +232,43 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    base configs layered on it (``TRAIN_CLI_RUNS``: QAT, AdaRound joint and
    sequential): a test top-1 in [0, 100] over 256, a checkpoint (holding
    ``adaround`` for AdaRound), the time from config to test result printed.
-8. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+8a. The int8 carry between blocks (``qin_carry``): ResNet-50 W8A8 as phase
+   2, 3 requests of ``CARRY_BATCH`` (256) at 224, served packed under the
+   carry at f32 and bf16 carry with the fused tail on (K3 37, K2 16, K1 1,
+   KQ 54 a forward; K2's residual is the float32 ``qin.dequant()``) and off
+   (K3 53, K1 1, KQ 54): within 8e-2 of max|logits| of the packed forward
+   without the carry (JAX ``tests/test_precision.py``'s bound), the argmax
+   agreement printed, every kernel call of one forward bit-equal to its
+   plain version, each forward timed beside the one without the carry (K2
+   at bf16 carry under the carry also per launch beside its bound and
+   library call) and where the device time goes under the carry (f32,
+   fused); quant mode bit-equal with the flag on and off.
+8b. MobileNetV3-Large W8A8 (``CFG_MOBILE``), 256 at 224, under the carry
+   at f32 and bf16 carry: the first block's depthwise conv carries its int8
+   input, so it is one K3g launch a forward at Ci/G = 1 (16 groups, 112 x
+   112) on the ``dp4a`` route, held against its plain version with every
+   other call; the other gates as 8a; the forward timed with and without
+   the carry and beside the float32 forward, K3g's launch beside its bound
+   and the bf16 cuDNN depthwise conv, and where the device time goes with
+   and without the carry.
+8c. The fault-tolerant run: phase 7a's ViT-B/16 W4A8 QAT configuration
+   (``calibrated_epoch`` 1, 3 epochs of 2 steps of 64 on seeded synthetic
+   images) through ``runners.resume.supervised_run``, once with a crash
+   injected at step 3 (mid-epoch 1) and once with a NaN loss injected at
+   step 2 (``FAULT_RUNS``): one restart each with the injected error, the
+   resume state ``finished`` at the last epoch, the losses finite, the
+   epoch checkpoint reloaded into a fresh runner bit-equal (its size and
+   the write and read times printed), the model then packed and served
+   (phase 4's launches a forward) within 5e-2 of its quant mode.
+8d. ``unpack_model`` of 8a's deploy variables on the card, loaded into a
+   fresh ResNet-50: its quant mode within 2e-3 (rtol and atol) of the
+   original's; and JAX ``tests/test_packed.py``'s round trip at its own
+   config (W8 weight-only ResNet-50): the unpacked model's fp32 forward
+   within 2e-3 of the original quant mode. ``profiling.roofline_report``
+   of the packed ResNet-50 forward (54 contractions, each kernel wrapper's
+   report) with its speed of light beside 8a's measured time, and one
+   ``profiling.trace`` of a packed forward, its trace file written.
+9. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
    beside its bound, its plain version and the nearest library call (K2
@@ -457,6 +493,28 @@ W8A8_SHAPES = ((25600, 768, 2304, True, "wgmma"), (25600, 768, 3072, True, "wgmm
                (256, 2048, 1000, True, "wgmma"), (1, 2048, 1000, False, "wgmma"),
                (128, 4096, 1000, False, "wgmma"), (333, 48, 28, False, "wgmma"),
                (200, 40, 1000, False, "mma_sync"))
+# phase 8: the int8 carry at ResNet-50's and MobileNetV3-Large's batch of
+# 256 at 224 x 224. ResNet-50 with the fused tail off: every 1 x 1 conv
+# (conv3 too) on K3
+CARRY_BATCH = 256
+RESNET_UNFUSED_PER_FWD = {"qconv2d": 53, "w8a8_gemm": 1, "quantize_act_int8": 54}
+# MobileNetV3-Large W8A8, BN folded: the stem, 14 expand, 15 project, the 16
+# squeeze-excite 1 x 1 convs (8 blocks) and the head conv on K3, the two
+# dense layers on K1, KQ before each; the 15 depthwise convs on the float
+# path. Under the carry the first block's depthwise conv (no expand conv,
+# a residual) carries its int8 input and takes K3g (Ci/G = 1, 16 groups,
+# the dp4a route), after its own KQ
+MNV3_PER_FWD = {"qconv2d": 47, "w8a8_gemm": 2, "quantize_act_int8": 49}
+MNV3_CARRY_PER_FWD = {"qconv2d": 47, "qconv2d_grouped": 1, "w8a8_gemm": 2,
+                      "quantize_act_int8": 50}
+# tests/test_packed.py's unpack round trip config: 8-bit weights only
+CFG_W8_ONLY = {"default": {"weight": _weight(8), "activation": {"n_bits": 32},
+                           "bn_folding": True}}
+# phase 8c: (label, FaultInjector keywords, HealthMonitor keywords, the
+# restart's error): a crash mid-epoch 1 (2 steps an epoch), and a NaN loss
+# at the first QAT step
+FAULT_RUNS = (("crash", {"crash_at": [3]}, {"warmup_steps": 100}, "injected crash"),
+              ("nan loss", {"nan_loss_at": [2]}, {}, "TrainingDiverged"))
 # the route each served launch must take
 SERVED_ROUTE = {"conv1x1_residual": "wgmma", "w4a8_gemm": "wgmma", "w8a8_gemm": "wgmma",
                 "layernorm_quant_int8": "vector", "qconv2d_grouped": "wgmma"}
@@ -651,32 +709,14 @@ def _itemsize(dtype) -> int:
 
 def work(name: str, args) -> tuple:
     """(operations, their peak rate, bytes moved once) of one kernel call:
-    each input read once, each output written once."""
-    if name in ("w8a8_gemm", "w4a8_gemm"):
-        q, _, _, w, cs, ws, wz, bias = args[:8]
-        if w is None:  # K4 given only the K-major copy of its packed weight: the same bytes
-            w = args[9]
-        m, k = q.shape
-        n = cs.shape[0]
-        return 2 * m * n * k, PEAK_INT8_OPS, sum(map(_nbytes, (q, w, cs, ws, wz, bias))) + m * n * 4
-    if name == "conv1x1_residual":
-        # the K-major copy (args[10]) holds the same bytes as w: counted once
-        q, _, _, w, cs, ws, bias, res, _, out_dtype = args[:10]
-        m, k = q.shape
-        n = w.shape[1]
-        return (2 * m * n * k, PEAK_INT8_OPS,
-                sum(map(_nbytes, (q, w, cs, ws, bias, res))) + m * n * _itemsize(out_dtype))
-    if name in ("qconv2d", "qconv2d_grouped"):
-        # K3g's products run over each group's own channels (w's Ci/G), at
-        # the int8 peak of the table (the tensor cores'), without the zeros
-        # its wgmma route multiplies in block-diagonal slices
-        q, _, _, w, ws, wz, bias, strides, pads, corr, _, out_dtype = args[:12]
-        n_img = q.shape[0]
-        kh, kw, ci, co = w.shape
-        oh, ow = corr.shape[1:3]
-        return (2 * n_img * oh * ow * co * kh * kw * ci, PEAK_INT8_OPS,
-                sum(map(_nbytes, (q, w, ws, wz, bias, corr)))
-                + n_img * oh * ow * co * _itemsize(out_dtype))
+    each input read once, each output written once. The contraction
+    kernels' counts are the package's (``ops/_cost.py``, what
+    ``profiling.layer_costs`` records)."""
+    if name not in ("layernorm", "layernorm_quant_int8", "quantize_act_int8"):
+        from quantize_tpu_torch.ops._cost import contraction_work
+
+        ops, bits, nbytes = contraction_work(name, args)
+        return ops, {8: PEAK_INT8_OPS, 16: PEAK_BF16, 32: PEAK_F32}[bits], nbytes
     if name == "layernorm":
         x, g, b, _, out_dtype = args
         # float32 ops per element: 2 for the mean, 3 for the variance, 4 for y
@@ -686,32 +726,9 @@ def work(name: str, args) -> tuple:
         x, g, b = args[:3]
         # as K6, plus divide, subtract, round, two clamps
         return 14 * x.numel(), PEAK_F32, sum(map(_nbytes, (x, g, b))) + x.numel()
-    if name == "wo_gemm":
-        x, w, ws, wz, bias, _ = args
-        m, k = x.shape
-        n = w.shape[1]
-        # bf16 products on the tensor cores, f32 output
-        return 2 * m * n * k, PEAK_BF16, sum(map(_nbytes, (x, w, ws, wz, bias))) + m * n * 4
-    if name == "quantize_act_int8":
-        x = args[0]
-        # float32 ops per element: divide, subtract, round, two clamps, shift
-        return 6 * x.numel(), PEAK_F32, _nbytes(x) + x.numel()
-    qkv, heads, s, causal, out_dtype, valid = args
-    import torch
-
-    rows, three_e = qkv.shape
-    b, e = rows // s, three_e // 3
-    d, v = e // heads, valid or s
-    # q.k and ex.v over the valid rows and the keys each attends (all valid
-    # keys, or with the causal mask the v (v + 1) / 2 pairs at or below the
-    # diagonal) at the card's peak for their type: K9 int8, K8 bf16 (the
-    # tensor cores) or float32 (the CUDA cores: the f32 carry takes no TF32)
-    pairs = v * (v + 1) // 2 if causal else v * v
-    if name == "mha_rows_int8":
-        peak = PEAK_INT8_OPS
-    else:
-        peak = PEAK_BF16 if qkv.dtype == torch.bfloat16 else PEAK_F32
-    return 4 * b * heads * pairs * d, peak, _nbytes(qkv) + rows * e * _itemsize(out_dtype)
+    x = args[0]
+    # float32 ops per element: divide, subtract, round, two clamps, shift
+    return 6 * x.numel(), PEAK_F32, _nbytes(x) + x.numel()
 
 
 def bound_ms(ops: int, peak: float, nbytes: int) -> tuple:
@@ -980,14 +997,14 @@ def serve(model, requests, per_fwd: dict, label: str, classes: int = 1000) -> tu
     return outs, counts
 
 
-def check_routes(name: str, n: int, label: str) -> dict:
+def check_routes(name: str, n: int, label: str, route: str = "") -> dict:
     """Every one of the ``n`` launches of kernel ``name`` (K1, K2, K3g, K4 or K7)
-    since the counts were zeroed took its ``SERVED_ROUTE``."""
+    since the counts were zeroed took ``route``, else its ``SERVED_ROUTE``."""
+    route = route or SERVED_ROUTE[name]
     routes = dict(kernel_fn(name).route_launches)
-    want = {**{r: 0 for r in routes}, SERVED_ROUTE[name]: n}
+    want = {**{r: 0 for r in routes}, route: n}
     log(f"{label}: {name} launches by route {routes}")
-    check(routes == want, f"{label}: not every {name} launch took the {SERVED_ROUTE[name]} "
-          f"route: {routes}")
+    check(routes == want, f"{label}: not every {name} launch took the {route} route: {routes}")
     return routes
 
 
@@ -2719,6 +2736,296 @@ def train_cli_phase(card, dev) -> None:
                 f"{wall:.2f} s, test top-1 {top1:.2f}% over {n_test} [{card}]")
 
 
+# -- phase 8: the int8 carry, the fault-tolerant run, unpack and profiling ------------
+
+def carry_gates(qtt, model, requests, per_fwd: dict, label: str, names, routes: dict) -> dict:
+    """One served configuration under the int8 carry (the caller's carry
+    dtype and fused-tail setting): the launches per forward (``serve``),
+    each kernel of ``routes`` on its route there (``check_routes``),
+    within JAX's 8e-2 of max|logits| of the same model's packed forward
+    without the carry, the argmax agreement printed; every kernel call of
+    one recorded forward held against its plain version as it is made; the
+    forward timed with and without the carry. Returns the recorded calls,
+    the counts, the max abs errors and the times."""
+    import torch
+
+    with qtt.qin_carry(True):
+        outs, counts = serve(model, requests, per_fwd, label)
+    for name, route in routes.items():
+        check_routes(name, counts[name], label, route)
+    ref = model(requests[0], mode="packed")
+    r = rel(outs[0], ref)
+    agree = float((outs[0].argmax(-1) == ref.argmax(-1)).float().mean())
+    log(f"{label}: carry vs the packed forward without it {r:.3e} of max|logits| (<= 8e-2), "
+        f"argmax agreement {agree:.4f}")
+    check(r <= 8e-2, f"{label}: the carry moves the logits beyond 8e-2")
+    with qtt.qin_carry(True), Recorder(compare_each=names) as rec:
+        model(requests[1], mode="packed")
+    torch.cuda.synchronize()
+    max_err = {name: max(rec.errs[name], default=0.0) for name in names}
+    n = sum(len(rec.errs[name]) for name in names)
+    check(n == sum(per_fwd.get(name, 0) for name in names),
+          f"{label}: {n} kernel calls compared, expected {sum(per_fwd.values())}")
+    log(f"{label}: every kernel call of one forward ({n}) against its plain version passed; "
+        f"max abs err {max_err}")
+    with qtt.qin_carry(True):
+        t_carry = cuda_ms(lambda: model(requests[2], mode="packed"))
+    t_plain = cuda_ms(lambda: model(requests[2], mode="packed"))
+    return {"calls": rec.calls, "counts": counts, "max_err": max_err,
+            "ms": (t_carry, t_plain), "out": outs[0]}
+
+
+def quant_ignores_carry(qtt, model, x, label: str) -> None:
+    import torch
+
+    sim = model(x, mode="quant")
+    with qtt.qin_carry(True):
+        sim_carry = model(x, mode="quant")
+    check(bool(torch.equal(sim, sim_carry)), f"{label}: quant mode reads the carry flag")
+    log(f"{label}: quant mode bit-equal with the carry flag on and off")
+
+
+def carry_resnet_phase(qtt, batch, card) -> tuple:
+    """ResNet-50 W8A8 at 256 under the int8 carry (module docstring, phase
+    8a); returns the model and its deploy variables for phase 8d."""
+    import torch
+
+    t0 = time.time()
+    model = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
+    sample = batch(32)
+    qtt.init_model(model, sample, seed=0)
+    qtt.calibrate_model(model, [batch(32) for _ in range(4)])
+    deploy = qtt.pack_model(model, sample)
+    torch.cuda.synchronize()
+    log(f"carry resnet50 set-up (init, calibrate 4x32, pack) {time.time() - t0:.1f} s")
+    requests = [batch(CARRY_BATCH) for _ in range(3)]
+    measured = {}
+    with torch.inference_mode():
+        quant_ignores_carry(qtt, model, requests[0], "carry resnet50")
+        for carry in (torch.float32, torch.bfloat16):
+            for fused in (True, False):
+                label = (f"carry resnet50 ({str(carry).replace('torch.', '')} carry, fused tail "
+                         f"{'on' if fused else 'off'})")
+                per_fwd = RESNET_PER_FWD if fused else RESNET_UNFUSED_PER_FWD
+                routes = {"w8a8_gemm": "wgmma", **({"conv1x1_residual": "wgmma"} if fused else {})}
+                with qtt.packed_carry(carry), qtt.fused_residual(fused):
+                    res = carry_gates(qtt, model, requests, per_fwd, label, tuple(per_fwd), routes)
+                t_carry, t_plain = res["ms"]
+                measured[(carry, fused)] = t_carry
+                log(f"time: {label}: {t_carry:.3f} ms per batch of {CARRY_BATCH} "
+                    f"({CARRY_BATCH * 1e3 / t_carry:.1f} img/s), without the carry "
+                    f"{t_plain:.3f} ms ({CARRY_BATCH * 1e3 / t_plain:.1f} img/s) [{card}]")
+                if fused and carry == torch.bfloat16:
+                    # K2 with the float32 residual of qin.dequant() and a bf16 output
+                    kernel_entries(res["calls"], res["counts"], res["max_err"],
+                                   ("conv1x1_residual",), "resnet50 bf16 carry under the carry")
+        with qtt.fused_residual(True), qtt.qin_carry(True):
+            where_it_goes(model, requests[2], f"resnet50 packed under the int8 carry, batch "
+                          f"{CARRY_BATCH}, f32 carry, fused tail [{card}]")
+    return model, deploy, requests[2], measured[(torch.float32, True)]
+
+
+def carry_mobilenet_phase(qtt, batch, card) -> None:
+    """MobileNetV3-Large W8A8 at 256 under the int8 carry (module
+    docstring, phase 8b)."""
+    import torch
+
+    model = build_packed(qtt, batch, "mobilenet_v3_large", CFG_MOBILE, "mobilenet_v3_large W8A8")
+    requests = [batch(CARRY_BATCH) for _ in range(3)]
+    with torch.inference_mode():
+        quant_ignores_carry(qtt, model, requests[0], "carry mobilenet_v3_large")
+        outs, _ = serve(model, requests, MNV3_PER_FWD, "mobilenet_v3_large without the carry")
+        for carry in (torch.float32, torch.bfloat16):
+            label = f"carry mobilenet_v3_large ({str(carry).replace('torch.', '')} carry)"
+            with qtt.packed_carry(carry):
+                res = carry_gates(qtt, model, requests, MNV3_CARRY_PER_FWD, label,
+                                  tuple(MNV3_CARRY_PER_FWD),
+                                  {"qconv2d_grouped": "dp4a", "w8a8_gemm": "wgmma"})
+            (args, n), = res["calls"]["qconv2d_grouped"].values()
+            q, w, groups = args[0], args[3], args[12]
+            side = requests[0].shape[1] // 2  # after the stride-2 stem
+            check(tuple(q.shape) == (requests[0].shape[0], side, side, 16) and w.shape[2] == 1
+                  and groups == 16 and n == 1,
+                  f"{label}: K3g's call x{tuple(q.shape)} w{tuple(w.shape)} G={groups}")
+            log(f"{label}: the first block's depthwise conv on K3g's dp4a route, "
+                f"{describe('qconv2d_grouped', args)} (Ci/G = 1), bit-equal to its plain version")
+            t_carry, t_plain = res["ms"]
+            log(f"time: {label}: {t_carry:.3f} ms per batch of {CARRY_BATCH} "
+                f"({CARRY_BATCH * 1e3 / t_carry:.1f} img/s), without the carry {t_plain:.3f} ms "
+                f"({CARRY_BATCH * 1e3 / t_plain:.1f} img/s) [{card}]")
+            if carry == torch.float32:
+                kernel_entries(res["calls"], res["counts"], res["max_err"], ("qconv2d_grouped",),
+                               "mobilenet_v3_large under the carry")
+        t_fp32 = cuda_ms(lambda: model(requests[2], mode="fp32"))
+        log(f"time: mobilenet_v3_large fp32 forward (yardstick): {t_fp32:.3f} ms per batch of "
+            f"{CARRY_BATCH} [{card}]")
+        n = requests[2].shape[0]
+        where_it_goes(model, requests[2], f"mobilenet_v3_large packed, batch {n}, f32 carry "
+                      f"[{card}]")
+        with qtt.qin_carry(True):
+            where_it_goes(model, requests[2], f"mobilenet_v3_large packed under the int8 carry, "
+                          f"batch {n}, f32 carry [{card}]")
+    del model, requests, outs
+    torch.cuda.empty_cache()
+
+
+def fault_phase(qtt, card, dev) -> None:
+    """ViT-B/16 W4A8 QAT under ``supervised_run`` with an injected crash and
+    an injected NaN loss (module docstring, phase 8c)."""
+    import json as _json
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import quantize_tpu_torch.runners as runners
+    from quantize_tpu_torch.parallel import FaultInjector, HealthMonitor, Heartbeat
+    from quantize_tpu_torch.runners.resume import supervised_run
+    from quantize_tpu_torch.utils import Logger
+
+    rng = np.random.default_rng(12)
+    batches = [{"img": rng.standard_normal((QAT_BATCH, TRAIN_IMAGE, TRAIN_IMAGE, 3),
+                                           dtype=np.float32),
+                "label": rng.integers(0, 1000, QAT_BATCH).astype(np.int32)} for _ in range(2)]
+    for label, inject, monitor, error in FAULT_RUNS:
+        with tempfile.TemporaryDirectory() as out_dir:
+            Logger(out_dir)
+            cfg = train_config(QAT_CFG, out_dir, {"calibrated_epoch": 1, "max_epoch": 2})
+            losses, built = [], []
+
+            def factory(attempt):
+                runner = runners.build_runner(cfg, ArrayLoader(batches), device=dev)
+                step = runner.train_step
+
+                def recorded(*args):
+                    out = step(*args)
+                    losses.append(out[0])
+                    return out
+
+                runner.train_step = recorded
+                built.append(runner)
+                return runner
+
+            hb = os.path.join(out_dir, "p0.heartbeat")
+            t0 = time.time()
+            result = supervised_run(factory, max_restarts=2, injector=FaultInjector(**inject),
+                                    heartbeat=Heartbeat(hb),
+                                    monitor_factory=lambda: HealthMonitor(**monitor))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            runner = result.runner
+            state = _json.load(open(os.path.join(out_dir, "resume_state.json")))
+            restarts = [(e.attempt, e.error) for e in result.restarts]
+            log(f"fault {label}: vit_b_16 W4A8 QAT ({QAT_CFG}), {runner.max_epoch} epochs of "
+                f"{len(batches)} steps of {QAT_BATCH} under supervised_run: restarts {restarts}, "
+                f"resume state epoch {state.get('epoch')} finished {state.get('finished')}, "
+                f"heartbeat step {Heartbeat.read(hb)['step']}, {len(built)} runners built, "
+                f"{wall:.1f} s in all [{card}]")
+            check(len(restarts) == 1 and error in restarts[0][1],
+                  f"fault {label}: restarts {restarts}")
+            check(bool(state.get("finished")) and state.get("epoch") == runner.max_epoch - 1,
+                  f"fault {label}: resume state {state}")
+            check(all(math.isfinite(x) for x in losses if x is not None),
+                  f"fault {label}: losses {losses}")
+            log(f"fault {label}: step losses {', '.join(f'{x:.4f}' for x in losses)} (the "
+                f"resumed runner calibrates again: the QAT switch is not in the checkpoint, as "
+                f"in JAX)")
+
+            # the epoch checkpoint reloads bit-equal into a fresh runner
+            ckpt = state["checkpoint"]
+            size = os.path.getsize(ckpt)
+            fresh = runners.build_runner(cfg, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fresh.load_checkpoint(ckpt)
+            torch.cuda.synchronize()
+            t_read = time.time() - t0
+            mine, theirs = fresh.variables, runner.variables
+            same = set(mine) == set(theirs) and all(
+                set(mine[c]) == set(theirs[c]) and all(
+                    mine[c][k].dtype == theirs[c][k].dtype and torch.equal(mine[c][k], theirs[c][k])
+                    for k in theirs[c]) for c in theirs)
+            check(same, f"fault {label}: the epoch checkpoint does not reload bit-equal")
+            path = os.path.join(out_dir, "ckpt_write.pkl")
+            torch.cuda.synchronize()
+            t0 = time.time()
+            runner.save_checkpoint(path)
+            t_write = time.time() - t0
+            n_leaves = sum(len(v) for v in theirs.values())
+            log(f"time: fault {label}: the vit_b_16 checkpoint ({n_leaves} leaves, "
+                f"{size / 2**20:.1f} MiB) written in {t_write:.3f} s, read into a fresh runner "
+                f"in {t_read:.3f} s, every leaf bit-equal [{card}]")
+            del fresh, mine
+
+            # the trained model served packed
+            model = runner.model
+            gen = torch.Generator(device=dev).manual_seed(13)
+            requests = [torch.randn((TRAIN_REQUEST, TRAIN_IMAGE, TRAIN_IMAGE, 3), generator=gen,
+                                    device=dev) for _ in range(2)]
+            qtt.pack_model(model, torch.from_numpy(batches[0]["img"]).to(dev), device=dev)
+            with torch.inference_mode():
+                outs, _ = serve(model, requests, VIT_PER_FWD, f"fault {label} vit_b_16 (trained)")
+                r_sim = rel(outs[0], model(requests[0], mode="quant"))
+            log(f"fault {label}: packed vs the model's quant mode {r_sim:.3e} of max|logits| "
+                f"(<= 5e-2)")
+            check(r_sim <= 5e-2, f"fault {label}: the packed model disagrees with its quant mode")
+            del runner, result, built, model, requests, outs
+            torch.cuda.empty_cache()
+
+
+def unpack_profile_phase(qtt, model, deploy, x, measured_ms: float, card, dev) -> None:
+    """``unpack_model`` on the card, and the profiler (module docstring,
+    phase 8d)."""
+    import os
+    import tempfile
+
+    import torch
+    from quantize_tpu_torch import convert, profiling
+
+    with torch.inference_mode():
+        restored = qtt.unpack_model(deploy)
+        fresh = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
+        convert.from_jax_variables(fresh, restored)
+        sim, sim_r, fp32_r = (model(x, mode="quant"), fresh(x, mode="quant"),
+                              fresh(x, mode="fp32"))
+        err = float(((sim_r - sim).abs() - 2e-3 * sim.abs()).max())
+        log(f"unpack resnet50 W8A8: {len(restored['params'])} params leaves; the unpacked "
+            f"model's quant mode vs the original's: max |diff| - 2e-3 |ref| {err:.3e} (<= 2e-3); "
+            f"its fp32 forward (float activations) vs the original quant mode {rel(fp32_r, sim):.3e}"
+            f" of max|logits|")
+        check(err <= 2e-3, "unpack resnet50: the unpacked model's quant mode disagrees")
+        del fresh, restored
+
+        # JAX tests/test_packed.py's round trip at its own config: W8 weight-only
+        wo = build_packed(qtt, lambda n: x[:n], "resnet50", CFG_W8_ONLY,
+                          "resnet50 W8 weight-only")
+        fresh = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG_W8_ONLY))
+        convert.from_jax_variables(fresh, qtt.unpack_model(qtt.pack_model(wo, x[:32])))
+        sim, fp32_r = wo(x, mode="quant"), fresh(x, mode="fp32")
+        err = float(((fp32_r - sim).abs() - 2e-3 * sim.abs()).max())
+        log(f"unpack resnet50 W8 weight-only: the unpacked model's fp32 forward vs the original "
+            f"quant mode: max |diff| - 2e-3 |ref| {err:.3e} (<= 2e-3)")
+        check(err <= 2e-3, "unpack resnet50 W8 weight-only: the round trip disagrees")
+        del wo, fresh, sim, fp32_r
+
+        with qtt.fused_residual(True):
+            rep = profiling.roofline_report(lambda i: model(i, mode="packed"), x)
+            log(f"roofline resnet50 W8A8 packed, batch {x.shape[0]}, f32 carry, fused tail (H100 SXM peaks): "
+                f"{rep}; speed of light {rep['speed_of_light_ms']:.3f} ms beside the measured "
+                f"{measured_ms:.3f} ms (phase 8a, under the carry) [{card}]")
+            check(rep["n_ops"] == RESNET_PER_FWD["qconv2d"] + RESNET_PER_FWD["conv1x1_residual"]
+                  + RESNET_PER_FWD["w8a8_gemm"], f"roofline: {rep['n_ops']} contractions counted")
+            with tempfile.TemporaryDirectory() as d:
+                t0 = time.time()
+                with profiling.trace(d):
+                    model(x, mode="packed")
+                path = os.path.join(d, profiling.TRACE_FILE)
+                check(os.path.exists(path) and os.path.getsize(path) > 0,
+                      "profiling.trace wrote no trace")
+                log(f"profiling.trace of a packed forward: {os.path.getsize(path) / 2**20:.2f} MiB "
+                    f"written in {time.time() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2813,6 +3120,19 @@ def main() -> int:
     t0 = time.time()
     train_cli_phase(card, dev)
     log(f"training runs through the CLI {time.time() - t0:.1f} s")
+    t0 = time.time()
+    resnet, deploy, x, carry_ms = carry_resnet_phase(qtt, batch, card)
+    log(f"carry resnet50 phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    carry_mobilenet_phase(qtt, batch, card)
+    log(f"carry mobilenet_v3_large phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    fault_phase(qtt, card, dev)
+    log(f"fault-tolerant runs {time.time() - t0:.1f} s")
+    t0 = time.time()
+    unpack_profile_phase(qtt, resnet, deploy, x, carry_ms, card, dev)
+    log(f"unpack and profiling phase {time.time() - t0:.1f} s")
+    del resnet, deploy, x
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
         "ResNeXt-50's, "

@@ -10,17 +10,21 @@ caller passes ``device="cpu"``, where every kernel wrapper runs its plain
 PyTorch version.
 """
 from .api import calibrate_model, init_model
-from .deploy import model_size_bytes, pack_model
+from .deploy import model_size_bytes, pack_model, unpack_model
 from .models import MODELS
 from .nn.intercept import QuantCtx
 from .nn.layers import LayerQuantCfg, QuantConv, QuantDense
-from .nn.precision import (fused_residual, packed_carry, set_packed_carry_dtype,
-                           set_packed_fused_residual)
+from .nn.precision import (fused_residual, packed_carry, qin_carry, set_packed_carry_dtype,
+                           set_packed_conv_barrier, set_packed_fused_residual,
+                           set_packed_qin_carry)
+from .nn.qtensor import QTensor
 from .runners import execute_runner
 from .utils import Config
 
 __all__ = [
-    "Config", "LayerQuantCfg", "MODELS", "QuantConv", "QuantCtx", "QuantDense",
+    "Config", "LayerQuantCfg", "MODELS", "QTensor", "QuantConv", "QuantCtx", "QuantDense",
     "calibrate_model", "execute_runner", "fused_residual", "init_model", "model_size_bytes",
-    "pack_model", "packed_carry", "set_packed_carry_dtype", "set_packed_fused_residual",
+    "pack_model", "packed_carry", "qin_carry", "set_packed_carry_dtype",
+    "set_packed_conv_barrier", "set_packed_fused_residual", "set_packed_qin_carry",
+    "unpack_model",
 ]

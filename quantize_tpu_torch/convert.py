@@ -44,8 +44,8 @@ def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Mapping]) -> None:
-    """Load the JAX package's variables (numpy-convertible leaves) into
-    ``model`` in place, on the device of the model's tensors."""
+    """Load the JAX package's variables (numpy-convertible or tensor
+    leaves) into ``model`` in place, on the device of the model's tensors."""
     mods = dict(var_modules(model))
     first = next(itertools.chain(model.parameters(), model.buffers()), None)
     device = first.device if first is not None else torch.device("cpu")
@@ -54,7 +54,8 @@ def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Mapping])
             continue
         for key, value in flatten(tree).items():
             owner, leaf = _owner(mods, key)
-            t = torch.from_numpy(np.array(value)).to(device)
+            t = (value.detach().clone() if isinstance(value, torch.Tensor)
+                 else torch.from_numpy(np.array(value))).to(device)
             if col == "params":
                 cur = owner.get_var(col, leaf) if owner.has_var(col, leaf) else None
                 if cur is None or tuple(cur.shape) != tuple(t.shape):

@@ -6,7 +6,8 @@ weights, baked biases and activation qparams into the ``packed``
 collection (buffers of the model's modules), and returns the deploy
 variables under their flax names, like the JAX package's deploy pytree:
 ``packed``, ``params`` without the float kernel and bias of packed layers,
-and the other collections except observer state.
+and the other collections except observer state. :func:`unpack_model`
+inverts it.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from . import convert
 from .nn.variables import collections
 
 _W_KEYS = ("w_int", "w_p4", "w_p4c")
@@ -48,6 +50,45 @@ def pack_model(model: torch.nn.Module, sample_x, device="cuda") -> Dict[str, Dic
         if col not in ("params", "packed", "qobs"):
             deploy[col] = val
     return deploy
+
+
+def unpack_model(deploy: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Inverse transform (JAX ``deploy.unpack_model``): deploy variables ->
+    simulation-style variables ``{"params", "qparams", "batch_stats"}``,
+    each ``{"path/leaf": tensor}``.
+
+    Every packed integer weight (``w_int``; ``w_p4`` split-half int4;
+    ``w_p4c`` int4 pairs) becomes a float32 kernel ``(w + z)·s`` beside its
+    baked bias, so a packed checkpoint can go back to fake-quant evaluation
+    or fine-tuning: load the result with
+    :func:`quantize_tpu_torch.convert.from_jax_variables`. ``deploy`` is the
+    port's layout or JAX's nested one (tensors or numpy arrays)."""
+    from .ops.qmatmul import unpack_int4_splithalf
+    from .quant.pack import unpack_int4_pairs
+
+    def flat(col):
+        return {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+                for k, v in convert.flatten(deploy.get(col, {})).items()}
+
+    packed = flat("packed")
+    params = flat("params")
+    layers = {k.rsplit("/", 1)[0] for k in packed
+              if "/" in k and k.rsplit("/", 1)[1] in _W_KEYS}
+    for path in sorted(layers):
+        leaf = {name: packed.get(f"{path}/{name}") for name in (*_W_KEYS, "w_scale", "w_zero")}
+        if leaf["w_p4"] is not None:
+            w_int = unpack_int4_splithalf(leaf["w_p4"])
+        elif leaf["w_p4c"] is not None:
+            w_int = unpack_int4_pairs(leaf["w_p4c"], axis=2)
+        else:
+            w_int = leaf["w_int"]
+        params[f"{path}/kernel"] = (w_int.float() + leaf["w_zero"]) * leaf["w_scale"]
+        params[f"{path}/bias"] = packed[f"{path}/bias"]
+    out = {"params": params}
+    for col in ("qparams", "batch_stats"):
+        if col in deploy:
+            out[col] = flat(col)
+    return out
 
 
 def model_size_bytes(variables: Dict[str, Any]) -> int:

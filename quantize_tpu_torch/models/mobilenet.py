@@ -7,8 +7,10 @@ channels`` and quantize per out-channel like any other conv; packed, they
 take the float path of :class:`~quantize_tpu_torch.nn.layers.QuantConv`.
 Module names follow the flax tree (``features_3/expand_conv``,
 ``features_5/se/fc1/conv``), so variables load one to one from the JAX
-package. The int8 carry between blocks (JAX's ``packed_qin_carry``) is not
-ported, so the blocks always carry floats.
+package. Under the int8 carry (:func:`~quantize_tpu_torch.nn.precision.
+qin_carry`) a residual block's identity is its first conv's int8 input,
+dequantized; a depthwise conv that carries it takes the grouped int8
+kernel (K3g) instead of the float path.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from torch import nn
 
 from ..nn.intercept import QuantCtx
 from ..nn.layers import QuantConv, QuantDense
+from ..nn.precision import packed_qin_carry
 from .resnet import ResNet, _Stage
 
 
@@ -107,12 +110,24 @@ class InvertedResidual(_Stage):
                           name_conv="project_conv", name_bn="project_bn", device=device)
 
     def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+        # int8 carry: the residual reuses the first conv's quantized input
+        use_qin = self.use_res and mode == "packed" and packed_qin_carry()
+        identity, qin = x, None
         out = x
         if self.expand:
-            out = relu6(self._conv_bn("expand_conv", "expand_bn", out, mode))
-        out = relu6(self._conv_bn("dw_conv", "dw_bn", out, mode))
+            out = self._conv_bn("expand_conv", "expand_bn", out, mode, return_qinput=use_qin)
+            if use_qin:
+                out, qin = out
+            out = relu6(out)
+        dw_qin = use_qin and not self.expand
+        out = self._conv_bn("dw_conv", "dw_bn", out, mode, return_qinput=dw_qin)
+        if dw_qin:
+            out, qin = out
+        out = relu6(out)
         out = self._conv_bn("project_conv", "project_bn", out, mode)
-        return x + out if self.use_res else out
+        if qin is not None:
+            identity = qin.dequant()
+        return identity + out if self.use_res else out
 
 
 class MobileNetV2(_Net):
@@ -205,14 +220,25 @@ class MNV3Block(_Stage):
                           name_conv="project_conv", name_bn="project_bn", device=device)
 
     def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+        use_qin = self.use_res and mode == "packed" and packed_qin_carry()
+        identity, qin = x, None
         out = x
         if self.expand:
-            out = self.act(self._conv_bn("expand_conv", "expand_bn", out, mode))
-        out = self.act(self._conv_bn("dw_conv", "dw_bn", out, mode))
+            out = self._conv_bn("expand_conv", "expand_bn", out, mode, return_qinput=use_qin)
+            if use_qin:
+                out, qin = out
+            out = self.act(out)
+        dw_qin = use_qin and not self.expand
+        out = self._conv_bn("dw_conv", "dw_bn", out, mode, return_qinput=dw_qin)
+        if dw_qin:
+            out, qin = out
+        out = self.act(out)
+        if qin is not None:  # dequantized before squeeze-excite, as JAX orders it
+            identity = qin.dequant()
         if hasattr(self, "se"):
             out = self.se(out, mode)
         out = self._conv_bn("project_conv", "project_bn", out, mode)
-        return x + out if self.use_res else out
+        return identity + out if self.use_res else out
 
 
 _V3_LARGE = [

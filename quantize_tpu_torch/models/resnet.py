@@ -8,7 +8,9 @@ Module names follow the flax tree (``layer1_0/conv1``, ``downsample_conv``,
 (:mod:`quantize_tpu_torch.convert`). With ``ctx.bn_folding_enabled`` the
 BatchNorms are absent (folded into the convs); otherwise inference-mode
 BatchNorm layers follow each conv. ResNeXt's grouped 3x3 convs run the
-grouped int8 conv (kernel K3g) once packed.
+grouped int8 conv (kernel K3g) once packed. Under
+:func:`~quantize_tpu_torch.nn.precision.qin_carry` the packed blocks take
+their identity from conv1's int8 input (dequantized), as JAX's do.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from torch import nn
 from ..nn.intercept import QuantCtx
 from ..nn.layers import (QuantConv, QuantDense, QuantGlobalAvgPool, QuantMaxPool,
                          QuantReLU, max_pool_nhwc)
-from ..nn.precision import packed_fused_residual
+from ..nn.precision import packed_fused_residual, packed_qin_carry
 from ..nn.variables import VarModule
 
 
@@ -81,11 +83,17 @@ class _Stage(nn.Module):
             setattr(self, name_bn, _BN(features, device=device))
 
     def _conv_bn(self, name_conv: str, name_bn: str, x: torch.Tensor, mode: str,
-                 residual=None, fuse_relu: bool = False) -> torch.Tensor:
-        x = getattr(self, name_conv)(x, mode=mode, residual=residual, fuse_relu=fuse_relu)
+                 residual=None, fuse_relu: bool = False, return_qinput: bool = False):
+        """The conv (and BN); with ``return_qinput`` (packed mode, the int8
+        carry) ``(out, qin)``, qin the conv's quantized input or None."""
+        conv = getattr(self, name_conv)
+        if return_qinput:
+            x, qin = conv(x, mode=mode, return_qinput=True)
+        else:
+            x = conv(x, mode=mode, residual=residual, fuse_relu=fuse_relu)
         if hasattr(self, name_bn):
             x = getattr(self, name_bn)(x)
-        return x
+        return (x, qin) if return_qinput else x
 
     def _add_relu(self, ctx: QuantCtx, qpath: str, name: str, in_ch: int, device=None) -> None:
         """ReLU site: plain by default; an explicit ``nn_relu`` config key
@@ -115,8 +123,13 @@ class BasicBlock(_Stage):
         self._add_relu(ctx, f"{qpath}/relu", "relu2", features, device)
 
     def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
-        out = self._conv_bn("conv1", "bn1", x, mode)
-        identity = x
+        # int8 carry: skip/downsample reuse conv1's quantized input
+        use_qin = mode == "packed" and packed_qin_carry()
+        out = self._conv_bn("conv1", "bn1", x, mode, return_qinput=use_qin)
+        qin = None
+        if use_qin:
+            out, qin = out
+        identity = x if qin is None else qin.dequant()
         out = self._relu("relu1", out, mode)
         if self.downsample:
             identity = self._conv_bn("downsample_conv", "downsample_bn", identity, mode)
@@ -149,8 +162,12 @@ class Bottleneck(_Stage):
         self._add_relu(ctx, f"{qpath}/relu", "relu3", out_features, device)
 
     def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
-        out = self._conv_bn("conv1", "bn1", x, mode)
-        identity = x
+        use_qin = mode == "packed" and packed_qin_carry()
+        out = self._conv_bn("conv1", "bn1", x, mode, return_qinput=use_qin)
+        qin = None
+        if use_qin:
+            out, qin = out
+        identity = x if qin is None else qin.dequant()
         out = self._relu("relu1", out, mode)
         out = self._conv_bn("conv2", "bn2", out, mode)
         out = self._relu("relu2", out, mode)

@@ -65,6 +65,7 @@ from ..quant.observers import BiasCorrect
 from ..quant.pack import pack_int4_pairs, unpack_int4_pairs
 from ..quant.qspec import QuantSpec, _freeze
 from .precision import packed_carry_dtype
+from .qtensor import QTensor
 from .quantizer import Quantizer, awq_group
 from .variables import VarModule
 
@@ -421,13 +422,18 @@ class QuantConv(_QuantLayerBase):
             self.put_var("packed", "corr_a", conv_zero_correction_map(
                 q_i8, x.shape[1], x.shape[2], self.strides, self.padding))
 
-    def _packed_forward(self, x: torch.Tensor, residual=None,
-                        fuse_relu: bool = False) -> torch.Tensor:
+    def _packed_forward(self, x: torch.Tensor, residual=None, fuse_relu: bool = False,
+                        return_qinput: bool = False):
         w_spec, a_spec = self.w_spec, self.a_spec
         bias = self.get_var("packed", "bias")
 
         def _finish(out):
-            # unfused residual tail: cast to the carry dtype, then add + relu
+            # with return_qinput every branch returns (out, qin), as JAX's:
+            # qin None where no int8 input is shared (not fusable, AWQ,
+            # weight-only). Else the unfused residual tail: cast to the
+            # carry dtype, then add + relu
+            if return_qinput:
+                return out, None
             if residual is None:
                 return out
             out = out.to(packed_carry_dtype()) + residual
@@ -453,9 +459,10 @@ class QuantConv(_QuantLayerBase):
             xq = self._packed_act(x) if a_spec.enabled else x
             return _finish(quant_conv2d_wo(xq, w_int, w_scale, w_zero, bias, awq_recip=awq_recip,
                                            group_size=group, **conv_kw))
-        if groups > 1 and groups == x.shape[-1] and residual is None:
+        if groups > 1 and groups == x.shape[-1] and residual is None and not return_qinput:
             # depthwise (JAX layers.py:445-471): the quantized math as float
-            # on the library's conv, no int8 kernel. Both operands are cast to
+            # on the library's conv, no int8 kernel (one that carries its
+            # int8 input takes K3g below). Both operands are cast to
             # the carry dtype, as JAX casts them, then summed in float32 (the
             # card's TF32 off), + bias, cast: JAX keeps f32 sums through the
             # bias, which a bf16 conv would round first
@@ -484,7 +491,7 @@ class QuantConv(_QuantLayerBase):
                                     w_km=self.w_kmajor)
         x_sh = x
         w_km = self.w_grouped if groups > 1 else self.w_kmajor
-        if self._s2d_stem() and groups == 1:
+        if self._s2d_stem() and groups == 1 and not return_qinput:
             kh, kw = w_int.shape[:2]
             bp = s2d_block_padding(kh, kw, list(self.padding), x.shape[1], x.shape[2])
             if bp is not None and corr_a is not None:
@@ -497,12 +504,25 @@ class QuantConv(_QuantLayerBase):
                            w_zero, bias, w_zero_is_zero=wz0, corr_a=corr_a,
                            pre_q=(q_a, z_eff), out_dtype=packed_carry_dtype(), w_km=w_km,
                            **conv_kw)
+        if return_qinput:
+            return out, QTensor(q_a, a_scale.float(), z_eff)
         return _finish(out)
 
     def forward(self, x: torch.Tensor, mode: str = "fp32", residual=None,
-                fuse_relu: bool = False) -> torch.Tensor:
+                fuse_relu: bool = False, return_qinput: bool = False):
+        """``return_qinput`` (packed mode only): return ``(out, qin)``, qin
+        the :class:`~.qtensor.QTensor` of the int8 input where the int8 path
+        ran, else None (JAX ``QuantConv.return_qinput``)."""
+        if return_qinput and mode != "packed":
+            raise ValueError("QuantConv: return_qinput is a packed-mode feature")
         if mode == "packed":
-            return self._packed_forward(x, residual, fuse_relu).to(packed_carry_dtype())
+            if residual is not None and return_qinput:
+                raise ValueError("QuantConv: residual fusion and return_qinput are mutually "
+                                 "exclusive (the qin-carry path has no fused residual tail)")
+            out = self._packed_forward(x, residual, fuse_relu, return_qinput)
+            if return_qinput:
+                return out[0].to(packed_carry_dtype()), out[1]
+            return out.to(packed_carry_dtype())
         if mode == "pack":
             return self._pack(x)
         if mode not in _MODES:

@@ -1,9 +1,10 @@
-"""Deploy-time carry precision and the fused residual tail switch.
+"""Deploy-time carry precision, the fused residual tail and the int8 carry.
 
 PyTorch counterpart of ``quantize_tpu/nn/precision.py``, with the same names
 and defaults: packed layers cast their outputs to the carry dtype (float32
-unless set), and the fused 1x1-conv + residual + ReLU tail is off unless
-:func:`set_packed_fused_residual` turns it on.
+unless set); the fused 1x1-conv + residual + ReLU tail is off unless
+:func:`set_packed_fused_residual` turns it on; residual blocks carry floats
+between blocks unless :func:`qin_carry` turns on the int8 carry.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import torch
 
 _CARRY_DTYPE: torch.dtype = torch.float32
 _FUSED_RESIDUAL: bool = False
+_QIN_CARRY: bool = False
+_CONV_BARRIER: bool = False
 
 
 def set_packed_carry_dtype(dtype: Any) -> None:
@@ -56,6 +59,43 @@ def fused_residual(enabled: bool = True):
         yield
     finally:
         set_packed_fused_residual(prev)
+
+
+def set_packed_qin_carry(enabled: bool) -> None:
+    """Enable int8 quantized-domain carries across residual blocks: packed
+    residual blocks feed their skip/downsample branches from the main-path
+    conv's quantized input (:class:`~.qtensor.QTensor`) rather than the
+    float activation, so the skip path sees ``fake_quant(x)``."""
+    global _QIN_CARRY
+    _QIN_CARRY = bool(enabled)
+
+
+def packed_qin_carry() -> bool:
+    return _QIN_CARRY
+
+
+@contextmanager
+def qin_carry(enabled: bool = True):
+    prev = _QIN_CARRY
+    set_packed_qin_carry(enabled)
+    try:
+        yield
+    finally:
+        set_packed_qin_carry(prev)
+
+
+def set_packed_conv_barrier(enabled: bool) -> None:
+    """JAX's switch that materializes each packed conv's int8 activation
+    (``lax.optimization_barrier``) so that XLA cannot fuse its producer
+    chain into the conv. A flag with no effect here: in eager PyTorch each
+    int8 activation is already written out by its quantize before the conv
+    kernel reads it."""
+    global _CONV_BARRIER
+    _CONV_BARRIER = bool(enabled)
+
+
+def packed_conv_barrier() -> bool:
+    return _CONV_BARRIER
 
 
 def _as_dtype(dtype: Any) -> torch.dtype:

@@ -52,7 +52,7 @@ import os
 
 import torch
 
-from . import _build
+from . import _build, _cost
 
 # the shared memory one block may use on the H100 (227 KB)
 SMEM_PER_BLOCK = 232_448
@@ -160,6 +160,7 @@ def mha_rows_plain(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool
     return out.reshape(rows, three_e // 3)
 
 
+@_cost.reports("mha_rows")
 def mha_rows(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
              out_dtype: torch.dtype, valid_len: int) -> torch.Tensor:
     """Kernel K8: CPU tensors take :func:`mha_rows_plain`; CUDA tensors
@@ -233,6 +234,7 @@ def mha_rows_int8_plain(qkv: torch.Tensor, num_heads: int, seq_len: int, causal:
     return out.permute(0, 2, 1, 3).reshape(rows, e).to(out_dtype)
 
 
+@_cost.reports("mha_rows_int8")
 def mha_rows_int8(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
                   out_dtype: torch.dtype, valid_len: int) -> torch.Tensor:
     """Kernel K9: CPU tensors take :func:`mha_rows_int8_plain`; CUDA

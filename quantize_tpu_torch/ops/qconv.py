@@ -38,7 +38,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from . import _build
+from . import _build, _cost
 from .qmatmul import _dequant_weight, quantize_act_int8
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
@@ -136,6 +136,7 @@ def kmajor_weight(w_int: torch.Tensor) -> torch.Tensor:
     return F.pad(w_int, (0, 0, 0, ci_pad - ci)).reshape(kh * kw * ci_pad, co).t().contiguous()
 
 
+@_cost.reports("qconv2d")
 def qconv2d_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
                  w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
                  bias: Optional[torch.Tensor], strides: Sequence[int], pads,
@@ -330,6 +331,7 @@ def qconv2d_grouped_int8_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: 
     return out.to(out_dtype)
 
 
+@_cost.reports("qconv2d_grouped")
 def qconv2d_grouped_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
                          w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
                          bias: Optional[torch.Tensor], strides: Sequence[int], pads,

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _build
+from . import _build, _cost
 from .qmatmul import int8_matmul_exact
 
 
@@ -75,6 +75,7 @@ def conv1x1_residual_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torc
     return out.to(out_dtype)
 
 
+@_cost.reports("conv1x1_residual")
 def conv1x1_residual_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
                           w_int: torch.Tensor, col_sum: torch.Tensor,
                           w_scale: torch.Tensor, bias: Optional[torch.Tensor],

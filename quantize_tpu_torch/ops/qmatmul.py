@@ -32,7 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..quant.observers import group_unview, group_view
-from . import _build
+from . import _build, _cost
 
 
 def quantize_act_int8_plain(x: torch.Tensor, scale, zero, qmin: int, qmax: int
@@ -145,6 +145,7 @@ def w8a8_gemm_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tenso
     return out if bias is None else out + bias
 
 
+@_cost.reports("w8a8_gemm")
 def w8a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
               w_int: Optional[torch.Tensor], col_sum: torch.Tensor, w_scale: torch.Tensor,
               w_zero: torch.Tensor, bias: Optional[torch.Tensor],
@@ -286,6 +287,7 @@ def w4a8_gemm_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tenso
                            w_scale, w_zero, bias, w_zero_is_zero)
 
 
+@_cost.reports("w4a8_gemm")
 def w4a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
               w_p4: Optional[torch.Tensor], col_sum: torch.Tensor, w_scale: torch.Tensor,
               w_zero: torch.Tensor, bias: Optional[torch.Tensor],
@@ -428,6 +430,7 @@ def wo_gemm_plain(x: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor,
     return out if bias is None else out + bias
 
 
+@_cost.reports("wo_gemm")
 def wo_gemm(x: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
             bias: Optional[torch.Tensor], compute_dtype: torch.dtype) -> torch.Tensor:
     """Kernel K5: float (M, K) ``x`` (f32 or bf16) times int8 (K, N)

@@ -6,8 +6,8 @@ reference's ``RUNNERS`` / ``build_runner`` / ``execute_runner``,
 ``num_classes`` from the dataset into the model config, runs calibration,
 then re-evaluates the best checkpoint on the test split, all on ``device``
 (CUDA unless the caller asks for the CPU). The three runners are ported:
-``ptq``, ``qat`` and ``adaround``; ``train.elastic`` raises
-NotImplementedError.
+``ptq``, ``qat`` and ``adaround``; with ``train.elastic`` the run goes
+through :func:`~.resume.supervised_run` (resumable epochs, restarts).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import Optional
 
 from ..data import build_dataloader, build_transform
 from ..utils import get_logger
-from ..utils.registry import Registry, not_ported_error
+from ..utils.registry import Registry
 from .adaround import AdaRound
 from .base import BasicRunner
 from .ptq import PTQ
@@ -41,8 +41,6 @@ def _loader(cfg, which: str):
 def execute_runner(cfg, device="cuda") -> Optional[dict]:
     """Build loaders + runner, run it, then test from the best checkpoint
     (reference ``runner/__init__.py:41-77``)."""
-    if cfg.train and cfg.train.elastic:
-        raise not_ported_error("the fault-tolerant run (train.elastic)", 6)
     logger = get_logger()
     train_loader = _loader(cfg, "train")
     val_loader = _loader(cfg, "val")
@@ -56,7 +54,31 @@ def execute_runner(cfg, device="cuda") -> Optional[dict]:
 
     runner = build_runner(cfg, train_loader, val_loader, test_loader, device=device)
     if train_loader is not None:
-        runner.run()
+        elastic = cfg.train.elastic if cfg.train else None
+        if elastic:
+            # fault-tolerant path: resumable epochs + supervised restarts
+            # (config: train.elastic.{max_restarts, backoff_s,
+            # ckpt_every_epochs, monitor})
+            import os
+
+            from ..parallel.fault import HealthMonitor, Heartbeat
+            from .resume import supervised_run
+
+            hb_path = os.path.join(cfg.output_dir or "results", "p0.heartbeat")
+            result_sup = supervised_run(
+                lambda attempt: runner if attempt == 0 else build_runner(
+                    cfg, _loader(cfg, "train"), val_loader, test_loader, device=device),
+                max_restarts=int(elastic.max_restarts or 3),
+                backoff_s=float(elastic.backoff_s or 0.5),
+                ckpt_every_epochs=int(elastic.ckpt_every_epochs or 1),
+                monitor_factory=(HealthMonitor if elastic.monitor else None),
+                heartbeat=Heartbeat(hb_path),
+            )
+            runner = result_sup.runner
+            if result_sup.restarts:
+                logger.info(f"completed after {len(result_sup.restarts)} restart(s)")
+        else:
+            runner.run()
 
     result = None
     if test_loader is not None:

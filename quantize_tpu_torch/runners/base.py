@@ -24,7 +24,6 @@ from ..models import build_model
 from ..nn.intercept import QuantCtx
 from ..nn.variables import collections
 from ..utils import MovingAverageMeter, get_logger
-from ..utils.registry import not_ported_error
 
 
 def pad_batch(batch: Dict[str, np.ndarray], batch_size: int) -> Dict[str, np.ndarray]:
@@ -235,16 +234,21 @@ class BasicRunner:
         self.logger.info(f"checkpoint saved to {path}")
 
     def load_checkpoint(self, path: str) -> Dict[str, Any]:
-        """Load a checkpoint of :meth:`save_checkpoint` into the model,
-        creating the entries the model does not have yet (observer state,
-        packed buffers)."""
-        if not zipfile.is_zipfile(path):
-            # the JAX runner pickles flax msgpack bytes; torch.save writes a zip
-            raise not_ported_error(f"reading the JAX package's checkpoint {path!r}", 4)
-        payload = torch.load(path, map_location="cpu", weights_only=True)
-        self.variables = payload["variables"]
+        """Load a checkpoint of :meth:`save_checkpoint`, or one the JAX
+        runner wrote (a pickle of flax msgpack bytes, read by
+        :func:`~quantize_tpu_torch.utils.msgpack.load_jax_checkpoint`), into
+        the model, creating the entries the model does not have yet
+        (observer state, packed buffers); returns its ``extra``."""
+        if zipfile.is_zipfile(path):  # torch.save writes a zip
+            payload = torch.load(path, map_location="cpu", weights_only=True)
+            variables, extra = payload["variables"], payload.get("extra", {})
+        else:
+            from ..utils.msgpack import load_jax_checkpoint
+
+            variables, extra = load_jax_checkpoint(path)
+        self.variables = variables
         self.logger.info(f"checkpoint loaded from {path}")
-        return payload.get("extra", {})
+        return extra
 
     def save_model(self, eval_result: Optional[Dict[str, float]] = None) -> None:
         """Best-model tracking (reference ``runner/base.py:252-283``)."""

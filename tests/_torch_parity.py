@@ -1,6 +1,7 @@
 """One model through the JAX package and the port on the CPU, for the
 model-level parity tests (``tests/test_torch_mobilenet*.py``,
-``tests/test_torch_wideresnet.py``).
+``tests/test_torch_wideresnet.py``, and under the int8 carry
+``tests/test_torch_qin_carry*.py``).
 
 Both packages start from the same variables (JAX's init, carried over with
 ``quantize_tpu_torch.convert``), calibrate on the same batch, pack from the
@@ -135,3 +136,93 @@ def check_packed(out, logits="exact", exact=("w_int", "w_p4c", "w_p4", "corr_a",
         assert np.max(np.abs(got[0] - want)) <= max(noise.max(), 1e-6 * np.abs(want).max())
         assert np.array_equal(got[0].argmax(-1), want.argmax(-1))
     assert out["launches_unchanged"]
+
+
+CARRIES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def run_carry(jax_ctor, port_ctor, cfg, x, x_cal, jit_packed=False, fused_opts=(False,)):
+    """The packed forward of one model under the int8 carry (``qin_carry``)
+    in both packages, from the same calibrated variables (JAX's init,
+    calibrate and pack under ``jit``; its packed forward eager, or under
+    ``jit`` where ``jit_packed``), at f32 and bf16 carry and each fused-tail
+    setting: ``{("carry", carry, fused): (port, JAX)}``, float32 numpy
+    logits, with ``("grouped", carry, fused)``: the port's calls of K3g's
+    wrapper in that forward; ``fp32``/``quant``: JAX's logits;
+    ``no_carry``: the port's packed logits without the carry; ``quant_flag``:
+    the port's quant-mode logits with the flag on and off."""
+    from quantize_tpu.nn.precision import fused_residual as jax_fused_residual
+    from quantize_tpu.nn.precision import packed_carry as jax_packed_carry
+    from quantize_tpu.nn.precision import qin_carry as jax_qin_carry
+    import quantize_tpu_torch.ops.qconv as port_qconv
+
+    xj = jnp.asarray(x)
+    jm = jax_ctor(num_classes=10, ctx=JaxQuantCtx(cfg))
+    v0 = dict(jax.jit(lambda k, a: jm.init(k, a, mode="calibrate"))(jax.random.PRNGKey(0), xj))
+    v0.pop("taps", None)
+    _, upd = jax.jit(lambda v, a: jm.apply(v, a, mode="calibrate", mutable=["qobs", "qparams"]))(
+        v0, jnp.asarray(x_cal))
+    v1 = jax.device_get({**v0, **upd})
+    deploy = jax.device_get(jax.jit(lambda v, a: jax_pack_model(jm, v, a))(v1, xj))
+    tm = port_ctor(num_classes=10, ctx=qtt.QuantCtx(cfg), device="cpu")
+    convert.from_jax_variables(tm, v1)
+    convert.from_jax_variables(tm, deploy)
+    out = {mode: np.asarray(jax.jit(lambda v, a: jm.apply(v, a, mode=mode))(v1, xj))
+           for mode in ("fp32", "quant")}
+    grouped, calls = port_qconv.qconv2d_grouped_int8, []
+
+    def counting(*args):
+        calls.append(args[0].shape)
+        return grouped(*args)
+
+    xt = torch.from_numpy(x)
+    with torch.no_grad():
+        for carry, (jdt, tdt) in CARRIES.items():
+            for fused in fused_opts:
+                with jax_qin_carry(True), jax_packed_carry(jdt), jax_fused_residual(fused):
+                    if jit_packed:
+                        want = jax.jit(lambda v, a: jm.apply(v, a, mode="packed"))(deploy, xj)
+                    else:
+                        want = jm.apply(deploy, xj, mode="packed")
+                port_qconv.qconv2d_grouped_int8 = counting
+                try:
+                    with qtt.qin_carry(True), qtt.packed_carry(tdt), qtt.fused_residual(fused):
+                        got = tm(xt, mode="packed")
+                finally:
+                    port_qconv.qconv2d_grouped_int8 = grouped
+                out[("carry", carry, fused)] = (got.float().numpy(), np.asarray(want, np.float32))
+                out[("grouped", carry, fused)] = len(calls)
+                calls.clear()
+        out["no_carry"] = tm(xt, mode="packed").numpy()
+        quant = tm(xt, mode="quant").numpy()
+        with qtt.qin_carry(True):
+            out["quant_flag"] = (tm(xt, mode="quant").numpy(), quant)
+    return out
+
+
+def check_carry(out, carry, fused, logits):
+    """The port's packed logits under the carry against JAX's, by
+    ``logits`` as :func:`check_packed`'s (``"resnet"``: 1e-3 of max|JAX
+    logits|, the ResNet packed-parity criterion)."""
+    got, want = out[("carry", carry, fused)]
+    assert got.shape == want.shape == (2, 10)
+    if logits == "resnet":
+        assert np.max(np.abs(got - want)) <= 1e-3 * np.max(np.abs(want))
+    elif logits == "exact":
+        np.testing.assert_array_equal(got, want)
+    else:
+        noise = np.abs(out["quant"] - out["fp32"])
+        assert np.max(np.abs(got - want)) <= max(noise.max(), 1e-6 * np.abs(want).max())
+        assert np.array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def check_carry_vs_float_skip(out):
+    """The skip path sees fake_quant(x): the carry's f32 logits within JAX's
+    8e-2 of max|logits| (tests/test_precision.py) of the float carry's, with
+    the same argmax, and different from them; quant mode ignores the flag."""
+    got, _ = out[("carry", "float32", False)]
+    ref = out["no_carry"]
+    assert 0 < np.max(np.abs(got - ref)) <= 8e-2 * np.max(np.abs(ref))
+    assert np.array_equal(got.argmax(-1), ref.argmax(-1))
+    on, off = out["quant_flag"]
+    np.testing.assert_array_equal(on, off)

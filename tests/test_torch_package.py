@@ -21,6 +21,7 @@ from quantize_tpu_torch.models import MODELS, build_model
 from quantize_tpu_torch.models.testnet import TestCNN, TrajNet
 from quantize_tpu_torch.models.resnet import ResNet
 from quantize_tpu_torch.models.vit import VisionTransformer
+from quantize_tpu_torch.parallel import device_healthcheck
 from quantize_tpu_torch.ops import _build, launch_counts, reset_launch_counts
 from quantize_tpu_torch.ops.attention import mha_rows, mha_rows_int8
 from quantize_tpu_torch.ops.layernorm import layernorm_quant_int8_rows, layernorm_rows
@@ -33,7 +34,7 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "quantize_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "quantize_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "tensorstore", "quantize_tpu")
 
 
 def _imported_roots(path: Path):
@@ -55,7 +56,9 @@ def test_port_imports_no_jax_and_nothing_of_quantize_tpu():
             "utils/log.py", "utils/meters.py", "models/clip/__init__.py", "models/clip/model.py",
             "models/clip/tokenizer.py", "models/clip/textfix.py",
             "models/clip/prompt_learning.py", "models/import_clip.py",
-            "models/import_vit.py"} <= ported
+            "models/import_vit.py", "nn/qtensor.py", "checkpoint.py", "profiling.py",
+            "parallel/__init__.py", "parallel/fault.py", "runners/resume.py", "ops/_cost.py",
+            "utils/msgpack.py"} <= ported
     for f in files:
         bad = [m for m in _imported_roots(f) if m in FORBIDDEN]
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
@@ -64,7 +67,8 @@ def test_port_imports_no_jax_and_nothing_of_quantize_tpu():
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     for fn in (api.init_model, api.calibrate_model, deploy.pack_model,
                MODELS.lookup("resnet50"), MODELS.lookup("resnet18"), MODELS.lookup("vit_b_16"),
-               build_model, runners.build_runner, runners.execute_runner):
+               build_model, runners.build_runner, runners.execute_runner,
+               device_healthcheck):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn
     for cls in (ResNet, VisionTransformer, TestCNN, TrajNet, runners.BasicRunner):
         assert inspect.signature(cls).parameters["device"].default == "cuda", cls

@@ -321,18 +321,6 @@ def test_runners_not_ported_raise(tmp_path, name):
             np.testing.assert_array_equal(flat[key], t.numpy(), err_msg=f"{col}/{key}")
 
 
-def test_elastic_and_jax_checkpoints_raise_not_ported(tmp_path):
-    cfg = Config(base_cfg(tmp_path, train_extra={"elastic": {"max_restarts": 1}}).to_dict())
-    with pytest.raises(NotImplementedError, match="train.elastic.*queue 1 item 6"):
-        runners.execute_runner(cfg, device="cpu")
-    jax_ckpt = tmp_path / "jax_ckpt.pkl"
-    runner = jax_runners.build_runner(base_cfg(tmp_path))
-    runner.save_checkpoint(str(jax_ckpt))
-    port = runners.build_runner(Config(base_cfg(tmp_path).to_dict()), device="cpu")
-    with pytest.raises(NotImplementedError, match="JAX package's checkpoint.*queue 1 item 4"):
-        port.load_checkpoint(str(jax_ckpt))
-
-
 def test_entry_points_raise_without_a_card(tmp_path, monkeypatch):
     """The default device is CUDA, with no fallback to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
