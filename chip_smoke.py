@@ -268,7 +268,54 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    of the packed ResNet-50 forward (54 contractions, each kernel wrapper's
    report) with its speed of light beside 8a's measured time, and one
    ``profiling.trace`` of a packed forward, its trace file written.
-9. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+9a. The serving engine (``parallel/serving.InferenceEngine``): phase 8a's
+   ResNet-50 W8A8 at batch 256, fused tail, bf16 carry, then one pass at
+   f32 carry: ``SERVE_IMAGES`` (4,096) seeded uint8 images of 224 x 224
+   sent by four producer threads (256 by ``submit``, 1,280 by
+   ``submit_many``, twice 1,280 by ``submit_batch`` in chunks of 256),
+   normalized on the card (ImageNet's mean and std). Counts zeroed just
+   before, read just after: K3 37, K2 16, K1 1 and KQ 54 a batch, padded
+   batches included, K2 and K1 on their ``wgmma`` routes; no request fails;
+   every result bit-equal to that image's row of the direct
+   ``model(preprocess(x), mode="packed")`` over batches of 256. One request
+   of shape (8, 8, 3), queued beside a good one, fails that batch only, and
+   the next 256 are served right. Printed: the engine's img/s by
+   ``submit_batch`` at ``max_in_flight`` 4 and 16 (median of 3 runs after
+   one left out), the direct forward's img/s back to back (CUDA events,
+   the same normalize), the efficiency (engine / direct), mean batch fill,
+   the most batches seen in flight, the host staging and dispatch ms a
+   batch, the batch's pinned host-to-device copy alone, and the host time
+   to queue one forward with the card idle, after checking in torch's sync
+   debug mode that a packed forward never waits for the card (a gate).
+9b. Device feed: a frame pool of 512 uint8 frames on the card, int32 index
+   requests by ``submit_batch``, the argmax as postprocess: the labels equal
+   the argmax of the direct forward; launches as 9a; 2 or more batches in
+   flight at ``max_in_flight`` 4 and 16 (JAX's count: the batches waiting
+   for the drain at a dispatch, the one put included; the dispatch thread
+   runs ahead of the card); img/s and efficiency as 9a.
+9c. A fresh ResNet-50 given 9a's deploy variables placed by
+   ``make_mesh(1, 1)`` and ``shard_variables``, served through the engine
+   with ``mesh=``: 1,024 results bit-equal to 9a's. ``make_mesh(2, 1)``
+   raises on one card.
+9d. Real data: the script writes a CIFAR-10 python-format archive
+   (``data_batch_1..5`` and ``test_batch`` of 1,000 seeded images each);
+   ``configs/runners/ptq/minmax/ptq_rn18_w8a8_cifar10.yaml`` runs through
+   the CLI over it on the card, every batch through ``PrefetchIterator``
+   (counted): test top-1 in [0, 100] over 1,000; the first test batch on
+   the card equals a numpy decode of the archive with the config's
+   ``to_tensor`` and ``normalize``; the best checkpoint, packed, evaluated
+   over the test split: K3 20, K1 1, KQ 21 a batch (counted on the CPU
+   first). ``quantize_tpu_torch.data`` registers the nine dataset names
+   with or without Pillow.
+9e. ViT-B/16 W4A8 through the engine at batch 128, f32 carry, two
+   ``submit_batch`` chunks: results bit-equal to the direct forward; K4
+   37, K7 24, K8 12, K5 12, K6 1, K3 1 and KQ 14 a batch, K4 and K7 on
+   their served routes.
+9f. Dense packing: the native ``engine.tpack``/``tunpack`` (``g++``-built)
+   round-trips phase 8a's 54 ``w_int`` leaves at 8 bits and at 4 bits
+   (clamped) bit for bit, its bytes equal to the plain torch version's;
+   MB/s of both (host work).
+10. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
    beside its bound, its plain version and the nearest library call (K2
@@ -571,6 +618,29 @@ CONV1X1_SHAPES = ((147, 256, 1024, "float32", "float32", True, True, "wgmma"),
                   (147, 64, 256, "bfloat16", "float32", True, False, "wgmma"),
                   (300, 40, 256, "float32", "float32", True, True, "mma_sync"),
                   (147, 64, 28, "bfloat16", "bfloat16", True, True, "mma_sync"))
+
+# phase 9, the serving engine: requests of SERVE_IMAGES seeded uint8 images
+# at 224 x 224, batches of SERVE_BATCH, sent by four producer threads (how
+# many each sends, and through which call), normalized on the card with
+# ImageNet's mean and std (the configs' ``normalize``); the device feed's
+# frame pool; ViT-B/16's batch through the engine (two chunks)
+SERVE_BATCH = 256
+SERVE_IMAGES = 4096
+SERVE_IMAGE = 224
+SERVE_PRODUCERS = (("submit", 256), ("submit_many", 1280), ("submit_batch", 1280),
+                   ("submit_batch", 1280))
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+FRAME_POOL = 512
+SERVE_IN_FLIGHT = (4, 16)
+SERVE_REPS = 3
+VIT_SERVE_BATCH = 128
+# phase 9d: the CIFAR-10 runner config, over an archive the script writes
+# (data_batch_1..5 and test_batch of CIFAR_PER_FILE images each)
+CIFAR_CFG = "configs/runners/ptq/minmax/ptq_rn18_w8a8_cifar10.yaml"
+CIFAR_PER_FILE = 1000
+DATASET_NAMES = ("cifar10", "cifar100", "cifar10c", "imagenet", "imagenet_a", "imagenet_r",
+                 "imagenet_v2", "imagenet_sketch", "imagenet_c")
 
 
 def log(*args):
@@ -3026,6 +3096,520 @@ def unpack_profile_phase(qtt, model, deploy, x, measured_ms: float, card, dev) -
                     f"written in {time.time() - t0:.1f} s")
 
 
+# -- phase 9: the serving engine and real data ---------------------------------------
+
+def normalizer(dev):
+    """The on-card preprocess of the uint8 requests: ImageNet's normalize of
+    x / 255, as ``(x - 255 mean) / (255 std)``, divided by a tensor."""
+    import torch
+
+    shift = torch.tensor([255.0 * m for m in IMAGENET_MEAN], device=dev)
+    scale = torch.tensor([255.0 * s for s in IMAGENET_STD], device=dev)
+    return lambda x: (x.float() - shift) / scale
+
+
+def direct_rows(model, pre, requests, batch: int, dev, post=None, pool=None):
+    """The direct packed forward ``post(model(pre(x)))`` over ``requests``
+    (uint8 host images, or int32 indices into the card's ``pool``) in
+    batches of ``batch``: numpy rows, float32 unless ``post`` says."""
+    import numpy as np
+    import torch
+
+    out = []
+    with torch.inference_mode():
+        for lo in range(0, len(requests), batch):
+            x = torch.from_numpy(np.ascontiguousarray(requests[lo:lo + batch])).to(dev)
+            if pool is not None:
+                x = pool.index_select(0, x.long())
+            o = model(pre(x), mode="packed")
+            out.append((post(o) if post is not None else o.float()).cpu().numpy())
+    return np.concatenate(out)
+
+
+def produce(eng, requests) -> list:
+    """``requests`` sent to the engine by one thread a producer
+    (``SERVE_PRODUCERS``), each through its call: ``[(lo, hi, future)]``, the future resolving to the result of
+    row lo (``submit``, ``submit_many``) or the stacked rows lo..hi
+    (``submit_batch``)."""
+    import threading
+
+    jobs, lo = [], 0
+    for kind, n in SERVE_PRODUCERS:
+        jobs.append((kind, lo, lo + n))
+        lo += n
+    check(lo == len(requests), f"the producers send {lo} of {len(requests)} requests")
+    sent = [None] * len(jobs)
+
+    def run(j, kind, lo, hi):
+        if kind == "submit":
+            sent[j] = [(i, i + 1, eng.submit(requests[i])) for i in range(lo, hi)]
+        elif kind == "submit_many":
+            sent[j] = [(lo + k, lo + k + 1, f)
+                       for k, f in enumerate(eng.submit_many(requests[lo:hi]))]
+        else:
+            b = eng.batch_size
+            sent[j] = [(lo + k * b, min(lo + (k + 1) * b, hi), f)
+                       for k, f in enumerate(eng.submit_batch(requests[lo:hi]))]
+
+    threads = [threading.Thread(target=run, args=(j, *job)) for j, job in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    check(all(not t.is_alive() for t in threads) and all(s is not None for s in sent),
+          "a producer thread did not finish")
+    return [x for s in sent for x in s]
+
+
+def gather(futs, n: int, row_shape: tuple, dtype):
+    """The results of every future, as rows in request order."""
+    import numpy as np
+
+    out = np.empty((n, *row_shape), dtype)
+    for lo, hi, f in futs:
+        out[lo:hi] = f.result(timeout=300)
+    return out
+
+
+def served_gates(eng, counts: dict, per_fwd: dict, label: str, routes=()) -> dict:
+    """No failed request, and the launches per batch (padded batches
+    included) and their routes."""
+    st = eng.stats()
+    log(f"{label}: {st['processed']} requests in {st['batches']} batches (mean fill "
+        f"{st['mean_batch_fill']:.4f}, max in flight {st['max_observed_in_flight']}, host "
+        f"staging {st['staging_ms']:.3f} ms and dispatch {st['dispatch_ms']:.3f} ms a batch), failed "
+        f"{st['failed']}; launches {counts}")
+    check(st["failed"] == 0, f"{label}: {st['failed']} requests failed")
+    for name, n in per_fwd.items():
+        check(counts[name] == n * st["batches"],
+              f"{label}: {name}: {counts[name]} launches, expected {n} x {st['batches']} batches")
+    for name, n in counts.items():
+        check(name in per_fwd or n == 0, f"{label}: {name} launched {n} times, expected none")
+    for name in routes:
+        check_routes(name, counts[name], label)
+    return st
+
+
+def check_rows(got, want, label: str) -> None:
+    """Every served row bit-equal to the direct forward's."""
+    import numpy as np
+
+    check(got.shape == want.shape, f"{label}: results {got.shape}, direct {want.shape}")
+    differ = [i for i in range(len(got)) if not np.array_equal(got[i], want[i])]
+    log(f"{label}: {len(got) - len(differ)} of {len(got)} results bit-equal to the direct "
+        f"forward" + (f"; rows {differ[:8]} differ by up to "
+                      f"{float(np.abs(got[differ].astype(np.float64) - want[differ]).max()):.3e}"
+                      if differ else ""))
+    check(not differ, f"{label}: {len(differ)} results differ from the direct forward")
+
+
+def engine_rates(model, requests, label: str, card, batch: int, **kw) -> dict:
+    """Engine img/s over ``requests`` sent by one ``submit_batch``, at each of
+    ``SERVE_IN_FLIGHT``: the median of ``SERVE_REPS`` runs after one run
+    left out (the pinned host buffers are allocated there); ``{in_flight:
+    (img/s, stats of the last run)}``."""
+    from quantize_tpu_torch.parallel import InferenceEngine
+
+    out = {}
+    for in_flight in SERVE_IN_FLIGHT:
+        rates = []
+        for _ in range(SERVE_REPS + 1):
+            with InferenceEngine(model, batch_size=batch, max_in_flight=in_flight, **kw) as eng:
+                t0 = time.perf_counter()
+                for f in eng.submit_batch(requests):
+                    f.result(timeout=300)
+                rates.append(len(requests) / (time.perf_counter() - t0))
+            check(eng.n_failed == 0, f"{label}: requests failed")
+        stats = eng.stats()
+        rate = statistics.median(rates[1:])
+        out[in_flight] = (rate, stats)
+        log(f"time: {label}, max_in_flight {in_flight}: {rate:.1f} img/s (runs "
+            f"{', '.join(f'{r:.1f}' for r in rates[1:])}; mean fill {stats['mean_batch_fill']:.4f}, "
+            f"max in flight {stats['max_observed_in_flight']}, host staging "
+            f"{stats['staging_ms']:.3f} ms and dispatch {stats['dispatch_ms']:.3f} ms a batch) [{card}]")
+    return out
+
+
+def host_enqueue_ms(fn) -> float:
+    """Host time to queue one call of ``fn`` with the card idle before it
+    (median of 4; no backlog of launches in the way), after checking in
+    torch's sync debug mode that the call never waits for the card."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as exc:
+        raise Failure(f"the call synchronizes the host with the card: {exc}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def serving_phase(qtt, model, deploy, card, dev) -> None:
+    """ResNet-50 W8A8 served through the engine (module docstring, phases
+    9a-9c), from phase 8's packed model and its deploy variables."""
+    import numpy as np
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+    from quantize_tpu_torch.parallel import InferenceEngine
+
+    t0 = time.time()
+    images = np.random.default_rng(9).integers(0, 256, (SERVE_IMAGES, SERVE_IMAGE, SERVE_IMAGE, 3),
+                                               dtype=np.uint8)
+    pre = normalizer(dev)
+    log(f"serving: {SERVE_IMAGES} seeded uint8 requests of {SERVE_IMAGE} x {SERVE_IMAGE} x 3 made in "
+        f"{time.time() - t0:.1f} s ({images[:SERVE_BATCH].nbytes / 1e6:.1f} MB a batch of "
+        f"{SERVE_BATCH})")
+    kw = dict(max_wait_ms=2.0, input_dtype=np.uint8, preprocess=pre, device=dev)
+    served = {}
+    for carry in (torch.bfloat16, torch.float32):
+        name = str(carry).replace("torch.", "")
+        label = f"engine resnet50 W8A8 ({name} carry, fused tail)"
+        with qtt.packed_carry(carry), qtt.fused_residual(True):
+            want = direct_rows(model, pre, images, SERVE_BATCH, dev)  # warms the model too
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with InferenceEngine(model, batch_size=SERVE_BATCH, **kw) as eng:
+                futs = produce(eng, images)
+                got = gather(futs, len(images), (1000,), np.float32)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = launch_counts()
+            log(f"{label}: four producers ({', '.join(f'{n} by {k}' for k, n in SERVE_PRODUCERS)}) "
+                f"served in {wall:.3f} s, {len(images) / wall:.1f} img/s [{card}]")
+            served_gates(eng, counts, RESNET_PER_FWD, label, ("conv1x1_residual", "w8a8_gemm"))
+            check_rows(got, want, label)
+            served[name] = got
+            if carry == torch.bfloat16:
+                bad_request(model, images, want, kw, label)
+                rates = engine_rates(model, images, label + " by submit_batch", card, SERVE_BATCH,
+                                     **kw)
+                x = torch.from_numpy(images[:SERVE_BATCH]).to(dev)
+                with torch.inference_mode():
+                    raw_ms = cuda_ms(lambda: model(pre(x), mode="packed"), reps=5, inner=4)
+                    host_ms = host_enqueue_ms(lambda: model(pre(x), mode="packed"))
+                log(f"resnet50 W8A8 packed forward (bf16 carry, fused tail): no host "
+                    f"synchronization (torch's sync debug mode); the host queues a forward in "
+                    f"{host_ms:.3f} ms (median of 4, Python and the wrappers' launches) beside "
+                    f"{raw_ms:.3f} ms back to back on the card [{card}]")
+                pinned = torch.from_numpy(images[:SERVE_BATCH]).pin_memory()
+                copy_ms = cuda_ms(lambda: pinned.to(dev, non_blocking=True), reps=5, inner=4)
+                raw = SERVE_BATCH * 1e3 / raw_ms
+                log(f"time: resnet50 W8A8 packed forward (bf16 carry, fused tail, normalize on "
+                    f"the card) {raw_ms:.3f} ms a batch of {SERVE_BATCH} back to back, {raw:.1f} "
+                    f"img/s; the batch's pinned host-to-device copy ({images[:SERVE_BATCH].nbytes / 1e6:.1f} MB) "
+                    f"{copy_ms:.3f} ms ({images[:SERVE_BATCH].nbytes / copy_ms / 1e6:.1f} GB/s) "
+                    f"[{card}]")
+                for in_flight, (rate, st) in rates.items():
+                    log(f"serving efficiency (host ingress, uint8), max_in_flight {in_flight}: "
+                        f"engine {rate:.1f} / raw {raw:.1f} img/s = {rate / raw:.4f}; mean fill "
+                        f"{st['mean_batch_fill']:.4f}, max in flight {st['max_observed_in_flight']}, "
+                        f"host staging {st['staging_ms']:.3f} ms a batch [{card}]")
+                device_feed(model, images, pre, card, dev)
+                one_device_mesh(qtt, model, deploy, images, served[name], kw, card)
+    del images, served
+
+
+def bad_request(model, images, want, kw, label: str) -> None:
+    """One request of the wrong shape fails its batch only: queued beside a
+    good one before the engine starts (one batch), then the next
+    ``SERVE_BATCH`` requests are served right."""
+    import numpy as np
+    from quantize_tpu_torch.parallel import InferenceEngine
+
+    eng = InferenceEngine(model, batch_size=SERVE_BATCH, **kw)
+    f_good = eng.submit(images[0])
+    f_bad = eng.submit(images[0][:8, :8])
+    with eng:
+        errors = []
+        for f in (f_good, f_bad):
+            try:
+                f.result(timeout=300)
+            except ValueError as exc:
+                errors.append(str(exc))
+        (chunk,) = [f.result(timeout=300) for f in eng.submit_batch(images[:SERVE_BATCH])]
+    log(f"{label}: a request of shape (8, 8, 3) failed its batch ({len(errors)} of 2 futures "
+        f"raised: {errors[:1]}), failed count {eng.n_failed}; the next {SERVE_BATCH} requests "
+        f"served")
+    check(len(errors) == 2 and "shape" in errors[0] and eng.n_failed == 2,
+          f"{label}: the bad request did not fail its batch alone")
+    check(np.array_equal(chunk, want[:SERVE_BATCH]),
+          f"{label}: the requests after the bad one differ from the direct forward")
+
+
+def device_feed(model, images, pre, card, dev) -> None:
+    """Phase 9b: requests are int32 indices into a pool of ``FRAME_POOL``
+    uint8 frames on the card, the postprocess the argmax."""
+    import numpy as np
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+    from quantize_tpu_torch.parallel import InferenceEngine
+
+    pool = torch.from_numpy(images[:FRAME_POOL]).to(dev)
+    idx = np.random.default_rng(10).integers(0, FRAME_POOL, SERVE_IMAGES).astype(np.int32)
+    post = lambda o: o.argmax(-1)  # noqa: E731
+    want = direct_rows(model, pre, idx, SERVE_BATCH, dev, post=post, pool=pool)
+    kw = dict(max_wait_ms=2.0, preprocess=pre, postprocess=post, frame_pool=pool, device=dev)
+    label = "engine resnet50 W8A8 device feed (bf16 carry, fused tail, argmax)"
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with InferenceEngine(model, batch_size=SERVE_BATCH, **kw) as eng:
+        got = np.concatenate([f.result(timeout=300) for f in eng.submit_batch(idx)])
+    torch.cuda.synchronize()
+    served_gates(eng, launch_counts(), RESNET_PER_FWD, label, ("conv1x1_residual", "w8a8_gemm"))
+    check(np.array_equal(got, want), f"{label}: {int((got != want).sum())} labels differ from "
+          f"the argmax of the direct forward")
+    log(f"{label}: {len(got)} labels equal the argmax of the direct forward")
+    rates = engine_rates(model, idx, label, card, SERVE_BATCH, **kw)
+    x = torch.from_numpy(idx[:SERVE_BATCH]).to(dev)
+    with torch.inference_mode():
+        raw_ms = cuda_ms(lambda: post(model(pre(pool.index_select(0, x.long())), mode="packed")),
+                         reps=5, inner=4)
+    raw = SERVE_BATCH * 1e3 / raw_ms
+    for in_flight, (rate, st) in rates.items():
+        log(f"serving efficiency (device feed), max_in_flight {in_flight}: engine {rate:.1f} / "
+            f"raw {raw:.1f} img/s = {rate / raw:.4f} (raw: gather, forward and argmax back to "
+            f"back, {raw_ms:.3f} ms a batch); max in flight {st['max_observed_in_flight']} (>= 2) "
+            f"[{card}]")
+        check(st["max_observed_in_flight"] >= 2,
+              f"{label}: the dispatch thread never ran ahead of the device "
+              f"(max_in_flight {in_flight})")
+    del pool
+
+
+def one_device_mesh(qtt, model, deploy, images, served, kw, card) -> None:
+    """Phase 9c: a fresh ResNet-50 given the deploy variables placed on a
+    one-device mesh serves results bit-equal to 9a's; a mesh of two devices
+    cannot be made on one card."""
+    import numpy as np
+    import torch
+    from quantize_tpu_torch.parallel import InferenceEngine, make_mesh, shard_variables
+
+    mesh = make_mesh(1, 1)
+    fresh = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
+    n = 4 * SERVE_BATCH
+    kw = {k: v for k, v in kw.items() if k != "device"}  # the mesh's device
+    eng = InferenceEngine(fresh, shard_variables(mesh, deploy), batch_size=SERVE_BATCH, mesh=mesh,
+                          **kw)
+    direct_rows(fresh, kw["preprocess"], images[:SERVE_BATCH], SERVE_BATCH, mesh.device)  # warm
+    with eng:
+        got = np.concatenate([f.result(timeout=300) for f in eng.submit_batch(images[:n])])
+    check(eng.n_failed == 0, "engine on a one-device mesh: requests failed")
+    check_rows(got, served[:n], f"engine resnet50 on a one-device mesh {mesh}")
+    try:
+        make_mesh(2, 1)
+    except ValueError as exc:
+        log(f"make_mesh(2, 1) on {torch.cuda.device_count()} card(s) raised: {exc}")
+    else:
+        raise Failure("make_mesh(2, 1) did not raise on one card")
+    del fresh, eng
+    torch.cuda.empty_cache()
+
+
+def vit_serving_phase(qtt, batch, card, dev) -> None:
+    """Phase 9e: ViT-B/16 W4A8 through the engine, two chunks of
+    ``VIT_SERVE_BATCH``, at f32 carry."""
+    import numpy as np
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+    from quantize_tpu_torch.parallel import InferenceEngine
+
+    model = build_packed(qtt, batch, "vit_b_16", CFG_W4A8, "vit_b_16 W4A8 (engine)")
+    images = np.random.default_rng(11).integers(
+        0, 256, (2 * VIT_SERVE_BATCH, SERVE_IMAGE, SERVE_IMAGE, 3), dtype=np.uint8)
+    pre = normalizer(dev)
+    want = direct_rows(model, pre, images, VIT_SERVE_BATCH, dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with InferenceEngine(model, batch_size=VIT_SERVE_BATCH, input_dtype=np.uint8,
+                         preprocess=pre, device=dev) as eng:
+        futs = eng.submit_batch(images)
+        got = np.concatenate([f.result(timeout=300) for f in futs])
+    torch.cuda.synchronize()
+    label = "engine vit_b_16 W4A8 (f32 carry)"
+    served_gates(eng, launch_counts(), VIT_PER_FWD, label, ("w4a8_gemm", "layernorm_quant_int8"))
+    check(len(futs) == 2 and eng.n_batches == 2, f"{label}: {len(futs)} chunks, "
+          f"{eng.n_batches} batches")
+    check_rows(got, want, label)
+    del model
+    torch.cuda.empty_cache()
+
+
+def write_cifar10(root, seed: int) -> None:
+    """A CIFAR-10 python-format archive: ``data_batch_1..5`` and
+    ``test_batch`` of ``CIFAR_PER_FILE`` seeded images each, in the standard
+    pickle layout (``data`` (n, 3072) uint8 rows, channel planes of 32 x 32;
+    ``labels`` a list of ints)."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = os.path.join(root, "cifar-10-batches-py")
+    os.makedirs(d)
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        with open(os.path.join(d, name), "wb") as f:
+            pickle.dump({b"batch_label": name.encode(),
+                         b"labels": rng.integers(0, 10, CIFAR_PER_FILE).tolist(),
+                         b"data": rng.integers(0, 256, (CIFAR_PER_FILE, 3072), dtype=np.uint8),
+                         b"filenames": [f"{i}.png".encode() for i in range(CIFAR_PER_FILE)]}, f)
+
+
+def cifar_phase(qtt, card, dev) -> None:
+    """Phase 9d: the PTQ runner through the CLI on ``CIFAR_CFG`` over a
+    CIFAR-10 archive the script writes, its batches through
+    ``PrefetchIterator``; then the best checkpoint packed and evaluated over
+    the test split."""
+    import os
+    import pickle
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+    import quantize_tpu_torch.parallel.input_pipeline as input_pipeline
+    import quantize_tpu_torch.runners as runners
+    from quantize_tpu_torch import cli
+    from quantize_tpu_torch.data import DATASETS, TRANSFORMS
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    missing = [n for n in DATASET_NAMES if n not in DATASETS]
+    check(not missing, f"datasets not registered: {missing}")
+    try:
+        import PIL  # noqa: F401
+        pillow = "present"
+    except ImportError:
+        pillow = "absent"
+    log(f"quantize_tpu_torch.data imported with Pillow {pillow}; the nine dataset names "
+        f"registered")
+
+    built, prefetched = [], [0]
+    build_runner, prefetch_cls = runners.build_runner, input_pipeline.PrefetchIterator
+
+    class Counting(prefetch_cls):
+        def __next__(self):
+            item = super().__next__()
+            prefetched[0] += 1
+            return item
+
+    def keep(*args, **kw):
+        built.append(build_runner(*args, **kw))
+        return built[-1]
+
+    with tempfile.TemporaryDirectory() as data_dir, tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.time()
+        write_cifar10(data_dir, seed=12)
+        log(f"cifar: a CIFAR-10 archive of 5 x {CIFAR_PER_FILE} train and {CIFAR_PER_FILE} test "
+            f"images written in {time.time() - t0:.2f} s")
+        argv = ["--cfg", CIFAR_CFG, "--output-dir", out_dir, "--device", str(dev), "--opts",
+                *(f"{s}_dataset.root={data_dir}" for s in ("train", "val", "test"))]
+        runners.build_runner, input_pipeline.PrefetchIterator = keep, Counting
+        try:
+            t0 = time.time()
+            cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            runners.build_runner, input_pipeline.PrefetchIterator = build_runner, prefetch_cls
+        found = re.findall(r"test result: \{'top1': ([-+.\deE]+|nan), 'n': (\d+)\}",
+                           open(os.path.join(out_dir, "output.log")).read())
+        check(len(found) == 1, "cifar: no test result in output.log")
+        top1, n_test = float(found[0][0]), int(found[0][1])
+        log(f"cifar resnet18 W8A8 (ptq_rn18_w8a8_cifar10.yaml): config to test result {wall:.2f} s, "
+            f"test top-1 {top1:.2f}% over {n_test} (quant mode, random weights); {prefetched[0]} "
+            f"batches through PrefetchIterator [{card}]")
+        check(0.0 <= top1 <= 100.0 and n_test == CIFAR_PER_FILE,
+              f"cifar: test top-1 {top1} over {n_test}")
+        check(prefetched[0] > 0, "cifar: no batch went through PrefetchIterator")
+
+        runner = built[0]
+        cfg = runner.cfg
+        first = next(runner._prefetch(runner.test_loader))
+        with open(os.path.join(data_dir, "cifar-10-batches-py", "test_batch"), "rb") as f:
+            raw = pickle.load(f, encoding="bytes")
+        n = runner.test_loader.batch_size
+        imgs = raw[b"data"][:n].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1)
+        for name, args in cfg.test_dataset.transform.to_dict().items():
+            imgs = TRANSFORMS.build(name, **(args or {}))(imgs)
+        check(first["img"].device == dev, "cifar: the batch is not on the card")
+        check(np.array_equal(first["img"].cpu().numpy(), np.asarray(imgs, np.float32))
+              and np.array_equal(first["label"].cpu().numpy(), np.asarray(raw[b"labels"][:n])),
+              "cifar: the first test batch differs from a numpy decode of the archive")
+        log(f"cifar: the first test batch ({tuple(first['img'].shape)}) equals a numpy decode of "
+            f"the archive with the config's to_tensor and normalize")
+
+        fresh = runners.build_runner(cfg, device=dev)
+        fresh.load_checkpoint(cfg.runner.best)
+        qtt.pack_model(fresh.model, next(runner._prefetch(runner.train_loader))["img"], device=dev)
+        correct = total = batches = 0
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            for b in runner._prefetch(runner.test_loader):
+                logits = fresh.model(b["img"], mode="packed")
+                valid = b["label"] >= 0
+                correct += int((logits.argmax(-1) == b["label"])[valid].sum())
+                total += int(valid.sum())
+                batches += 1
+            torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"cifar: packed eval of the best checkpoint over {total} test images in {batches} "
+            f"batches: top-1 {100.0 * correct / total:.2f}%, launches {counts}")
+        for name, per in RESNET18_PER_FWD.items():
+            check(counts[name] == per * batches,
+                  f"cifar packed eval: {name} {counts[name]} launches, expected {per} x {batches}")
+        for name, c in counts.items():
+            check(name in RESNET18_PER_FWD or c == 0, f"cifar packed eval: {name} launched {c}")
+        del runner, fresh, built
+    torch.cuda.empty_cache()
+
+
+def packing_phase(deploy, card) -> None:
+    """Phase 9f: the native dense packer over the packed ResNet-50's
+    ``w_int`` leaves at 8 and 4 bits (clamped), against the plain version."""
+    import torch
+    from quantize_tpu_torch import engine
+    from quantize_tpu_torch.quant.pack import tpack as plain_tpack
+
+    t0 = time.time()
+    check(engine.get_native() is not None, "the native tpack library did not build")
+    log(f"native tpack built (g++) and loaded in {time.time() - t0:.2f} s: {engine.lib_path()}")
+    leaves = [t.cpu() for k, t in deploy["packed"].items() if k.endswith("w_int")]
+    n = sum(t.numel() for t in leaves)
+    for bits in (8, 4):
+        lo, hi = -(1 << (bits - 1)), (1 << (bits - 1)) - 1
+        t0 = time.perf_counter()
+        packed = [engine.tpack(w, bits, True) for w in leaves]
+        t_pack = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = [engine.tunpack(p, d, torch.int8) for p, d in packed]
+        t_unpack = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = [plain_tpack(w, bits, True)[0] for w in leaves]
+        t_plain = time.perf_counter() - t0
+        check(all(torch.equal(b, w.clamp(lo, hi)) for b, w in zip(back, leaves)),
+              f"native tpack/tunpack at {bits} bits: the round trip differs")
+        check(all(torch.equal(p, q) for (p, _), q in zip(packed, plain)),
+              f"native tpack at {bits} bits: bytes differ from the plain version's")
+        out_mb = sum(p.numel() for p, _ in packed) / 1e6
+        log(f"time: dense packing of {len(leaves)} w_int leaves ({n / 1e6:.2f} M int8) at {bits} "
+            f"bits into {out_mb:.2f} MB, bit for bit: native tpack {n / 1e6 / t_pack:.1f} MB/s, "
+            f"tunpack {n / 1e6 / t_unpack:.1f} MB/s, the plain torch version {n / 1e6 / t_plain:.1f}"
+            f" MB/s (host, {torch.get_num_threads()} threads) [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -3132,7 +3716,20 @@ def main() -> int:
     t0 = time.time()
     unpack_profile_phase(qtt, resnet, deploy, x, carry_ms, card, dev)
     log(f"unpack and profiling phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    serving_phase(qtt, resnet, deploy, card, dev)
+    log(f"serving phase (engine, device feed, one-device mesh) {time.time() - t0:.1f} s")
+    t0 = time.time()
+    packing_phase(deploy, card)
+    log(f"dense packing phase {time.time() - t0:.1f} s")
     del resnet, deploy, x
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    vit_serving_phase(qtt, batch, card, dev)
+    log(f"vit_b_16 serving phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    cifar_phase(qtt, card, dev)
+    log(f"cifar runner phase {time.time() - t0:.1f} s")
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
         "ResNeXt-50's, "

@@ -17,7 +17,6 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .utils.registry import not_ported_error
 
 
 def _cpu(tree: Any) -> Any:
@@ -54,13 +53,18 @@ def restore(path: str, template: Optional[Dict[str, Any]] = None, mesh=None) -> 
     """Read a checkpoint of :func:`save` (CPU tensors). With ``template``
     the result takes the template's containers and each leaf the dtype of
     the template's leaf at the same path (JAX's ``jax.tree.map`` over the
-    template). Restoring onto a mesh is not ported."""
-    if mesh is not None:
-        raise not_ported_error("restoring a checkpoint onto a mesh (tensor-parallel placement)",
-                               6)
+    template). With ``mesh`` (:func:`~quantize_tpu_torch.parallel.mesh.make_mesh`)
+    the leaves are placed by
+    :func:`~quantize_tpu_torch.parallel.mesh.shard_variables`: on a mesh of
+    one device, on that device; a larger mesh raises (not ported)."""
+    device = None if mesh is None else mesh.device  # a larger mesh raises here
     restored = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
-    if template is None:
-        return restored
-    from .convert import flatten
+    if template is not None:
+        from .convert import flatten
 
-    return _conform(template, flatten(restored), "")
+        restored = _conform(template, flatten(restored), "")
+    if device is not None:
+        from .parallel.mesh import shard_variables
+
+        restored = shard_variables(mesh, restored)
+    return restored

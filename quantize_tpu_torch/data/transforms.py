@@ -6,10 +6,13 @@ name and composed in the order the config lists them. Operates on uint8/float
 NHWC numpy batches. Includes the custom AugMix/AugExpand-style training
 augmentations in simplified numpy form.
 
-A copy of ``quantize_tpu/data/transforms.py`` with one change: PIL is
+A copy of ``quantize_tpu/data/transforms.py`` with two changes: PIL is
 imported by the transforms that use it, when they are built, so the
 package imports, and a config without those transforms runs, where
-Pillow is not installed.
+Pillow is not installed; and a per-image PIL transform whose outputs
+differ in shape (``resize`` to a short side, on images of different
+aspect ratios: a real ImageNet folder) returns them as an object array
+for the next transform (``center_crop``), where JAX's ``np.stack`` raises.
 """
 from __future__ import annotations
 
@@ -35,6 +38,10 @@ def _per_image(fn: Callable[[Image.Image], Image.Image]):
             if arr.dtype != np.uint8:
                 arr = np.clip(arr, 0, 255).astype(np.uint8)
             out.append(np.asarray(fn(Image.fromarray(arr))))
+        if len({o.shape for o in out}) > 1:
+            ragged = np.empty(len(out), dtype=object)
+            ragged[:] = out
+            return ragged
         return np.stack(out)
 
     return apply

@@ -396,9 +396,10 @@ class QuantConv(_QuantLayerBase):
                 and not self.a_spec.per_channel):
             # the int8 kernels' own copies of the weight, made here once per
             # packed weight (at pack or load time) as buffers outside the
-            # packed collection: K3's and K2's K-major copy (for the stem
-            # also the space-to-depth weight and its copy), or the copy
-            # K3g's route for this shape reads
+            # packed collection: K3's and K2's K-major copy and, for a 1x1
+            # kernel, K2's column sums (for the stem also the space-to-depth
+            # weight and its copy), or the copy K3g's route for this shape
+            # reads
             w_int = unpack_int4_pairs(out, axis=2) if leaf == "w_p4c" else out
             if self.feature_group_count > 1:
                 self.register_buffer("w_grouped",
@@ -406,6 +407,9 @@ class QuantConv(_QuantLayerBase):
                                      persistent=False)
             else:
                 self.register_buffer("w_kmajor", kmajor_weight(w_int), persistent=False)
+                if self.kernel_size == (1, 1):
+                    self.register_buffer("w_colsum", w_int.reshape(w_int.shape[2:]).sum(
+                        dim=0, dtype=torch.int32), persistent=False)
                 if self._s2d_stem():
                     w_s2d = s2d_kernel(w_int)
                     self.register_buffer("w_s2d", w_s2d, persistent=False)
@@ -487,8 +491,8 @@ class QuantConv(_QuantLayerBase):
         if (residual is not None and wz0 and pad_zero and self.kernel_size == (1, 1)
                 and self.strides == (1, 1) and groups == 1):
             return conv1x1_residual(q_a, z_eff, a_scale, w_int, w_scale, bias, residual,
-                                    relu=fuse_relu, out_dtype=packed_carry_dtype(),
-                                    w_km=self.w_kmajor)
+                                    relu=fuse_relu, col_sum_w=self.w_colsum,
+                                    out_dtype=packed_carry_dtype(), w_km=self.w_kmajor)
         x_sh = x
         w_km = self.w_grouped if groups > 1 else self.w_kmajor
         if self._s2d_stem() and groups == 1 and not return_qinput:

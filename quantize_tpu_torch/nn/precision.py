@@ -17,12 +17,14 @@ _CARRY_DTYPE: torch.dtype = torch.float32
 _FUSED_RESIDUAL: bool = False
 _QIN_CARRY: bool = False
 _CONV_BARRIER: bool = False
+_GENERATION: int = 0  # counts the calls of the setters below
 
 
 def set_packed_carry_dtype(dtype: Any) -> None:
     """Set the dtype packed layers cast their outputs to."""
-    global _CARRY_DTYPE
+    global _CARRY_DTYPE, _GENERATION
     _CARRY_DTYPE = torch.float32 if dtype is None else _as_dtype(dtype)
+    _GENERATION += 1
 
 
 def packed_carry_dtype() -> torch.dtype:
@@ -43,8 +45,9 @@ def set_packed_fused_residual(enabled: bool) -> None:
     """Route packed bottleneck tails (conv3 + skip add + ReLU) through the
     fused kernel :func:`quantize_tpu_torch.ops.qconv1x1.conv1x1_residual`
     wherever its structural conditions hold."""
-    global _FUSED_RESIDUAL
+    global _FUSED_RESIDUAL, _GENERATION
     _FUSED_RESIDUAL = bool(enabled)
+    _GENERATION += 1
 
 
 def packed_fused_residual() -> bool:
@@ -66,8 +69,9 @@ def set_packed_qin_carry(enabled: bool) -> None:
     residual blocks feed their skip/downsample branches from the main-path
     conv's quantized input (:class:`~.qtensor.QTensor`) rather than the
     float activation, so the skip path sees ``fake_quant(x)``."""
-    global _QIN_CARRY
+    global _QIN_CARRY, _GENERATION
     _QIN_CARRY = bool(enabled)
+    _GENERATION += 1
 
 
 def packed_qin_carry() -> bool:
@@ -96,6 +100,14 @@ def set_packed_conv_barrier(enabled: bool) -> None:
 
 def packed_conv_barrier() -> bool:
     return _CONV_BARRIER
+
+
+def packed_settings() -> tuple:
+    """``(generation, carry dtype, fused tail, int8 carry)``: the switches a
+    packed forward reads, and a count of the calls that set any of them, so
+    that a caller can tell whether they changed while a forward ran (the
+    serving engine fixes them at its start)."""
+    return _GENERATION, _CARRY_DTYPE, _FUSED_RESIDUAL, _QIN_CARRY
 
 
 def _as_dtype(dtype: Any) -> torch.dtype:

@@ -10,6 +10,7 @@ source is rebuilt and a built one is reused. Nothing here runs at import.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -18,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, List
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -130,15 +133,13 @@ def check(err: int, what: str) -> None:
 def require(t, name: str, device, dtype, shape=None) -> None:
     """Raise ValueError unless ``t`` is a contiguous tensor of ``dtype`` on
     ``device`` (and of ``shape`` when given)."""
-    import torch
-
     if not isinstance(t, torch.Tensor):
         raise ValueError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
@@ -150,16 +151,31 @@ def ptr(t):
 
 
 def current_stream(device) -> int:
-    import torch
+    """The calling thread's current stream on ``device`` (a CUDA tensor's
+    device) as the raw ``cudaStream_t`` the launchers take, read through
+    the C binding: ``torch.cuda.current_stream(device)`` builds a Python
+    ``Stream`` object a call, the largest host cost of a launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
-    return torch.cuda.current_stream(device).cuda_stream
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def device_guard(device):
+    """``torch.cuda.device(device)`` around a launch on a CUDA tensor's
+    ``device`` (the launchers run on the current device), or nothing to
+    enter when it is the calling thread's current device already."""
+    if device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def dtype_code(dtype) -> int:
     """The launchers' dtype codes: 0 = float32, 1 = bfloat16."""
-    import torch
-
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if dtype not in codes:
+    code = _DTYPE_CODES.get(dtype)
+    if code is None:
         raise ValueError(f"unsupported dtype {dtype} (float32 or bfloat16)")
-    return codes[dtype]
+    return code

@@ -177,7 +177,7 @@ def mha_rows(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
     _build.require(qkv, "qkv", dev, qkv.dtype, (b * s, 3 * e))
     out = torch.empty((b * s, e), dtype=out_dtype, device=dev)
     fn = _build.kernel_fn("mha_rows")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(qkv), _build.ptr(out), b, s, num_heads, d, valid, int(bool(causal)),
                  1.0 / (d ** 0.5), in_code, out_code, _build.current_stream(dev))
     _build.check(err, "mha_rows")
@@ -253,7 +253,7 @@ def mha_rows_int8(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
     # the streamed layout's (B, H, 3) absmax scales, written by its pre-pass
     scales = None if resident else torch.empty((b, num_heads, 3), dtype=torch.float32, device=dev)
     fn = _build.kernel_fn("mha_rows_int8")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(qkv), _build.ptr(out), _build.ptr(scales), b, s, num_heads, d,
                  int(valid_len) or s, int(bool(causal)), 1.0 / (d ** 0.5), in_code, out_code,
                  int(resident), _build.current_stream(dev))

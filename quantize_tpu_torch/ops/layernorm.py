@@ -66,7 +66,7 @@ def layernorm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps
     _build.require(bias, "bias", dev, torch.float32, (d,))
     out = torch.empty((r, d), dtype=out_dtype, device=dev)
     fn = _build.kernel_fn("layernorm")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(x), _build.ptr(scale), _build.ptr(bias), _build.ptr(out), r, d,
                  float(eps), in_code, out_code, _build.current_stream(dev))
     _build.check(err, "layernorm")
@@ -140,7 +140,7 @@ def layernorm_quant_int8_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.
     route = _ln_q_route(d, x.dtype, aligned)
     q = torch.empty((r, d), dtype=torch.int8, device=dev)
     fn = _build.kernel_fn("layernorm_quant_int8")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(x), _build.ptr(scale), _build.ptr(bias), _build.ptr(a_scale),
                  _build.ptr(a_zero), _build.ptr(q), r, d, float(eps), int(qmin), int(qmax),
                  in_code, int(route == "vector"), _build.current_stream(dev))

@@ -179,7 +179,7 @@ def qconv2d_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
     # of one tap; the z_w terms count the real ci
     x = F.pad(q_a, (0, ci_pad - ci)) if ci_pad != ci else q_a
     fn = _build.kernel_fn("qconv2d")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(x), _build.ptr(w_km), _build.ptr(corr_a),
                  _build.ptr(w_scale), _build.ptr(w_zero), _build.ptr(bias),
                  _build.ptr(a_scale), _build.ptr(z_eff), _build.ptr(out),
@@ -392,7 +392,7 @@ def qconv2d_grouped_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.
     _build.require(w_g, "w_g", dev, torch.int8, g_shape)
     out = torch.empty((n, oh, ow, co), dtype=out_dtype, device=dev)
     fn = _build.kernel_fn("qconv2d_grouped")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(q_a), _build.ptr(w_g), _build.ptr(corr_a), _build.ptr(w_scale),
                  _build.ptr(w_zero), _build.ptr(bias), _build.ptr(a_scale), _build.ptr(z_eff),
                  _build.ptr(out), n, h, w_sp, ci, oh, ow, co, kh, kw, sh, sw, pt, pl, groups,

@@ -126,7 +126,7 @@ def conv1x1_residual_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch
     _build.require(z_eff, "z_eff", dev, torch.float32, ())
     _build.require(res, "residual", dev, res.dtype, (m, n))
     fn = _build.kernel_fn("conv1x1_residual")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(q_a), _build.ptr(w_int), _build.ptr(w_km), _build.ptr(col_sum),
                  _build.ptr(w_scale), _build.ptr(bias), _build.ptr(a_scale),
                  _build.ptr(z_eff), _build.ptr(res), _build.ptr(out),

@@ -79,7 +79,7 @@ def quantize_act_int8(x: torch.Tensor, scale, zero, qmin: int, qmax: int
     x = x.contiguous()
     q = torch.empty(x.shape, dtype=torch.int8, device=dev)
     fn = _build.kernel_fn("quantize_act_int8")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(x), _build.ptr(q), _build.ptr(scale), _build.ptr(zero), x.numel(),
                  int(qmin), int(qmax), in_code, _build.current_stream(dev))
     _build.check(err, "quantize_act_int8")
@@ -195,7 +195,7 @@ def w8a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
     _build.require(z_eff, "z_eff", dev, torch.float32, ())
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     fn = _build.kernel_fn("w8a8_gemm")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(q_a), _build.ptr(w_int), _build.ptr(w_km), _build.ptr(col_sum),
                  _build.ptr(w_scale), _build.ptr(w_zero), _build.ptr(bias),
                  _build.ptr(a_scale), _build.ptr(z_eff), _build.ptr(out),
@@ -335,7 +335,7 @@ def w4a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
     _build.require(z_eff, "z_eff", dev, torch.float32, ())
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     fn = _build.kernel_fn("w4a8_gemm")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(q_a), _build.ptr(w_p4), _build.ptr(w_km), _build.ptr(col_sum),
                  _build.ptr(w_scale), _build.ptr(w_zero), _build.ptr(bias),
                  _build.ptr(a_scale), _build.ptr(z_eff), _build.ptr(out),
@@ -458,7 +458,7 @@ def wo_gemm(x: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor, w_zero:
         _build.require(bias, "bias", dev, torch.float32, (n,))
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     fn = _build.kernel_fn("wo_gemm")
-    with torch.cuda.device(dev):
+    with _build.device_guard(dev):
         err = fn(_build.ptr(x), _build.ptr(w_int), _build.ptr(w_scale), _build.ptr(w_zero),
                  _build.ptr(bias), _build.ptr(out), m, n, k, in_code, _build.current_stream(dev))
     _build.check(err, "wo_gemm")

@@ -167,18 +167,17 @@ class BasicRunner:
 
     # -- loops ------------------------------------------------------------
     def _prefetch(self, loader):
-        """Iterate ``loader`` with padding, each batch moved to the runner's
-        device (pinned first, copied without blocking the host)."""
+        """Iterate ``loader`` with padding and background host-to-device
+        prefetch (:class:`~quantize_tpu_torch.parallel.input_pipeline.PrefetchIterator`:
+        pinned, copied without blocking the host), so that loading overlaps
+        the device's work; an exception of the loader reaches the caller.
+        The thread stops when the generator is closed or collected."""
+        from ..parallel.input_pipeline import PrefetchIterator
+
         bs = loader.batch_size
-        for batch in loader:
-            batch = pad_batch(batch, bs)
-            out = {}
-            for k, v in batch.items():
-                t = torch.from_numpy(np.ascontiguousarray(v))
-                if self.device.type == "cuda":
-                    t = t.pin_memory().to(self.device, non_blocking=True)
-                out[k] = t
-            yield out
+        with PrefetchIterator((pad_batch(b, bs) for b in loader), prefetch=2,
+                              device=self.device) as it:
+            yield from it
 
     def run(self) -> None:
         """Calibration/train loop (reference ``runner/base.py:108-147``)."""

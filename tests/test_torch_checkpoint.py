@@ -6,8 +6,8 @@ CPU.
   variables (integer planes, scales, correction maps) bit-equal, and the
   restored model's packed logits equal the original's (JAX
   ``tests/test_checkpoint.py``); ``template`` conforms containers and
-  dtypes; ``force=False`` refuses an existing file; ``mesh`` raises the
-  not-ported error.
+  dtypes; ``force=False`` refuses an existing file; ``mesh`` places the
+  leaves on a one-device mesh and raises the not-ported error for two.
 * A checkpoint the JAX runner writes (a pickle of flax msgpack bytes, numpy
   scalars in ``extra``) loads into the port's runner with every variable
   bit-equal, ``extra`` as written.
@@ -32,6 +32,7 @@ from quantize_tpu.data import DataLoader, make_synthetic
 import quantize_tpu_torch as qtt
 import quantize_tpu_torch.runners as runners
 from quantize_tpu_torch import checkpoint, convert
+from quantize_tpu_torch.parallel.mesh import make_mesh
 from quantize_tpu_torch.utils import Config
 from quantize_tpu_torch.utils import msgpack as port_msgpack
 
@@ -102,8 +103,13 @@ def test_save_without_force_and_restore_onto_a_mesh(tmp_path, packed_testcnn):
     with pytest.raises(FileExistsError):
         checkpoint.save(path, deploy, force=False)
     checkpoint.save(path, deploy, force=True)
+    # onto a one-device mesh: every leaf on its device, bit-equal
+    back = checkpoint.restore(path, mesh=make_mesh(1, 1, devices=[torch.device("cpu")]))
+    for col, flat in deploy.items():
+        for key, t in flat.items():
+            assert back[col][key].device.type == "cpu" and torch.equal(back[col][key], t), key
     with pytest.raises(NotImplementedError, match="mesh.*queue 1 item 6"):
-        checkpoint.restore(path, mesh=object())
+        checkpoint.restore(path, mesh=make_mesh(2, 1, devices=["cpu", "cpu"]))
 
 
 def test_jax_runner_checkpoint_loads_bit_equal(tmp_path):

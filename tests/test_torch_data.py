@@ -2,7 +2,8 @@
 package's: the same config gives bit-equal batches (few-shot sampling with
 the config's seed, two shuffled epochs, drop_last, worker threads), every
 registered transform gives bit-equal output on a seeded uint8 batch, and
-the package imports without Pillow.
+the package imports without Pillow; every dataset name builds a real
+loader (a missing root raises FileNotFoundError).
 """
 import subprocess
 import sys
@@ -140,8 +141,11 @@ except ImportError:
     assert out.stdout.strip() == "lazy"
 
 
-@pytest.mark.parametrize("name", ["cifar10", "imagenet"])
-def test_datasets_not_ported_raise_by_name(name):
-    cfg = Config({"train_dataset": {"name": name}})
-    with pytest.raises(NotImplementedError, match=f"'{name}' dataset is not ported"):
+@pytest.mark.parametrize("name", ["cifar10", "cifar100", "cifar10c", "imagenet", "imagenet_a",
+                                  "imagenet_r", "imagenet_v2", "imagenet_sketch", "imagenet_c"])
+def test_dataset_missing_root_raises_by_name(name, tmp_path):
+    """Every dataset name builds its real loader: a root without the data
+    raises FileNotFoundError naming the path it looked for."""
+    cfg = Config({"train_dataset": {"name": name, "root": str(tmp_path / "absent")}})
+    with pytest.raises(FileNotFoundError, match="absent"):
         build_dataloader(cfg, "train")
