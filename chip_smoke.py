@@ -315,7 +315,25 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    round-trips phase 8a's 54 ``w_int`` leaves at 8 bits and at 4 bits
    (clamped) bit for bit, its bytes equal to the plain torch version's;
    MB/s of both (host work).
-10. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+10. Export (``quantize_tpu_torch.export``): phase 8a's ResNet-50 W8A8 at
+   256 (fused tail) at f32 carry (given its deploy variables) and at bf16
+   carry, phase 9e's ViT-B/16 W4A8 at 128, then ResNeXt-50 32x4d W8A8 and
+   phase 5's ViT-B/32 W4 weight-only under ``QTPU_ATTN_INT8=1`` at
+   ``EXPORT_BATCH`` (32; earlier paths, cut), each traced by
+   ``torch.export``, saved to bytes and loaded back: the loaded program
+   bit-equal to the eager packed forward, its launches a forward by kernel
+   and by route equal to the eager forward's (counts zeroed just before
+   each), one ``qtt`` graph node per launch, and every call it makes
+   reaching the wrapper's module-level name (the ``Recorder``), given its
+   layer's K-major or grouped weight copy from the payload (none is made
+   a call), and held against the plain version within its kernel's
+   limit; across the phase
+   all eleven entry points launched by a loaded program. Printed: export,
+   save and load s, payload MiB, the ``qtt`` nodes by op, the loaded and
+   the eager forward's ms (CUDA events) and the host's ms to queue one
+   (a gate: neither synchronizes), and the host µs a KQ launch through the
+   direct wrapper and through its custom op (loops of 10,000, in turns).
+11. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
    beside its bound, its plain version and the nearest library call (K2
@@ -332,6 +350,7 @@ from __future__ import annotations
 
 import json
 import math
+from contextlib import contextmanager
 import statistics
 import subprocess
 import sys
@@ -635,6 +654,10 @@ FRAME_POOL = 512
 SERVE_IN_FLIGHT = (4, 16)
 SERVE_REPS = 3
 VIT_SERVE_BATCH = 128
+# phase 10, export: ResNeXt-50's and ViT-B/32's batch (earlier paths, cut
+# from 256), and the KQ launches of each dispatch-cost loop
+EXPORT_BATCH = 32
+DISPATCH_LAUNCHES = 10_000
 # phase 9d: the CIFAR-10 runner config, over an archive the script writes
 # (data_batch_1..5 and test_batch of CIFAR_PER_FILE images each)
 CIFAR_CFG = "configs/runners/ptq/minmax/ptq_rn18_w8a8_cifar10.yaml"
@@ -745,6 +768,23 @@ class Recorder:
 
 
 # -- timing and bounds ------------------------------------------------------------
+
+@contextmanager
+def int8_scores():
+    """``QTPU_ATTN_INT8=1`` inside (K9 in place of K8); the environment as it
+    was after."""
+    import os
+
+    saved = os.environ.get("QTPU_ATTN_INT8")
+    os.environ["QTPU_ATTN_INT8"] = "1"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["QTPU_ATTN_INT8"]
+        else:
+            os.environ["QTPU_ATTN_INT8"] = saved
+
 
 def cuda_ms(fn, reps: int = 5, inner: int = 1, warmup: int = 2) -> float:
     """Median over ``reps`` of CUDA-event time per call, ``inner`` calls each."""
@@ -1985,9 +2025,9 @@ def vit_phase(qtt, batch, card) -> tuple:
     return entries, max_err
 
 
-def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
-    import os
-
+def vit32_phase(qtt, batch, card, prior_err: dict) -> tuple:
+    """ViT-B/32 W4 weight-only (module docstring, phase 5); returns its
+    kernel entries and the packed model (phase 10 exports it)."""
     import torch
     from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -2008,9 +2048,7 @@ def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
         del sim, packed_bf16
 
         # the int8-scores attention: one request again, QTPU_ATTN_INT8=1
-        saved_env = os.environ.get("QTPU_ATTN_INT8")
-        os.environ["QTPU_ATTN_INT8"] = "1"
-        try:
+        with int8_scores():
             reset_launch_counts()
             int8_out = model(x0, mode="packed")
             torch.cuda.synchronize()
@@ -2038,11 +2076,6 @@ def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
                     model(requests[1], mode="packed")
                 int8_records.append(rec.calls)
             int8_ms = cuda_ms(lambda: model(requests[2], mode="packed"))
-        finally:
-            if saved_env is None:
-                del os.environ["QTPU_ATTN_INT8"]
-            else:
-                os.environ["QTPU_ATTN_INT8"] = saved_env
 
         max_err = dict(prior_err)
         records = []
@@ -2073,9 +2106,9 @@ def vit32_phase(qtt, batch, card, prior_err: dict) -> list:
             log(f"per forward at vit_b_32: {e['name']} {e['ms']:.4f} ms ({e['launches'] // 4} "
                 f"launches), bound {e['bound_ms']:.4f} ms, library {e['library_ms']:.4f} ms "
                 f"[{card}]")
-    del model, requests, outs, records, int8_records
+    del requests, outs, records, int8_records
     torch.cuda.empty_cache()
-    return entries
+    return entries, model
 
 
 def clip_tokens():
@@ -3417,9 +3450,10 @@ def one_device_mesh(qtt, model, deploy, images, served, kw, card) -> None:
     torch.cuda.empty_cache()
 
 
-def vit_serving_phase(qtt, batch, card, dev) -> None:
+def vit_serving_phase(qtt, batch, card, dev):
     """Phase 9e: ViT-B/16 W4A8 through the engine, two chunks of
-    ``VIT_SERVE_BATCH``, at f32 carry."""
+    ``VIT_SERVE_BATCH``, at f32 carry; returns the model (phase 10 exports
+    it)."""
     import numpy as np
     import torch
     from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -3442,8 +3476,7 @@ def vit_serving_phase(qtt, batch, card, dev) -> None:
     check(len(futs) == 2 and eng.n_batches == 2, f"{label}: {len(futs)} chunks, "
           f"{eng.n_batches} batches")
     check_rows(got, want, label)
-    del model
-    torch.cuda.empty_cache()
+    return model
 
 
 def write_cifar10(root, seed: int) -> None:
@@ -3610,6 +3643,182 @@ def packing_phase(deploy, card) -> None:
             f" MB/s (host, {torch.get_num_threads()} threads) [{card}]")
 
 
+# -- phase 10: export ---------------------------------------------------------------
+
+def launch_snapshot() -> dict:
+    """The launches since the counts were zeroed, by kernel and by route
+    (``name/route``; K9's absmax pre-pass as ``mha_rows_int8/absmax``)."""
+    from quantize_tpu_torch.ops import KERNEL_WRAPPERS, launch_counts
+
+    out = {name: n for name, n in launch_counts().items() if n}
+    for name, fn in KERNEL_WRAPPERS.items():
+        for route, n in getattr(fn, "route_launches", {}).items():
+            if n:
+                out[f"{name}/{route}"] = n
+    if KERNEL_WRAPPERS["mha_rows_int8"].absmax_launches:
+        out["mha_rows_int8/absmax"] = KERNEL_WRAPPERS["mha_rows_int8"].absmax_launches
+    return out
+
+
+def counted(fn) -> tuple:
+    """``fn()`` with the counts zeroed just before and read just after."""
+    import torch
+    from quantize_tpu_torch.ops import reset_launch_counts
+
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_snapshot()
+
+
+def qtt_nodes(graph) -> dict:
+    """The ``qtt`` custom-op nodes of an exported graph, by kernel name."""
+    counts = {}
+    for node in graph.nodes:
+        if node.op == "call_function" and getattr(node.target, "namespace", None) == "qtt":
+            name = node.target._schema.name.split("::")[1]
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def export_round_trip(qtt, model, x, label: str, per_fwd: dict, card, variables=None) -> dict:
+    """Phase 10 for one model under the caller's precision switches: trace
+    (``export_program``), save to bytes, ``load_exported``; the loaded
+    program bit-equal to the eager packed forward, with the same launches
+    by kernel and by route, one ``qtt`` node per launch, every call it
+    makes held against the plain version (``Recorder``) and given its
+    kernel's weight copy from the payload. Returns its launches."""
+    import io
+
+    import torch
+    from quantize_tpu_torch.export import export_program
+
+    t0 = time.perf_counter()
+    ep = export_program(model, variables, x)
+    t_export = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    torch.export.save(ep, buf)
+    payload = buf.getvalue()
+    t_save = time.perf_counter() - t0
+    del ep, buf
+    t0 = time.perf_counter()
+    loaded = qtt.load_exported(payload)
+    t_load = time.perf_counter() - t0
+    nodes = qtt_nodes(loaded.graph)
+    log(f"{label}: exported in {t_export:.2f} s, saved in {t_save:.2f} s, loaded in "
+        f"{t_load:.2f} s; payload {len(payload) / 2 ** 20:.1f} MiB; qtt nodes {nodes}")
+    with torch.inference_mode():
+        want, eager = counted(lambda: model(x, mode="packed"))
+        got, launches = counted(lambda: loaded(x))
+    log(f"{label}: launches a forward, eager {eager}, loaded program {launches}")
+    check({k: n for k, n in eager.items() if "/" not in k} == per_fwd,
+          f"{label}: the eager forward's launches {eager}, expected {per_fwd}")
+    check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
+          f"{label}: the loaded program is not bit-equal to the eager forward (max abs diff "
+          f"{float((got.float() - want.float()).abs().max())})")
+    check(launches == eager, f"{label}: the loaded program's launches differ from the eager "
+          f"forward's")
+    check(nodes == per_fwd, f"{label}: qtt nodes {nodes}, expected one per launch {per_fwd}")
+    with torch.inference_mode(), Recorder(compare_each=tuple(nodes)) as rec:
+        loaded(x)
+    torch.cuda.synchronize()
+    recorded = {name: sum(n for _, n in rec.calls[name].values()) for name in nodes}
+    check(recorded == nodes, f"{label}: the recorder saw {recorded} calls, expected {nodes}")
+    bare = [name for name in ("w8a8_gemm", "w4a8_gemm", "conv1x1_residual", "qconv2d",
+                              "qconv2d_grouped") if name in nodes
+            for args, _ in rec.calls[name].values() if args[-1] is None]
+    check(not bare, f"{label}: calls given no K-major or grouped weight copy (the loaded "
+          f"program would make one a call): {bare}")
+    err = {name: max(rec.errs[name]) for name in nodes}
+    log(f"{label}: every call of the loaded program ({sum(recorded.values())}) within its "
+        f"kernel's limit of the plain version; max abs err {err}")
+    del rec
+    with torch.inference_mode():
+        eager_ms = cuda_ms(lambda: model(x, mode="packed"))
+        loaded_ms = cuda_ms(lambda: loaded(x))
+        eager_host = host_enqueue_ms(lambda: model(x, mode="packed"))
+        loaded_host = host_enqueue_ms(lambda: loaded(x))
+    log(f"time: {label} batch {x.shape[0]}: loaded program {loaded_ms:.3f} ms a forward, eager "
+        f"{eager_ms:.3f} ms (CUDA events); the host queues one forward in {loaded_host:.3f} ms "
+        f"loaded, {eager_host:.3f} ms eager (no host synchronization either way) [{card}]")
+    del loaded, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dispatch_cost(dev, card) -> None:
+    """Host µs a launch of KQ through the direct wrapper and through its
+    ``qtt`` custom op (the dispatcher, then the same wrapper): loops of
+    ``DISPATCH_LAUNCHES`` small launches, in turns (direct, op, op,
+    direct)."""
+    import torch
+    from quantize_tpu_torch.ops import launch_counts, qmatmul, reset_launch_counts
+
+    x = torch.randn((8, 128), device=dev)
+    scale = torch.tensor(0.02, device=dev)
+    zero = torch.tensor(3.0, device=dev)
+    fns = {"direct": lambda: qmatmul.quantize_act_int8(x, scale, zero, 0, 255),
+           "op": lambda: torch.ops.qtt.quantize_act_int8(x, scale, zero, 0, 255)}
+    times = {"direct": [], "op": []}
+    reset_launch_counts()
+    with torch.inference_mode():
+        for which in ("direct", "op", "op", "direct"):
+            fns[which]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_LAUNCHES):
+                fns[which]()
+            times[which].append((time.perf_counter() - t0) / DISPATCH_LAUNCHES * 1e6)
+            torch.cuda.synchronize()
+    check(launch_counts()["quantize_act_int8"] == 4 * (DISPATCH_LAUNCHES + 1),
+          "dispatch loops: not every call launched KQ")
+    log(f"time: host µs a KQ launch of (8, 128) f32, {DISPATCH_LAUNCHES} a loop: direct wrapper "
+        f"{', '.join(f'{t:.2f}' for t in times['direct'])}, qtt custom op "
+        f"{', '.join(f'{t:.2f}' for t in times['op'])}; the dispatcher adds "
+        f"{statistics.median(times['op']) - statistics.median(times['direct']):.2f} µs a launch "
+        f"[{card}]")
+
+
+def export_phase(qtt, batch, card, dev, resnet, deploy, vit, vit32) -> None:
+    """Phase 10 (module docstring): phase 8's ResNet-50 at each carry (the
+    f32 export given its deploy variables), phase 9e's ViT-B/16, then
+    ResNeXt-50 and phase 5's ViT-B/32 with int8 scores at ``EXPORT_BATCH``;
+    every entry point launched by a loaded program; the dispatcher's
+    cost."""
+    import torch
+    from quantize_tpu_torch.ops import KERNEL_WRAPPERS
+
+    seen = {}
+    x = batch(SERVE_BATCH)
+    with qtt.fused_residual(True):
+        for carry in (torch.float32, torch.bfloat16):
+            name = str(carry).replace("torch.", "")
+            with qtt.packed_carry(carry):
+                seen.update(export_round_trip(
+                    qtt, resnet, x, f"export resnet50 W8A8 ({name} carry, fused tail)",
+                    RESNET_PER_FWD, card, deploy if carry == torch.float32 else None))
+    seen.update(export_round_trip(qtt, vit, batch(VIT_SERVE_BATCH),
+                                  "export vit_b_16 W4A8 (f32 carry)", VIT_PER_FWD, card))
+    del x
+    model = build_packed(qtt, batch, "resnext50_32x4d", CFG, "export resnext50_32x4d W8A8")
+    with qtt.fused_residual(True):
+        seen.update(export_round_trip(qtt, model, batch(EXPORT_BATCH),
+                                      "export resnext50_32x4d W8A8 (f32 carry, fused tail)",
+                                      RESNEXT_PER_FWD, card))
+    del model
+    with int8_scores():
+        seen.update(export_round_trip(qtt, vit32, batch(EXPORT_BATCH),
+                                      "export vit_b_32 W4 weight-only (QTPU_ATTN_INT8=1)",
+                                      VIT32_INT8_PER_FWD, card))
+    torch.cuda.empty_cache()
+    missing = [name for name in KERNEL_WRAPPERS if not seen.get(name)]
+    log(f"export: entry points launched by a loaded program: "
+        f"{sorted(k for k in seen if '/' not in k)}")
+    check(not missing, f"export: no loaded program launched {missing}")
+    dispatch_cost(dev, card)
+
+
 def main() -> int:
     import torch
 
@@ -3684,7 +3893,8 @@ def main() -> int:
     n = w4a8_phase(dev)
     log(f"w4a8 phase: {n} kernel-vs-plain comparisons passed, {time.time() - t0:.1f} s")
     t0 = time.time()
-    entries += vit32_phase(qtt, batch, card, vit_err)
+    vit32_entries, vit32 = vit32_phase(qtt, batch, card, vit_err)
+    entries += vit32_entries
     log(f"vit_b_32 phase {time.time() - t0:.1f} s")
     t0 = time.time()
     clip_phase(qtt, batch, card, dev)
@@ -3722,14 +3932,19 @@ def main() -> int:
     t0 = time.time()
     packing_phase(deploy, card)
     log(f"dense packing phase {time.time() - t0:.1f} s")
-    del resnet, deploy, x
+    del x
     torch.cuda.empty_cache()
     t0 = time.time()
-    vit_serving_phase(qtt, batch, card, dev)
+    vit = vit_serving_phase(qtt, batch, card, dev)
     log(f"vit_b_16 serving phase {time.time() - t0:.1f} s")
     t0 = time.time()
     cifar_phase(qtt, card, dev)
     log(f"cifar runner phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    export_phase(qtt, batch, card, dev, resnet, deploy, vit, vit32)
+    log(f"export phase {time.time() - t0:.1f} s")
+    del resnet, deploy, vit, vit32
+    torch.cuda.empty_cache()
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
         "ResNeXt-50's, "

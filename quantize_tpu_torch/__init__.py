@@ -4,13 +4,16 @@ The port runs the JAX package's serving paths on an NVIDIA H100: build
 -> init (one calibrate pass) -> calibration -> pack -> packed forward
 through hand-written int8 tensor-core kernels (``csrc/*.cu``, built with
 nvcc at first use); and its PTQ, QAT and AdaRound runners from a YAML
-config (:func:`execute_runner`, ``python -m quantize_tpu_torch.cli``). It imports
+config (:func:`execute_runner`, ``python -m quantize_tpu_torch.cli``); and it
+exports the packed forward through ``torch.export`` (:func:`export_forward`,
+:func:`load_exported`, :func:`export_mlir_text`). It imports
 no JAX and nothing of ``quantize_tpu``. Entry points run on CUDA unless the
 caller passes ``device="cpu"``, where every kernel wrapper runs its plain
 PyTorch version.
 """
 from .api import calibrate_model, init_model
 from .deploy import model_size_bytes, pack_model, unpack_model
+from .export import export_forward, export_mlir_text, load_exported
 from .models import MODELS
 from .nn.intercept import QuantCtx
 from .nn.layers import LayerQuantCfg, QuantConv, QuantDense
@@ -23,8 +26,9 @@ from .utils import Config
 
 __all__ = [
     "Config", "LayerQuantCfg", "MODELS", "QTensor", "QuantConv", "QuantCtx", "QuantDense",
-    "calibrate_model", "execute_runner", "fused_residual", "init_model", "model_size_bytes",
-    "pack_model", "packed_carry", "qin_carry", "set_packed_carry_dtype",
+    "calibrate_model", "execute_runner", "export_forward", "export_mlir_text",
+    "fused_residual", "init_model", "load_exported",
+    "model_size_bytes", "pack_model", "packed_carry", "qin_carry", "set_packed_carry_dtype",
     "set_packed_conv_barrier", "set_packed_fused_residual", "set_packed_qin_carry",
     "unpack_model",
 ]

@@ -21,6 +21,11 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
 * K9 :func:`~.attention.mha_rows_int8` (``csrc/mha_rows_int8.cu``)
 * KQ :func:`~.qmatmul.quantize_act_int8` (``csrc/quantize_act.cu``; the
   activation quantize, an XLA fusion in JAX)
+
+Importing the package registers each wrapper as a custom op,
+``torch.ops.qtt.<name>`` under its ``KERNEL_WRAPPERS`` name
+(:mod:`.library`), which the wrappers call only while ``torch.export``
+traces them.
 """
 from .attention import mha_fused_qkv, mha_fused_qkv_rows, mha_rows, mha_rows_int8
 from .layernorm import layernorm_quant_int8, layernorm_quant_int8_rows, layernorm_rows
@@ -29,6 +34,7 @@ from .qconv1x1 import conv1x1_residual, conv1x1_residual_gemm
 from .qmatmul import (kmajor_packed, pack_int4_splithalf, quant_matmul_w4a8, quant_matmul_w8a8,
                       quant_matmul_wo, quantize_act_int8, unpack_int4_splithalf, w4a8_gemm,
                       w8a8_gemm, wo_gemm)
+from . import library  # noqa: F401  (registers the qtt ops)
 
 KERNEL_WRAPPERS = {
     "w8a8_gemm": w8a8_gemm,

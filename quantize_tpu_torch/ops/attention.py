@@ -165,6 +165,9 @@ def mha_rows(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
              out_dtype: torch.dtype, valid_len: int) -> torch.Tensor:
     """Kernel K8: CPU tensors take :func:`mha_rows_plain`; CUDA tensors
     launch ``csrc/mha_rows.cu`` or raise."""
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.mha_rows(qkv, num_heads, seq_len, bool(causal), out_dtype,
+                                      valid_len)
     dev = qkv.device
     if dev.type == "cpu":
         return mha_rows_plain(qkv, num_heads, seq_len, causal, out_dtype, valid_len)
@@ -239,6 +242,9 @@ def mha_rows_int8(qkv: torch.Tensor, num_heads: int, seq_len: int, causal: bool,
                   out_dtype: torch.dtype, valid_len: int) -> torch.Tensor:
     """Kernel K9: CPU tensors take :func:`mha_rows_int8_plain`; CUDA
     tensors launch ``csrc/mha_rows_int8.cu`` or raise."""
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.mha_rows_int8(qkv, num_heads, seq_len, bool(causal), out_dtype,
+                                           valid_len)
     dev = qkv.device
     if dev.type == "cpu":
         return mha_rows_int8_plain(qkv, num_heads, seq_len, causal, out_dtype, valid_len)

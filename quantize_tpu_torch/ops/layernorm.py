@@ -54,6 +54,8 @@ def layernorm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps
                    out_dtype: torch.dtype) -> torch.Tensor:
     """Kernel K6 on (R, d) rows: CPU tensors take :func:`layernorm_plain`;
     CUDA tensors launch ``csrc/layernorm.cu`` or raise."""
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.layernorm(x, scale, bias, float(eps), out_dtype)
     dev = x.device
     if dev.type == "cpu":
         return layernorm_plain(x, scale, bias, eps, out_dtype)
@@ -123,6 +125,9 @@ def layernorm_quant_int8_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.
     tensors. Returns ``(q int8 (R, d), z_eff)`` with ``z_eff`` a 0-d tensor
     on the device (no host sync). CUDA tensors launch the kernel of
     ``csrc/layernorm.cu`` that :func:`_ln_q_route` picks, or raise."""
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.layernorm_quant_int8(x, scale, bias, float(eps), a_scale, a_zero,
+                                                  qmin, qmax)
     dev = x.device
     if dev.type == "cpu":
         return layernorm_quant_int8_plain(x, scale, bias, eps, a_scale, a_zero, qmin, qmax)

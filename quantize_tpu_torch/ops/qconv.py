@@ -127,6 +127,13 @@ def qconv2d_int8_plain(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Te
     return out.to(out_dtype)
 
 
+def conv_args(strides: Sequence[int], pads) -> Tuple[int, ...]:
+    """K3's and K3g's ``strides`` and ``pads`` as the six ints of their
+    ``qtt`` ops (:mod:`.library`): sh, sw, pt, pb, pl, pr."""
+    (pt, pb), (pl, pr) = pads
+    return int(strides[0]), int(strides[1]), int(pt), int(pb), int(pl), int(pr)
+
+
 def kmajor_weight(w_int: torch.Tensor) -> torch.Tensor:
     """The (Co, KH*KW*Ci') K-major copy of an HWIO int8 kernel, the layout
     8-bit ``wgmma`` reads: row co holds ``w_int[..., co]`` flattened in
@@ -148,6 +155,10 @@ def qconv2d_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
     epilogue; ``corr_a`` is the (1, H', W', Co) f32 correction map.
     ``w_km`` is ``kmajor_weight(w_int)`` made beforehand (made here when
     None). Returns (N, H', W', Co) in ``out_dtype``."""
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.qconv2d(q_a, z_eff, a_scale, w_int, w_scale, w_zero, bias,
+                                     *conv_args(strides, pads), corr_a, bool(w_zero_is_zero),
+                                     out_dtype, w_km)
     dev = q_a.device
     if dev.type == "cpu":
         return qconv2d_int8_plain(q_a, z_eff, a_scale, w_int, w_scale, w_zero, bias,
@@ -353,6 +364,10 @@ def qconv2d_grouped_int8(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.
     not fit in shared memory raises ValueError before launch. A failure on
     either route raises; nothing is retried on the other route or on the
     CPU."""
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.qconv2d_grouped(q_a, z_eff, a_scale, w_int, w_scale, w_zero, bias,
+                                             *conv_args(strides, pads), corr_a,
+                                             bool(w_zero_is_zero), out_dtype, groups, w_g)
     dev = q_a.device
     if dev.type == "cpu":
         return qconv2d_grouped_int8_plain(q_a, z_eff, a_scale, w_int, w_scale, w_zero, bias,

@@ -93,6 +93,9 @@ def conv1x1_residual_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch
     K-major copy where it was not given, or raise. A failure on either route
     raises; nothing is retried on the other route or on the CPU.
     """
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.conv1x1_residual(q_a, z_eff, a_scale, w_int, col_sum, w_scale,
+                                              bias, res, bool(relu), out_dtype, w_km)
     dev = q_a.device
     if dev.type == "cpu":
         return conv1x1_residual_plain(q_a, z_eff, a_scale, w_int, col_sum, w_scale, bias,

@@ -65,6 +65,10 @@ def quantize_act_int8(x: torch.Tensor, scale, zero, qmin: int, qmax: int
     no host sync) or raise.
     """
     dev = x.device
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.quantize_act_int8(
+            x, torch.as_tensor(scale, dtype=torch.float32, device=dev).reshape(()),
+            torch.as_tensor(zero, dtype=torch.float32, device=dev).reshape(()), qmin, qmax)
     if dev.type == "cpu":
         return quantize_act_int8_plain(x, scale, zero, qmin, qmax)
     if dev.type != "cuda":
@@ -163,6 +167,9 @@ def w8a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
     """
     if w_int is None and w_km is None:
         raise ValueError("w8a8_gemm: needs w_int or its K-major copy w_km")
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.w8a8_gemm(q_a, z_eff, a_scale, w_int, col_sum, w_scale, w_zero,
+                                       bias, bool(w_zero_is_zero), w_km)
     dev = q_a.device
     if dev.type == "cpu":
         return w8a8_gemm_plain(q_a, z_eff, a_scale, w_int, col_sum, w_scale, w_zero,
@@ -305,6 +312,9 @@ def w4a8_gemm(q_a: torch.Tensor, z_eff: torch.Tensor, a_scale: torch.Tensor,
     """
     if w_p4 is None and w_km is None:
         raise ValueError("w4a8_gemm: needs w_p4 or its K-major copy w_km")
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.w4a8_gemm(q_a, z_eff, a_scale, w_p4, col_sum, w_scale, w_zero,
+                                       bias, bool(w_zero_is_zero), w_km)
     dev = q_a.device
     if dev.type == "cpu":
         return w4a8_gemm_plain(q_a, z_eff, a_scale, w_p4, col_sum, w_scale, w_zero,
@@ -440,6 +450,8 @@ def wo_gemm(x: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor, w_zero:
     CPU tensors take :func:`wo_gemm_plain`; CUDA tensors launch
     ``csrc/wo_gemm.cu``, which computes in bf16 only, or raise.
     """
+    if torch.compiler.is_exporting():
+        return torch.ops.qtt.wo_gemm(x, w_int, w_scale, w_zero, bias, compute_dtype)
     dev = x.device
     if dev.type == "cpu":
         return wo_gemm_plain(x, w_int, w_scale, w_zero, bias, compute_dtype)

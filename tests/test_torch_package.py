@@ -67,6 +67,20 @@ def test_port_imports_no_jax_and_nothing_of_quantize_tpu():
         assert not bad, f"{f.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("module", ["export.py", "ops/library.py"])
+def test_export_modules_import_no_jax(module):
+    """The export slice (the ``torch.export`` round trip and the ``qtt``
+    custom ops) under the same rule; importing the package registers the
+    eleven ops without building anything."""
+    path = PORT / module
+    assert path.exists()
+    bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+    assert not bad, f"{module} imports {bad}"
+    assert all(hasattr(qtt, name) for name in ("export_forward", "load_exported",
+                                                "export_mlir_text"))
+    assert all(hasattr(torch.ops.qtt, name) for name in _build.KERNELS)
+
+
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
     for fn in (api.init_model, api.calibrate_model, deploy.pack_model,
                MODELS.lookup("resnet50"), MODELS.lookup("resnet18"), MODELS.lookup("vit_b_16"),
