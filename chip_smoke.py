@@ -289,14 +289,22 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    debug mode that a packed forward never waits for the card (a gate).
 9b. Device feed: a frame pool of 512 uint8 frames on the card, int32 index
    requests by ``submit_batch``, the argmax as postprocess: the labels equal
-   the argmax of the direct forward; launches as 9a; 2 or more batches in
-   flight at ``max_in_flight`` 4 and 16 (JAX's count: the batches waiting
-   for the drain at a dispatch, the one put included; the dispatch thread
-   runs ahead of the card); img/s and efficiency as 9a.
+   the argmax of the direct forward; launches as 9a; img/s, efficiency and
+   the batches seen in flight as 9a (printed: with the card free the count
+   measures the host's speed). Then the in-flight gate, with the card held
+   busy by a ``torch.cuda._sleep`` (300 ms or more) queued on the engine's
+   dispatch stream just before the ``submit_batch``, at ``max_in_flight`` 4
+   and 16, on any host: the batches in flight (JAX's count: the batches
+   waiting for the drain at a dispatch, the one put included) reach what
+   the engine and the card allow, the least of ``max_in_flight`` + 1, the
+   batches less one and one fewer than the forwards the host queues behind
+   a held card before a launch blocks (measured first, printed), and never
+   less than 2 nor more than ``max_in_flight`` + 1; the labels equal the
+   direct forward's.
 9c. A fresh ResNet-50 given 9a's deploy variables placed by
    ``make_mesh(1, 1)`` and ``shard_variables``, served through the engine
    with ``mesh=``: 1,024 results bit-equal to 9a's. ``make_mesh(2, 1)``
-   raises on one card.
+   raises outside a process group of two ranks.
 9d. Real data: the script writes a CIFAR-10 python-format archive
    (``data_batch_1..5`` and ``test_batch`` of 1,000 seeded images each);
    ``configs/runners/ptq/minmax/ptq_rn18_w8a8_cifar10.yaml`` runs through
@@ -333,7 +341,21 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    the eager forward's ms (CUDA events) and the host's ms to queue one
    (a gate: neither synchronizes), and the host µs a KQ launch through the
    direct wrapper and through its custom op (loops of 10,000, in turns).
-11. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+11. Multi-device (``quantize_tpu_torch.parallel``): ResNet-50 W8A8 at 224,
+   1,000 classes, per-rank batch 32, fused residual tail, f32 carry.
+   11a. ``measure_scaling`` on a ``(1, 1)`` mesh in this process: no
+   collective; t1 and tn printed. 11b. ``run_multiprocess_scaling`` with
+   two ranks spawned on the one card over gloo (``(2, 1)``): no collective,
+   each rank's logits bit-equal to its rows of the one-device forward of
+   the global batch. 11c. The same at ``(1, 2)``: every conv and the head
+   on half the out channels, one all-gather a layer (54), bytes and the
+   bytes staged through pinned host memory counted, logits bit-equal. 11d.
+   Rank 0's launches a forward by kernel and route equal the one-device
+   forward's (K3 37, K2 16, K1 1, KQ 54; K2 and K1 on ``wgmma``). Printed:
+   which gloo collectives take CUDA tensors (two ranks on the card), each
+   run's t1, tn, efficiency, collectives, bytes and ms. Both ranks share
+   the card: tn and the efficiency are not a multi-card figure.
+12. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
    beside its bound, its plain version and the nearest library call (K2
@@ -652,6 +674,13 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 FRAME_POOL = 512
 SERVE_IN_FLIGHT = (4, 16)
+# phase 11: ResNet-50 W8A8 at 224, per-rank batch, timed steps (11c's step
+# takes 1-2 s of all-gathers over gloo: fewer), each spawned run's time
+# limit (s)
+MULTI_BATCH = 32
+MULTI_ITERS = 10
+MULTI_TP_ITERS = 3
+MULTI_TIMEOUT = 240.0
 SERVE_REPS = 3
 VIT_SERVE_BATCH = 128
 # phase 10, export: ResNeXt-50's and ViT-B/32's batch (earlier paths, cut
@@ -3413,18 +3442,106 @@ def device_feed(model, images, pre, card, dev) -> None:
     for in_flight, (rate, st) in rates.items():
         log(f"serving efficiency (device feed), max_in_flight {in_flight}: engine {rate:.1f} / "
             f"raw {raw:.1f} img/s = {rate / raw:.4f} (raw: gather, forward and argmax back to "
-            f"back, {raw_ms:.3f} ms a batch); max in flight {st['max_observed_in_flight']} (>= 2) "
-            f"[{card}]")
-        check(st["max_observed_in_flight"] >= 2,
-              f"{label}: the dispatch thread never ran ahead of the device "
-              f"(max_in_flight {in_flight})")
+            f"back, {raw_ms:.3f} ms a batch); max in flight {st['max_observed_in_flight']} "
+            f"with the card free (printed, not gated: it measures the host's speed) [{card}]")
+    with torch.inference_mode():
+        held_card_in_flight(model, idx, want, label, card, dev,
+                            max(st["dispatch_ms"] for _, st in rates.values()),
+                            lambda: post(model(pre(pool.index_select(0, x.long())), mode="packed")),
+                            **kw)
     del pool
+
+
+def sleep_cycles_per_ms(dev) -> float:
+    """Clock cycles of ``torch.cuda._sleep`` a millisecond on the card (CUDA
+    events over 2e7 cycles, after one unmeasured sleep)."""
+    import torch
+
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def queued_ahead(fwd, per_ms: float, hold_ms: float = 3000.0) -> int:
+    """How many calls of ``fwd`` the host queues behind a held card before
+    one blocks: with ``hold_ms`` of ``torch.cuda._sleep`` queued first, the
+    calls until one takes more than four times the median of those before
+    it (the launch queue is full and the host waits for the card)."""
+    import torch
+
+    fwd()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(hold_ms * per_ms))
+    times = []
+    while len(times) < 64:
+        t0 = time.perf_counter()
+        fwd()
+        times.append(time.perf_counter() - t0)
+        if len(times) > 1 and times[-1] > 4 * statistics.median(times[:-1]):
+            times.pop()
+            break
+    torch.cuda.synchronize()
+    return len(times)
+
+
+def held_card_in_flight(model, idx, want, label, card, dev, dispatch_ms: float, fwd, **kw):
+    """Phase 9b's in-flight gate: the dispatch thread never waits for the
+    device, so it runs ahead of it. A ``torch.cuda._sleep`` queued on the
+    stream the engine dispatches on (the dispatch thread's current stream
+    on the device: its default stream) holds the card busy while the
+    batches are dispatched, whatever the host's speed. The engine's count
+    (the batches waiting for the drain plus the one being handed to it,
+    JAX's) then reaches what the engine and the card allow: ``max_in_flight
+    + 1`` (the drain holds the first batch, the queue the next
+    ``max_in_flight``), the batches less one, or what the card's launch
+    queue holds before it blocks the host (``queued_ahead`` forwards; the
+    engine's batch adds its copies and event, so one fewer is allowed), the
+    least of them, and never less than 2 nor more than ``max_in_flight +
+    1``. An engine that waited for the device in ``_dispatch`` would count 1
+    on any host. The labels equal the direct forward's."""
+    import numpy as np
+    import torch
+    from quantize_tpu_torch.parallel import InferenceEngine
+
+    per_ms = sleep_cycles_per_ms(dev)
+    ahead = queued_ahead(fwd, per_ms)
+    log(f"{label}: the host queues {ahead} forwards behind a held card before a launch blocks "
+        f"(the card's launch queue is full) [{card}]")
+    n_batches = -(-len(idx) // SERVE_BATCH)
+    for in_flight in SERVE_IN_FLIGHT:
+        most = min(in_flight + 1, n_batches - 1)
+        least = max(2, min(most, ahead - 1))
+        # twice the host time of dispatching the batches the count can reach
+        hold_ms = max(300.0, 2.0 * (most + 1) * dispatch_ms)
+        eng = InferenceEngine(model, batch_size=SERVE_BATCH, max_in_flight=in_flight, **kw)
+        with eng:
+            with torch.cuda.stream(torch.cuda.default_stream(dev)):
+                torch.cuda._sleep(int(hold_ms * per_ms))
+            got = np.concatenate([f.result(timeout=300) for f in eng.submit_batch(idx)])
+        st = eng.stats()
+        log(f"{label}, card held busy ({hold_ms:.1f} ms of torch.cuda._sleep queued ahead of "
+            f"the batches), max_in_flight {in_flight}: max in flight "
+            f"{st['max_observed_in_flight']} (gate: {least} to {in_flight + 1}; the launch "
+            f"queue holds {ahead} forwards), {st['batches']} batches, dispatch "
+            f"{st['dispatch_ms']:.3f} ms a batch [{card}]")
+        check(st["failed"] == 0, f"{label}, card held busy: {st['failed']} requests failed")
+        check(least <= st["max_observed_in_flight"] <= in_flight + 1,
+              f"{label}: with the card held busy, the dispatch thread had "
+              f"{st['max_observed_in_flight']} batches in flight, not {least} to "
+              f"{in_flight + 1} (max_in_flight {in_flight}): it waited for the device")
+        check(np.array_equal(got, want), f"{label}, card held busy: "
+              f"{int((got != want).sum())} labels differ from the direct forward's")
 
 
 def one_device_mesh(qtt, model, deploy, images, served, kw, card) -> None:
     """Phase 9c: a fresh ResNet-50 given the deploy variables placed on a
-    one-device mesh serves results bit-equal to 9a's; a mesh of two devices
-    cannot be made on one card."""
+    one-device mesh serves results bit-equal to 9a's; a mesh of two ranks
+    cannot be made outside a process group of two (phase 11 makes one)."""
     import numpy as np
     import torch
     from quantize_tpu_torch.parallel import InferenceEngine, make_mesh, shard_variables
@@ -3442,10 +3559,10 @@ def one_device_mesh(qtt, model, deploy, images, served, kw, card) -> None:
     check_rows(got, served[:n], f"engine resnet50 on a one-device mesh {mesh}")
     try:
         make_mesh(2, 1)
-    except ValueError as exc:
-        log(f"make_mesh(2, 1) on {torch.cuda.device_count()} card(s) raised: {exc}")
+    except RuntimeError as exc:
+        log(f"make_mesh(2, 1) outside a process group raised: {exc}")
     else:
-        raise Failure("make_mesh(2, 1) did not raise on one card")
+        raise Failure("make_mesh(2, 1) did not raise outside a process group of two ranks")
     del fresh, eng
     torch.cuda.empty_cache()
 
@@ -3819,6 +3936,98 @@ def export_phase(qtt, batch, card, dev, resnet, deploy, vit, vit32) -> None:
     dispatch_cost(dev, card)
 
 
+# which gloo collectives take CUDA tensors, on two ranks sharing the card
+GLOO_PROBE = r"""
+import json, sys, torch, torch.distributed as dist
+rank, world, port = (int(a) for a in sys.argv[1:4])
+dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                        world_size=world)
+torch.cuda.set_device(rank % torch.cuda.device_count())
+t = torch.full((1024,), float(rank + 1), device="cuda")
+calls = {"all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(world)], t),
+         "all_reduce": lambda: dist.all_reduce(t.clone()),
+         "broadcast": lambda: dist.broadcast(t.clone(), 0)}
+seen = {}
+for name, call in calls.items():
+    try:
+        call()
+        torch.cuda.synchronize()
+        seen[name] = "accepted"
+    except RuntimeError as exc:
+        seen[name] = "refused: " + str(exc).splitlines()[0][:160]
+dist.destroy_process_group()
+print("GLOO " + json.dumps(seen), flush=True)
+"""
+
+
+def multi_device_phase(qtt, card) -> None:
+    """Phase 11: the scaling harness on ResNet-50 W8A8 at 224 (module
+    docstring): one device in this process, then two ranks spawned on the
+    one card over gloo, data- and tensor-parallel."""
+    import torch
+    from quantize_tpu_torch.parallel import measure_scaling, run_multiprocess_scaling
+    from quantize_tpu_torch.parallel.scaling import spawn_ranks
+
+    kw = dict(model_name="resnet50", w_bits=8, per_device_batch=MULTI_BATCH, image_size=224,
+              num_classes=1000, iters=MULTI_ITERS)
+    shared = ("both ranks share the one card, so tn and weak_scaling_efficiency are not a "
+              "multi-card figure")
+
+    def report(label, r, t_wall):
+        log(f"time: {label}: t1 {r['t1_ms']:.3f} ms, tn {r['tn_ms']:.3f} ms a step of "
+            f"{r['per_device_batch']} a rank ({r['img_per_s_per_chip_1dev']:.1f} img/s alone, "
+            f"{r['img_per_s_per_chip_ndev']:.1f} img/s a rank on the mesh), weak scaling "
+            f"efficiency {r['weak_scaling_efficiency']:.4f}; collectives a step "
+            f"{r['collective_counts']}, {r['collective_bytes_per_step']:.0f} bytes, "
+            f"{r['collective_ms']:.3f} ms, {r['staged_bytes_per_step']:.0f} bytes staged through "
+            f"pinned host memory; {r['n_processes']} process(es), {r['ranks_per_device']} "
+            f"rank(s) on the card; {t_wall:.1f} s with start-up [{card}]")
+        check(r["platform"] == "gpu", f"{label}: platform {r['platform']}")
+        check(r["n_differ_vs_1dev"] == 0,
+              f"{label}: {r['n_differ_vs_1dev']} logits differ from the one-device forward "
+              f"(max abs err {r['max_abs_err_vs_1dev']})")
+        # 11d: the sharded forward's launches by kernel and route equal the
+        # one-device forward's: each layer launches its kernel once, on its slice
+        ndev, one = r["launches_ndev"], r["launches_1dev"]
+        log(f"{label}: rank 0's launches a forward {ndev}; the one-device forward's {one}")
+        check(ndev == one, f"{label}: the sharded forward's launches {ndev} differ from the "
+              f"one-device forward's {one}")
+        for name, n in RESNET_PER_FWD.items():
+            check(ndev[name] == n, f"{label}: {name} launched {ndev[name]} times, not {n}")
+        for name in ("conv1x1_residual", "w8a8_gemm"):
+            check(ndev[f"{name}.wgmma"] == ndev[name],
+                  f"{label}: not every {name} launch took the wgmma route: {ndev}")
+
+    torch.cuda.empty_cache()
+    with qtt.fused_residual(True):
+        t0 = time.time()
+        r = measure_scaling(dp=1, tp=1, **kw)
+        report("scaling resnet50 W8A8 (1, 1), one process (11a)", r, time.time() - t0)
+        check(r["collective_counts"] == {} and r["collective_bytes_per_step"] == 0,
+              f"11a: a one-device mesh ran collectives {r['collective_counts']}")
+        t0 = time.time()
+        seen = spawn_ranks(2, GLOO_PROBE, timeout=MULTI_TIMEOUT)[0]
+        probe = json.loads(next(ln for ln in seen.splitlines() if ln.startswith("GLOO "))[5:])
+        log(f"gloo with CUDA tensors, two ranks on the card: {probe} ({time.time() - t0:.1f} s); "
+            f"the port stages every collective through pinned host memory")
+        t0 = time.time()
+        r = run_multiprocess_scaling(2, dp=2, tp=1, timeout=MULTI_TIMEOUT, device="cuda", **kw)
+        report("scaling resnet50 W8A8 (2, 1), two ranks (11b)", r, time.time() - t0)
+        check(r["n_processes"] == 2 and r["ranks_per_device"] == 2, f"11b: {r}")
+        check(r["collective_counts"] == {} and r["collective_bytes_per_step"] == 0,
+              f"11b: data parallelism ran collectives {r['collective_counts']}")
+        t0 = time.time()
+        r = run_multiprocess_scaling(2, dp=1, tp=2, timeout=MULTI_TIMEOUT, device="cuda",
+                                     **{**kw, "iters": MULTI_TP_ITERS})
+        report("scaling resnet50 W8A8 (1, 2), two ranks (11c)", r, time.time() - t0)
+        check(r["collective_counts"].get("all-gather", 0) >= 1
+              and r["collective_bytes_per_step"] > 0 and r["staged_bytes_per_step"] > 0,
+              f"11c: tensor parallelism counted {r['collective_counts']}, "
+              f"{r['collective_bytes_per_step']} bytes")
+    log(f"phase 11: {shared}; every rank's logits bit-equal to its rows of the one-device "
+        f"forward; no NCCL (gloo, staged through pinned host memory)")
+
+
 def main() -> int:
     import torch
 
@@ -3945,6 +4154,9 @@ def main() -> int:
     log(f"export phase {time.time() - t0:.1f} s")
     del resnet, deploy, vit, vit32
     torch.cuda.empty_cache()
+    t0 = time.time()
+    multi_device_phase(qtt, card)
+    log(f"multi-device phase {time.time() - t0:.1f} s")
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
         "ResNeXt-50's, "

@@ -55,15 +55,14 @@ def restore(path: str, template: Optional[Dict[str, Any]] = None, mesh=None) -> 
     the template's leaf at the same path (JAX's ``jax.tree.map`` over the
     template). With ``mesh`` (:func:`~quantize_tpu_torch.parallel.mesh.make_mesh`)
     the leaves are placed by
-    :func:`~quantize_tpu_torch.parallel.mesh.shard_variables`: on a mesh of
-    one device, on that device; a larger mesh raises (not ported)."""
-    device = None if mesh is None else mesh.device  # a larger mesh raises here
+    :func:`~quantize_tpu_torch.parallel.mesh.shard_variables`: on this
+    rank's device, each leaf split over ``model`` cut to the rank's slice."""
     restored = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
     if template is not None:
         from .convert import flatten
 
         restored = _conform(template, flatten(restored), "")
-    if device is not None:
+    if mesh is not None:
         from .parallel.mesh import shard_variables
 
         restored = shard_variables(mesh, restored)

@@ -45,10 +45,17 @@ def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
 
 def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Mapping]) -> None:
     """Load the JAX package's variables (numpy-convertible or tensor
-    leaves) into ``model`` in place, on the device of the model's tensors."""
+    leaves) into ``model`` in place, on the device of the model's tensors.
+    Variables sharded over a mesh's ``model`` axis make its layers run
+    tensor-parallel (:mod:`~quantize_tpu_torch.parallel.tensor_parallel`)."""
+    from .parallel.tensor_parallel import attach
+
     mods = dict(var_modules(model))
     first = next(itertools.chain(model.parameters(), model.buffers()), None)
     device = first.device if first is not None else torch.device("cpu")
+    # sharded variables (parallel.shard_variables over a model axis): the
+    # layers that split take their slices, the rest is gathered whole
+    variables = attach(model, variables, mods)
     for col, tree in variables.items():
         if col == "taps":
             continue
@@ -56,7 +63,7 @@ def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Mapping])
             owner, leaf = _owner(mods, key)
             t = (value.detach().clone() if isinstance(value, torch.Tensor)
                  else torch.from_numpy(np.array(value))).to(device)
-            if col == "params":
+            if col == "params" and getattr(owner, "tp_shard", None) is None:
                 cur = owner.get_var(col, leaf) if owner.has_var(col, leaf) else None
                 if cur is None or tuple(cur.shape) != tuple(t.shape):
                     raise ValueError(f"params/{key}: shape {tuple(t.shape)} does not match "

@@ -122,6 +122,9 @@ class _QuantLayerBase(VarModule):
     def _setup(self, quant: LayerQuantCfg, kernel_shape: Tuple[int, ...], in_ch: int,
                with_bias: bool, device) -> None:
         self.quant = quant
+        # this rank's slice of the out channels under tensor parallelism
+        # (parallel/tensor_parallel.py), set where sharded variables load
+        self.tp_shard = None
         self.w_spec = QuantSpec.from_config(dict(quant.weight), "weight", channel_axis=-1)
         self.a_spec = QuantSpec.from_config(dict(quant.activation), "activation", channel_axis=-1)
         self.corrector = BiasCorrect(**quant.bias_correct_kwargs()) if quant.bias_correct else None
@@ -278,6 +281,11 @@ class QuantDense(_QuantLayerBase):
         self.put_var("packed", "col_sum", q_i8.sum(dim=0, dtype=torch.int32))
 
     def _packed_forward(self, x: torch.Tensor, pre_norm=None) -> torch.Tensor:
+        if self.tp_shard is not None:
+            return self.tp_shard.run(self._packed_local, x, pre_norm=pre_norm)
+        return self._packed_local(x, pre_norm)
+
+    def _packed_local(self, x: torch.Tensor, pre_norm=None) -> torch.Tensor:
         w_spec, a_spec = self.w_spec, self.a_spec
         bias = self.get_var("packed", "bias")
         p4 = self._use_p4(x.shape[-1])
@@ -428,6 +436,13 @@ class QuantConv(_QuantLayerBase):
 
     def _packed_forward(self, x: torch.Tensor, residual=None, fuse_relu: bool = False,
                         return_qinput: bool = False):
+        if self.tp_shard is not None:
+            return self.tp_shard.run(self._packed_local, x, residual=residual,
+                                     fuse_relu=fuse_relu, return_qinput=return_qinput)
+        return self._packed_local(x, residual, fuse_relu, return_qinput)
+
+    def _packed_local(self, x: torch.Tensor, residual=None, fuse_relu: bool = False,
+                      return_qinput: bool = False):
         w_spec, a_spec = self.w_spec, self.a_spec
         bias = self.get_var("packed", "bias")
 

@@ -24,7 +24,7 @@ updates them in place (:func:`~quantize_tpu_torch.nn.variables.trainable`).
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Mapping, Optional
 
 import torch
 
@@ -155,6 +155,17 @@ class Quantizer(VarModule):
         return fake_quant(x, s, z, spec.qmin, spec.qmax, channel_axis=spec.channel_axis,
                           static_scale=ss, awq_scale=awq_scale, awq_axis=self.awq_in_axis,
                           round_fn=round_fn)
+
+
+def quantize_with_qparams(x: torch.Tensor, spec: QuantSpec, qparams: Mapping) -> tuple:
+    """Deploy-path quantization from an exported qparams subtree: returns
+    ``(q_int, effective_scale, zero)``, ``static_scale`` folded into the
+    returned scale (JAX ``quantize_with_qparams``)."""
+    s, z = qparams["scale"], qparams["zero"]
+    ss = qparams.get("static_scale")
+    eff_scale = s if ss is None else s * ss
+    q = quantize_core(x, s, z, spec.qmin, spec.qmax, spec.channel_axis)
+    return q.to(spec.storage_dtype), eff_scale, z
 
 
 def reset_observers(model: torch.nn.Module):

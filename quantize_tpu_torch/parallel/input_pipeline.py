@@ -8,30 +8,35 @@ or on ``device``, keeping ``prefetch`` batches ready, so that host IO and
 decode overlap the device's work. Unlike the JAX iterator, an exception
 raised by the source iterator reaches the consumer: iteration does not just
 stop, so an eval over a loader that failed part way never reports a top-1
-over fewer examples. Slicing a global batch over several processes is kept
-(:func:`host_slice`); placing it over several devices is not ported yet.
+over fewer examples. Across processes (:mod:`torch.distributed`, a rank a
+process) each process loads its slice of a global batch
+(:func:`host_slice`), and :func:`shard_batch_to_mesh` assembles a rank's
+rows along ``data`` from the slices of its ``model`` group.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, Iterator, Mapping
+from typing import Any, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .mesh import shard_batch
 
-
-def host_slice(global_batch: Mapping[str, np.ndarray], process_index: int = 0,
-               process_count: int = 1) -> Dict[str, np.ndarray]:
+def host_slice(global_batch: Mapping[str, np.ndarray], process_index: Optional[int] = None,
+               process_count: Optional[int] = None) -> Dict[str, np.ndarray]:
     """This process's slice of a global batch (a contiguous split on dim 0):
-    process ``process_index`` of ``process_count``, by default the whole
-    batch."""
+    process ``process_index`` of ``process_count``, by default this
+    process's ``torch.distributed`` rank and world size (the whole batch
+    where no process group is initialised)."""
+    rank, world = (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
+    pi = rank if process_index is None else process_index
+    pc = world if process_count is None else process_count
     out = {}
     for k, v in global_batch.items():
-        per = len(v) // process_count
-        out[k] = v[process_index * per:(process_index + 1) * per]
+        per = len(v) // pc
+        out[k] = v[pi * per:(pi + 1) * per]
     return out
 
 
@@ -51,8 +56,18 @@ def to_device(batch: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
-# JAX's two names for one placement rule (the mesh's own and the pipeline's)
-shard_batch_to_mesh = shard_batch
+def shard_batch_to_mesh(mesh, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Place this process's slice of a global batch (:func:`host_slice` by
+    rank) on the mesh: this rank's rows along ``data``, on its device. The
+    ranks of one ``model`` group hold the same rows, so where ``tp > 1``
+    their slices are gathered, in rank order, over that group."""
+    if mesh.shape["model"] > 1:
+        from .tensor_parallel import all_gather
+
+        batch = {k: all_gather(v if isinstance(v, torch.Tensor)
+                               else torch.from_numpy(np.ascontiguousarray(v)),
+                               mesh.groups["model"], dim=0) for k, v in batch.items()}
+    return to_device(batch, mesh.device)
 
 
 class _Raised:
@@ -129,9 +144,14 @@ class PrefetchIterator:
 def prefetch_to_mesh(loader, mesh=None, prefetch: int = 2, per_host: bool = False,
                      device="cuda") -> PrefetchIterator:
     """Iterate a DataLoader with device prefetch; with ``per_host`` each
-    batch is first sliced to this process (:func:`host_slice`)."""
+    batch is first sliced to this process (:func:`host_slice`): on a mesh,
+    to this rank's rows along ``data``, which its ``model`` group shares."""
     def gen():
         for batch in loader:
-            yield host_slice(batch) if per_host else batch
+            if per_host and mesh is not None:
+                batch = host_slice(batch, mesh.coords[0], mesh.shape["data"])
+            elif per_host:
+                batch = host_slice(batch)
+            yield batch
 
     return PrefetchIterator(gen(), mesh=mesh, prefetch=prefetch, device=device)

@@ -1,12 +1,20 @@
 """Device mesh and sharding rules.
 
 PyTorch counterpart of ``quantize_tpu/parallel/mesh.py``: a 2-D mesh
-``(data, model)`` of devices, the tensor-parallel rules that say which axis
-of each variable would be split over ``model`` (:func:`spec_for_variables`,
-pure logic, JAX's rules for any ``tp``), and the placement of variables and
-batches onto the mesh. Only a mesh of one device places anything: spreading
-a model or a batch over several cards is not ported yet
-(:func:`~quantize_tpu_torch.utils.registry.not_ported_error`, item 6).
+``(data, model)`` of ranks, the tensor-parallel rules that say which axis of
+each variable is split over ``model`` (:func:`spec_for_variables`, JAX's
+rules), and the placement of variables and batches onto the mesh.
+
+A mesh of one device places everything on that device. A larger mesh is one
+process a rank over a ``torch.distributed`` group (:func:`init_distributed`,
+gloo): rank ``r`` sits at ``(r // tp, r % tp)`` (JAX's row-major layout)
+on its own local device, ``cuda:(r % device_count())`` by default, so that
+ranks may share a card. Each rank keeps its slice of every leaf split over
+``model`` and the whole of the rest (:func:`shard_variables`), and its rows
+of a batch along ``data`` (:func:`shard_batch`). The collectives go over
+gloo sub-groups, one for each ``data`` row (the ``model`` group) and each
+``model`` column (the ``data`` group): never NCCL, which refuses two ranks on
+one card.
 
 A spec is a tuple with one entry per axis of the leaf, ``"model"`` on the
 axis split over the model axis and None elsewhere; ``()`` replicates the
@@ -14,12 +22,13 @@ leaf (JAX's ``PartitionSpec`` entries as a tuple).
 """
 from __future__ import annotations
 
+import datetime
+import socket
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-
-from ..utils.registry import not_ported_error
+import torch.distributed as dist
 
 AXES = ("data", "model")
 # leaves split on their last (out-channel) axis
@@ -28,44 +37,88 @@ _OUT_CHANNEL_LEAVES = {"kernel", "w_int", "w_p4", "w_p4c"}
 _CHANNEL_VECTOR_LEAVES = {"bias", "w_scale", "w_zero", "scale", "zero", "col_sum"}
 
 
+def free_port() -> int:
+    """A TCP port free on the loopback interface now (bound to port 0)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def init_distributed(rank: int, world_size: int, port: int, timeout_s: float = 300.0) -> None:
+    """Join a ``world_size``-process group as ``rank`` over gloo, with the
+    store at ``tcp://127.0.0.1:port`` (rank 0 hosts it)."""
+    dist.init_process_group(backend="gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+
+
 class Mesh:
-    """A ``(dp, tp)`` array of ``torch.device``s with the axis names
-    ``("data", "model")``."""
+    """A ``(dp, tp)`` array of ``torch.device``s, one a rank, with the axis
+    names ``("data", "model")``. ``rank`` is this process's place in it;
+    ``groups`` holds the gloo groups of this rank's ``data`` column and
+    ``model`` row (empty on a mesh of one device)."""
 
     axis_names = AXES
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, rank: int = 0,
+                 groups: Optional[Dict[str, Any]] = None):
         self.devices = devices
         self.shape = dict(zip(AXES, devices.shape))
+        self.rank = rank
+        self.groups = groups or {}
 
     @property
     def size(self) -> int:
         return int(self.devices.size)
 
     @property
+    def coords(self) -> Tuple[int, int]:
+        """This rank's ``(data, model)`` index."""
+        return divmod(self.rank, self.shape["model"])
+
+    @property
     def device(self) -> torch.device:
-        """The device of a one-device mesh; a larger mesh raises."""
-        if self.size != 1:
-            raise not_ported_error(f"a mesh of more than one device ({self.shape}: tensor or "
-                                   f"data parallel placement)", 6)
-        return self.devices.flat[0]
+        """This rank's device."""
+        return self.devices.flat[self.rank]
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {list(self.devices.flat)})"
+        return f"Mesh({self.shape}, rank {self.rank}, {list(self.devices.flat)})"
 
 
 def make_mesh(dp: int = 1, tp: int = 1, devices: Optional[Sequence] = None) -> Mesh:
-    """A ``(data=dp, model=tp)`` mesh of the first ``dp * tp`` devices
-    (default: the visible CUDA devices)."""
-    if devices is None:
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    devices = [torch.device(d) for d in devices]
+    """A ``(data=dp, model=tp)`` mesh. One device: the first of ``devices``
+    (default: the visible CUDA devices). More: every process of a
+    ``dp * tp``-rank ``torch.distributed`` group calls this, in the same
+    order, and rank ``r`` runs on ``devices[r]`` (default:
+    ``cuda:(r % device_count())``)."""
     n = dp * tp
+    if devices is None:
+        count = torch.cuda.device_count()
+        devices = ([torch.device("cuda", i) for i in range(count)] if n == 1
+                   else [torch.device("cuda", r % count) for r in range(n)] if count else [])
+    devices = [torch.device(d) for d in devices]
     if len(devices) < n:
         raise ValueError(f"a ({dp}, {tp}) mesh needs {n} devices, have {len(devices)}")
     arr = np.empty(n, dtype=object)
     arr[:] = devices[:n]
-    return Mesh(arr.reshape(dp, tp))
+    arr = arr.reshape(dp, tp)
+    if n == 1:
+        return Mesh(arr)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n:
+        raise RuntimeError(f"a ({dp}, {tp}) mesh of {n} ranks needs torch.distributed "
+                           f"initialised with {n} processes, one a rank (world size {world}; "
+                           f"see init_distributed)")
+    rank = dist.get_rank()
+    ranks = np.arange(n).reshape(dp, tp)
+    groups = {}
+    # every rank creates every group, in one order; each keeps its own
+    for axis, lines in (("model", ranks), ("data", ranks.T)):
+        for line in lines:
+            group = dist.new_group([int(r) for r in line], backend="gloo")
+            if rank in line:
+                groups[axis] = group
+    return Mesh(arr, rank, groups)
 
 
 def _leaf_spec(name: str, leaf: Any, tp: int) -> Tuple:
@@ -88,24 +141,54 @@ def spec_for_variables(variables: Mapping[str, Any], tp: int) -> Dict[str, Any]:
             for k, v in variables.items()}
 
 
-def _place(tree: Any, device: torch.device) -> Any:
+class ShardedVariables(dict):
+    """Variables placed on one rank of ``mesh``: each leaf that ``spec``
+    splits over ``model`` holds this rank's slice. Loading them into a
+    model (:func:`~quantize_tpu_torch.convert.from_jax_variables`) makes its
+    layers run tensor-parallel (:mod:`.tensor_parallel`)."""
+
+    def __init__(self, tree: Mapping[str, Any], mesh: Mesh, spec: Mapping[str, Any]):
+        super().__init__(tree)
+        self.mesh = mesh
+        self.spec = spec
+
+
+def _as_tensor(leaf: Any) -> torch.Tensor:
+    return leaf if isinstance(leaf, torch.Tensor) else torch.from_numpy(np.array(leaf))
+
+
+def _place(tree: Any, spec: Any, device: torch.device, part: Tuple[int, int]) -> Any:
     if isinstance(tree, Mapping):
-        return {k: _place(v, device) for k, v in tree.items()}
-    t = tree if isinstance(tree, torch.Tensor) else torch.from_numpy(np.array(tree))
-    return t.to(device)
+        return {k: _place(v, spec[k], device, part) for k, v in tree.items()}
+    t = _as_tensor(tree)
+    if "model" in spec:
+        index, count = part
+        axis = spec.index("model")
+        n = t.shape[axis] // count
+        t = t.narrow(axis, index * n, n)
+    return t.to(device).contiguous()
 
 
 def shard_variables(mesh: Mesh, variables: Mapping[str, Any]) -> Dict[str, Any]:
-    """Place ``variables`` onto the mesh by the tensor-parallel rules: on a
-    mesh of one device, every leaf on that device (tensors, in the same
-    containers)."""
-    return _place(variables, mesh.device)
+    """Place ``variables`` onto this rank of the mesh by the tensor-parallel
+    rules: on its device, each leaf split over ``model`` cut to this rank's
+    slice, the rest whole (tensors, in the same containers). On a mesh of
+    one device, every leaf whole on that device."""
+    if mesh.size == 1:
+        return _place(variables, spec_for_variables(variables, 1), mesh.device, (0, 1))
+    tp = mesh.shape["model"]
+    spec = spec_for_variables(variables, tp)
+    return ShardedVariables(_place(variables, spec, mesh.device, (mesh.coords[1], tp)),
+                            mesh, spec)
 
 
 def shard_batch(mesh: Mesh, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Place every array of a batch dict on the mesh, split over ``data``:
-    on a mesh of one device, on that device (pinned, copied without
-    blocking the host)."""
-    from .input_pipeline import to_device
+    """This rank's rows of a global batch dict, split over ``data`` (a
+    contiguous split on dim 0), on its device (pinned, copied without
+    blocking the host); a mesh of one device keeps every row."""
+    from .input_pipeline import host_slice, to_device
 
+    dp = mesh.shape["data"]
+    if dp > 1:
+        batch = host_slice(batch, process_index=mesh.coords[0], process_count=dp)
     return to_device(batch, mesh.device)

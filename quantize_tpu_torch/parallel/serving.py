@@ -17,8 +17,11 @@ server that
 * resolves futures from a drain thread that waits on that batch's event
   only, so the next batches are staged and queued while the device works.
 
-On a one-device mesh the engine serves on the mesh's device; a mesh of more
-than one device is not ported yet.
+With a mesh the engine serves on this rank's device: on a mesh of one
+device, or one rank of a data-parallel mesh (each rank serving its own
+requests with the whole model). A tensor-parallel mesh is refused: its
+ranks would have to form the same batches, which continuous batching by
+arrival time does not give.
 """
 from __future__ import annotations
 
@@ -41,6 +44,32 @@ _STOP_TIMEOUT_S = 30.0
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _materialize_local_rows(out, n_rows: Optional[int] = None) -> np.ndarray:
+    """A batch result on the host as numpy: a tensor whole, or a rank's
+    rows from pieces ``[(rows, tensor), ...]`` (``rows`` a ``range`` or a
+    ``slice`` with bounds), each placed at its rows. The pieces must tile
+    ``[0, n_rows)`` exactly (default: up to the last row given); a gap or
+    an overlap raises ValueError, where JAX's counterpart would fill rows it
+    never wrote."""
+    if isinstance(out, torch.Tensor):
+        return out.numpy().copy()
+    spans = sorted(((r.start, r.stop, t) for r, t in out), key=lambda s: s[:2])
+    n_rows = spans[-1][1] if n_rows is None else n_rows
+    bounds = [(lo, hi) for lo, hi, _ in spans]
+    at = 0
+    for lo, hi, t in spans:
+        if lo != at:
+            raise ValueError(f"the row pieces {bounds} do not tile [0, {n_rows}): rows "
+                             f"{min(lo, at)}..{max(lo, at)} "
+                             f"{'overlap' if lo < at else 'are missing'}")
+        if hi - lo != len(t):
+            raise ValueError(f"the piece of rows [{lo}, {hi}) holds {len(t)} rows")
+        at = hi
+    if at != n_rows:
+        raise ValueError(f"the row pieces end at row {at}, not {n_rows}: rows missing")
+    return np.concatenate([t.numpy() for _, _, t in spans])
 
 
 def _default_preprocess(x: torch.Tensor) -> torch.Tensor:
@@ -107,6 +136,10 @@ class InferenceEngine:
         ``max_queue`` bounds queued chunks, not requests: ``submit`` puts a
         chunk of one, ``submit_many`` and ``submit_batch`` chunks of up to
         ``batch_size`` (``stats()["queue_depth"]`` counts chunks too)."""
+        if mesh is not None and mesh.shape["model"] > 1:
+            raise ValueError(f"the engine serves on one rank's device and cannot serve on a "
+                             f"tensor-parallel mesh ({mesh.shape}): serve each rank of a "
+                             f"data-parallel mesh, or on one device")
         self.device = mesh.device if mesh is not None else torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("the engine serves on CUDA, and torch sees no CUDA device; "
@@ -452,7 +485,7 @@ class InferenceEngine:
             try:
                 if done is not None:
                     done.synchronize()
-                out = host.numpy().copy()
+                out = _materialize_local_rows(host)
                 off = 0
                 for fut, n in sinks:
                     fut.set_result(out[off] if n == 1 else out[off:off + n])

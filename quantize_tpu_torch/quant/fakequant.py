@@ -18,7 +18,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .qspec import broadcast_to_axis
+from .qspec import QuantSpec, broadcast_to_axis
 
 
 class _RoundSTE(torch.autograd.Function):
@@ -66,6 +66,14 @@ def quantize_core(
     z = broadcast_to_axis(zero, x.ndim, channel_axis)
     v = x / s - z
     return ste_clamp((round_fn or ste_round)(v), qmin, qmax)
+
+
+def quantize_int(x: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
+                 spec: QuantSpec) -> torch.Tensor:
+    """Quantize to the narrow integer storage dtype (the packed path), with
+    no gradient."""
+    q = quantize_core(x, scale, zero, spec.qmin, spec.qmax, spec.channel_axis)
+    return q.detach().to(spec.storage_dtype)
 
 
 def dequantize_core(

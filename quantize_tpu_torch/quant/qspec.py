@@ -129,6 +129,15 @@ class QuantSpec:
     def per_channel(self) -> bool:
         return self.granularity == "channel"
 
+    @property
+    def storage_dtype(self) -> torch.dtype:
+        """Narrowest native dtype able to hold the integer grid."""
+        if self.n_bits <= 8:
+            return torch.int8 if (self.symmetric and self.signed) else torch.uint8
+        if self.n_bits <= 16:
+            return torch.int16
+        return torch.int32
+
     def n_channels(self, shape: Tuple[int, ...]) -> int:
         if not self.per_channel:
             return 1

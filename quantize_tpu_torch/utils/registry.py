@@ -74,18 +74,3 @@ class Registry(dict):
             )
         return self[key]
 
-
-def not_ported_error(what: str, item: int) -> NotImplementedError:
-    """The error for a feature the JAX package has and the port does not
-    have yet, naming the ROADMAP.md queue 1 item that brings it."""
-    return NotImplementedError(f"{what} is not ported to quantize_tpu_torch yet "
-                               f"(ROADMAP.md, queue 1 item {item})")
-
-
-def not_ported(what: str, item: int) -> Callable:
-    """A registry entry for such a name: calling it raises
-    :func:`not_ported_error`."""
-    def ctor(*_: Any, **__: Any) -> Any:
-        raise not_ported_error(what, item)
-
-    return ctor

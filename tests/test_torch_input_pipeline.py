@@ -81,7 +81,8 @@ def test_prefetch_to_mesh_on_one_device():
     assert it.device == CPU and sum(len(b["label"]) for b in batches) == 32
     placed = shard_batch_to_mesh(mesh, {"img": np.ones((4, 2), np.float32)})
     assert placed["img"].device == CPU and torch.equal(placed["img"], torch.ones(4, 2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    # a mesh of two ranks needs a process group of two (tests/test_torch_multiprocess.py)
+    with pytest.raises(RuntimeError, match="needs torch.distributed initialised with 2"):
         prefetch_to_mesh(loader, mesh=make_mesh(2, 1, devices=[CPU, CPU]))
 
 

@@ -8,8 +8,9 @@ on the CPU against the JAX package's ``quantize_tpu.parallel.mesh``.
   port's spec of JAX's nested deploy.
 * ``make_mesh`` has JAX's axis names and shape; ``shard_variables`` and
   ``shard_batch`` place every leaf on a one-device mesh, bit-equal; a mesh
-  of two devices raises the not-ported error (queue 1 item 6), and so
-  does a mesh larger than the devices given.
+  of two ranks needs a process group of two (the ranks themselves:
+  ``tests/test_torch_multiprocess.py``), and a mesh larger than the
+  devices given raises.
 * ``checkpoint.restore`` onto a one-device mesh.
 """
 import jax
@@ -102,13 +103,12 @@ def test_mesh_axes_and_placement_on_one_device():
 
 
 def test_a_mesh_of_two_devices_is_not_ported():
-    mesh = make_mesh(2, 1, devices=[CPU, CPU])
-    assert mesh.shape == {"data": 2, "model": 1} and mesh.size == 2
-    for call in (lambda: shard_variables(mesh, {"params": {"w": np.ones(2)}}),
-                 lambda: shard_batch(mesh, {"img": np.ones((2, 1))}),
-                 lambda: mesh.device):
-        with pytest.raises(NotImplementedError, match="more than one device.*queue 1 item 6"):
-            call()
+    """Outside a process group of two ranks no mesh of two devices is made
+    (a mesh is one process a rank); nor a mesh of more devices than given."""
+    for dp, tp in ((2, 1), (1, 2)):
+        with pytest.raises(RuntimeError, match="needs torch.distributed initialised with 2 "
+                                               "processes.*world size 1"):
+            make_mesh(dp, tp, devices=[CPU, CPU])
     with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         make_mesh(1, 2, devices=[CPU])
 

@@ -862,3 +862,26 @@ def test_cuda_imported_resnet18_into_scale_packed_kernels_match_their_plain_vers
     assert sorted(checked) == sorted(["qconv2d"] * 20 + ["w8a8_gemm"] + ["quantize_act_int8"] * 21)
     assert out.shape == (32, 10) and bool(torch.isfinite(out).all())
     assert float((out - sim).abs().max() / sim.abs().max()) <= 2e-2
+
+
+def test_public_names_match_jax():
+    """The package root, ``nn`` and ``quant`` export the JAX package's
+    public names (its lazy root exports, ``nn.MODULES``'s registry names,
+    ``quant.__all__``), each resolving; ``__version__`` is JAX's."""
+    jax_pkg = pytest.importorskip("quantize_tpu")  # not on the card's machine
+    import importlib
+
+    import quantize_tpu_torch.nn as tnn
+    import quantize_tpu_torch.quant as tquant
+
+    assert qtt.__version__ == jax_pkg.__version__
+    missing = [name for name in jax_pkg.__all__ if not hasattr(qtt, name)]
+    assert not missing, missing
+    jax_nn = importlib.import_module("quantize_tpu.nn")
+    assert set(tnn.MODULES) == set(jax_nn.MODULES)
+    assert tnn.MODULES.lookup("quantconv2d") is qtt.QuantConv
+    jax_quant = importlib.import_module("quantize_tpu.quant")
+    assert set(tquant.__all__) == set(jax_quant.__all__)
+    assert all(hasattr(tquant, name) for name in tquant.__all__)
+    assert set(tquant.RANGES) == set(jax_quant.RANGES)
+    assert qtt.reset_observers is tnn.reset_observers

@@ -251,3 +251,43 @@ def test_maminmax_and_mse_follow_jax_step_by_step(name, granularity, symmetric, 
             np.testing.assert_allclose(_np(state_t[key]), np.asarray(state_j[key]), rtol=1e-6)
         np.testing.assert_allclose(_np(s_t), np.asarray(s_j), rtol=1e-6)
         np.testing.assert_allclose(_np(z_t), np.asarray(z_j), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("n_bits,symmetric,signed", [(8, True, True), (8, False, False),
+                                                     (4, True, True), (12, True, True)])
+def test_quantize_int_matches_jax(n_bits, symmetric, signed):
+    """The deploy path's integer quantize (``quant.fakequant.quantize_int``)
+    and ``QuantSpec.storage_dtype``, per channel, against JAX's."""
+    cfg = {"n_bits": n_bits, "symmetric": symmetric, "signed": signed, "granularity": "channel"}
+    sj, st = jqs.QuantSpec.from_config(cfg, "weight"), tqs.QuantSpec.from_config(cfg, "weight")
+    rng = np.random.default_rng(n_bits)
+    x = rng.normal(size=(3, 3, 4, 6)).astype(np.float32)
+    s = rng.uniform(0.002, 0.05, size=(6,)).astype(np.float32)
+    z = rng.integers(-3, 3, size=(6,)).astype(np.float32)
+    qj = jfq.quantize_int(jnp.asarray(x), jnp.asarray(s), jnp.asarray(z), sj)
+    qt = tfq.quantize_int(torch.from_numpy(x), torch.from_numpy(s), torch.from_numpy(z), st)
+    assert str(qt.dtype).replace("torch.", "") == np.dtype(sj.storage_dtype).name
+    np.testing.assert_array_equal(_np(qt), np.asarray(qj))
+
+
+@pytest.mark.parametrize("static", [False, True])
+def test_quantize_with_qparams_matches_jax(static):
+    """``nn.quantizer.quantize_with_qparams``: the integers, the effective
+    scale (``static_scale`` folded in) and the zero, as JAX's."""
+    from quantize_tpu.nn.quantizer import quantize_with_qparams as jax_qwq
+    from quantize_tpu_torch.nn.quantizer import quantize_with_qparams
+
+    cfg = {"n_bits": 8, "symmetric": True, "signed": True, "granularity": "channel"}
+    sj, st = jqs.QuantSpec.from_config(cfg, "weight"), tqs.QuantSpec.from_config(cfg, "weight")
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(16, 6)).astype(np.float32)
+    qp = {"scale": rng.uniform(0.005, 0.03, size=(6,)).astype(np.float32),
+          "zero": np.zeros((6,), np.float32)}
+    if static:
+        qp["static_scale"] = rng.uniform(0.5, 2.0, size=(6,)).astype(np.float32)
+    want = jax_qwq(jnp.asarray(x), sj, {k: jnp.asarray(v) for k, v in qp.items()})
+    got = quantize_with_qparams(torch.from_numpy(x), st,
+                                {k: torch.from_numpy(v) for k, v in qp.items()})
+    assert got[0].dtype == torch.int8
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(_np(g), np.asarray(w))

@@ -16,6 +16,7 @@ devices is refused. Every engine runs in a context manager and every
 import queue
 import threading
 import time
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -153,7 +154,8 @@ def test_serving_bounded_queue_backpressure(packed):
 
 def test_serving_on_mesh(packed):
     """A one-device mesh: the engine serves on the mesh's device; a mesh of
-    two devices is refused (not ported)."""
+    two ranks needs a process group of two, and a tensor-parallel mesh is
+    refused (its ranks would have to form the same batches)."""
     mesh = make_mesh(1, 1, devices=[CPU])
     rng = np.random.default_rng(3)
     images = [rng.normal(size=(16, 16, 3)).astype(np.float32) for _ in range(8)]
@@ -164,8 +166,11 @@ def test_serving_on_mesh(packed):
     np.testing.assert_array_equal(np.stack(results), direct(eng.model, images))
     assert_close_to_jax(np.stack(results), np.stack(jax_serve(
         packed, images, batch_size=8, mesh=jax_make_mesh(dp=4, tp=1), max_wait_ms=50.0)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(RuntimeError, match="needs torch.distributed initialised with 2"):
         InferenceEngine(port_model(), batch_size=8, mesh=make_mesh(2, 1, devices=[CPU, CPU]))
+    tp_mesh = SimpleNamespace(shape={"data": 1, "model": 2}, device=CPU)
+    with pytest.raises(ValueError, match="tensor-parallel mesh"):
+        InferenceEngine(port_model(), batch_size=8, mesh=tp_mesh)
 
 
 def test_uint8_ingress_with_on_device_preprocess(packed):
