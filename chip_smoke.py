@@ -355,7 +355,36 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    which gloo collectives take CUDA tensors (two ranks on the card), each
    run's t1, tn, efficiency, collectives, bytes and ms. Both ranks share
    the card: tn and the efficiency are not a multi-card figure.
-12. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+12. Training on a mesh (``parallel.tensor_parallel``, ``runners.qat.
+   loss_and_grads(..., mesh)``): phase 11's ResNet-50 W8A8 at 224, 1,000
+   classes, initialised from seed 0 and calibrated on one device, a global
+   batch of 32 with one padded label, SGD at 1e-3. 12a. One QAT step on one
+   device in this process: loss, CUDA-event ms, peak GiB; again with the
+   input moved by three independent 1e-6 relative perturbations (its own
+   movement). 12b. Two ranks spawned on the card over gloo at ``(2, 1)``, 16
+   rows a rank, from this process's variables: three steps; the first
+   step's loss and each collection's gradient (rank 0's) no further from
+   12a's than twice the largest of 12a's own movements, with the same
+   leaves nonzero; the ranks' variables
+   bit-equal (SHA-256) after each step; the collectives a step exactly the
+   valid count's all-reduce and one all-reduce of every gradient value and
+   the loss (their bytes checked); ms, bytes reduced and staged a step
+   printed. 12c. The same ranks at ``(1, 2)``, the whole batch on both,
+   two steps: the same agreement, the replicated leaves bit-equal, the
+   collectives a step 54 all-gathers (11c's) and 54 input-gradient
+   all-reduces. 12d. The ``(1, 2)`` variables gathered whole
+   (``gather_variables``), packed on rank 0's device, served at ``(2, 1)``
+   and ``(1, 2)``, 32 a rank, fused residual tail: each rank's logits
+   bit-equal to the one-device forward of the global batch, launches by
+   kernel and route equal to one device's (11d's counts, K2 and K1 on
+   ``wgmma``), every kernel call of a sharded forward held against its plain
+   version. 12e. Phase 5a's CLIP ViT-B/16 W8A8 zero-shot deploy variables
+   (image tower, ``logit_scale``, zero-shot weights) served the same way
+   (K8's launches among those equal to one device's). 12f. 12a's step under
+   ``set_quant_sim_dtype("bfloat16")``: a finite loss within 5% of f32's,
+   its ms beside f32's. Both ranks share the card: no time here is a
+   multi-card figure.
+13. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
    beside its bound, its plain version and the nearest library call (K2
@@ -682,6 +711,16 @@ MULTI_ITERS = 10
 MULTI_TP_ITERS = 3
 MULTI_TIMEOUT = 240.0
 SERVE_REPS = 3
+# phase 12: training on a mesh (ResNet-50 W8A8 at 224, phase 11's
+# configuration): the global batch, SGD's learning rate, 12b's steps (the
+# first held against 12a), 12c's, and the per-rank batch of 12d/12e
+MESH_TRAIN_BATCH = 32
+MESH_TRAIN_LR = 1e-3
+MESH_DP_STEPS = 3
+MESH_TP_STEPS = 2
+MESH_SERVE_BATCH = 32
+MESH_TIMEOUT = 420.0
+MESH_PERTURBATIONS = 3
 VIT_SERVE_BATCH = 128
 # phase 10, export: ResNeXt-50's and ViT-B/32's batch (earlier paths, cut
 # from 256), and the KQ launches of each dispatch-cost loop
@@ -2153,11 +2192,12 @@ def clip_tokens():
                                list(src.model.prompts), HashTokenizer(49408), 77)
 
 
-def clip_phase(qtt, batch, card, dev) -> None:
+def clip_phase(qtt, batch, card, dev) -> dict:
     """CLIP ViT-B/16 W8A8 (module docstring, phase 5a): the image tower
     packed and served, then the text tower calibrated, packed and run
     packed over the 5,000 prompts, every causal K8 call of one packed pass
-    held against its plain version as it is made."""
+    held against its plain version as it is made. Returns the zero-shot
+    image forward's deploy variables (phase 12e)."""
     import torch
     from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
 
@@ -2172,7 +2212,7 @@ def clip_phase(qtt, batch, card, dev) -> None:
     model.precompute(toks, mode="fp32")  # the runner's way: the float text tower
     torch.cuda.synchronize()
     fp32_text_s = time.time() - t1
-    qtt.pack_model(model, sample)
+    deploy = qtt.pack_model(model, sample)
     torch.cuda.synchronize()
     log(f"clip_vit-b16 W8A8 set-up (init, calibrate 4x32, fp32 zero-shot weights over "
         f"{n_prompts} prompts in {fp32_text_s:.2f} s, pack) {time.time() - t0:.1f} s")
@@ -2279,8 +2319,23 @@ def clip_phase(qtt, batch, card, dev) -> None:
         profile_calls(lambda: model.precompute(toks, mode="packed"),
                       f"clip_vit-b16 text tower packed pass, {n_prompts} prompts [{card}]", n_fwd=2)
         kernel_entries(rec.calls, counts, max_err, tuple(CLIP_TEXT_PER_PASS), "clip text tower")
+    # the image tower's deploy variables with the packed text pass's zero-shot
+    # weights, on the host, for phase 12e
+    deploy = image_deploy(deploy, model.get_var("zeroshot", "weights"))
     del model, requests, rec, quant_emb, packed_emb
     torch.cuda.empty_cache()
+    return deploy
+
+
+def image_deploy(deploy: dict, weights) -> dict:
+    """The leaves of CLIP's deploy variables that the zero-shot image
+    forward reads (the image tower, ``logit_scale`` and the zero-shot
+    weights, here ``weights``), on the host."""
+    keep = {col: {k: t.detach().cpu() for k, t in flat.items()
+                  if k.startswith("clip/visual/") or k == "clip/logit_scale"}
+            for col, flat in deploy.items()}
+    keep["zeroshot"] = {"weights": weights.detach().cpu()}
+    return {col: flat for col, flat in keep.items() if flat}
 
 
 def clip_rn_phase(qtt, batch, card, dev) -> None:
@@ -4028,6 +4083,383 @@ def multi_device_phase(qtt, card) -> None:
         f"forward; no NCCL (gloo, staged through pinned host memory)")
 
 
+# phase 12's two ranks (module docstring): 12b-12e, one process a rank on
+# the one card over gloo; writes rank 0's first-step gradients, the trained
+# variables and the packed deploy variables under ``job["dir"]``
+MESH_TRAIN_WORKER = r"""
+import contextlib, hashlib, json, sys, time
+import torch
+import chip_smoke as cs
+import quantize_tpu_torch as qtt
+from quantize_tpu_torch import convert, optim
+from quantize_tpu_torch.nn.variables import trainable
+from quantize_tpu_torch.ops import reset_launch_counts
+from quantize_tpu_torch.parallel import (CollectiveCounter, ShardedVariables, gather_variables,
+                                         init_distributed, make_mesh, rank_variables,
+                                         shard_variables)
+from quantize_tpu_torch.parallel.scaling import _launch_census
+from quantize_tpu_torch.runners.qat import TRAINABLE, loss_and_grads
+
+rank, world, port = (int(a) for a in sys.argv[1:4])
+job = json.loads(sys.argv[4])
+torch.cuda.set_device(rank % torch.cuda.device_count())
+init_distributed(rank, world, port)
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", torch.cuda.current_device())
+devices = [f"cuda:{r % torch.cuda.device_count()}" for r in range(world)]
+d = job["dir"]
+batch = torch.load(f"{d}/batch.pt")
+v = torch.load(f"{d}/variables.pt")
+report = {}
+
+
+def host(tree):
+    return ({k: host(t) for k, t in tree.items()} if isinstance(tree, dict)
+            else tree.detach().cpu())
+
+
+def digest(tensors):
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def same_on_ranks(value):
+    out = [None] * world
+    torch.distributed.all_gather_object(out, value)
+    return all(o == out[0] for o in out)
+
+
+def resnet():
+    return qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(cs.CFG), device=dev)
+
+
+def train(mesh, rows, steps, tag):
+    model = resnet()
+    convert.from_jax_variables(model, shard_variables(mesh, v))
+    spec = getattr(rank_variables(model), "spec", None)
+    sliced = {f"{c}/{k}" for c, t in (spec or {}).items() for k, s in t.items() if s}
+    opt = optim.Optimizer(optim.sgd(lambda i: job["lr"]), trainable(model, TRAINABLE))
+    x, y = batch["img"][rows].to(dev), batch["label"][rows].to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {"steps": [], "split": sum(getattr(m, "tp_shard", None) is not None
+                                     for m in model.modules())}
+    for i in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        with CollectiveCounter() as c:
+            loss, _, grads = loss_and_grads(model, x, y, mesh)
+            opt.step(trainable(model, TRAINABLE), grads)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+        if i == 0:  # rank 0's gradients, gathered whole, against 12a's
+            flat = {k: g for k, g in grads.items() if g is not None}
+            if spec is not None:
+                tree = {}
+                for key, g in flat.items():
+                    col, rest = key.split("/", 1)
+                    tree.setdefault(col, {})[rest] = g
+                tree = ShardedVariables(tree, mesh, {c: {k: spec[c][k] for k in t}
+                                                     for c, t in tree.items()})
+                flat = {f"{c}/{k}": g for c, t in gather_variables(mesh, tree).items()
+                        for k, g in t.items()}
+            if rank == 0:
+                torch.save({"loss": float(loss), "grads": host(flat)}, f"{d}/{tag}_grads.pt")
+            del flat
+        tr = trainable(model, TRAINABLE)
+        out["steps"].append({
+            "loss": float(loss), "ms": start.elapsed_time(end), "wall_s": wall,
+            "counts": c.counts, "bytes": c.nbytes, "staged": c.staged_bytes,
+            "collective_ms": c.ms,
+            "same_all": same_on_ranks(digest(tr)),
+            "same_whole": same_on_ranks(digest({k: t for k, t in tr.items()
+                                                if k not in sliced}))})
+        del grads
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return model, out
+
+
+def serve_check(build, deploy, dp, tp, names, fused):
+    # the one-device forward of the global batch, then this rank's rows on
+    # the mesh: logits bit for bit, launches by kernel and route, every
+    # kernel call of the sharded forward held against its plain version
+    mesh = make_mesh(dp, tp, devices=devices)
+    model = build()
+    convert.from_jax_variables(model, deploy)
+    n = job["serve_batch"]
+    gen = torch.Generator(device=dev).manual_seed(120)
+    xg = torch.randn((n * dp, 224, 224, 3), generator=gen, device=dev)
+    rows = slice(mesh.coords[0] * n, (mesh.coords[0] + 1) * n)
+    switch = qtt.fused_residual(True) if fused else contextlib.nullcontext()
+    with torch.inference_mode(), switch:
+        model(xg, mode="packed")  # first call outside the counted run
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ref = model(xg, mode="packed")[rows]
+        torch.cuda.synchronize()
+        one = _launch_census()
+        with CollectiveCounter() as load:
+            convert.from_jax_variables(model, shard_variables(mesh, deploy))
+        model(xg[rows], mode="packed")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with CollectiveCounter() as c:
+            got = model(xg[rows], mode="packed")
+            torch.cuda.synchronize()
+        ndev = _launch_census()
+        max_err = {}
+        with cs.Recorder() as rec:
+            model(xg[rows], mode="packed")
+        checked = cs.check_kernels([rec.calls], names, max_err)
+    return {"equal": bool(torch.equal(got, ref)), "n_differ": int((got != ref).sum()),
+            "max_abs": float((got.float() - ref.float()).abs().max()),
+            "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape),
+            "launches_1dev": one, "launches_ndev": ndev, "counts": c.counts,
+            "bytes": c.nbytes, "load": load.counts, "checked": checked, "max_err": max_err,
+            "split": sum(getattr(m, "tp_shard", None) is not None for m in model.modules())}
+
+
+# 12b: data parallel, 16 rows a rank
+m, report["12b"] = train(make_mesh(2, 1, devices=devices),
+                         slice(rank * job["batch"] // 2, (rank + 1) * job["batch"] // 2),
+                         job["dp_steps"], "12b")
+del m
+torch.cuda.empty_cache()
+# 12c: tensor parallel, the whole batch on both ranks
+mesh = make_mesh(1, 2, devices=devices)
+m, report["12c"] = train(mesh, slice(None), job["tp_steps"], "12c")
+trained = gather_variables(mesh, rank_variables(m))
+del m
+torch.cuda.empty_cache()
+# 12d: the trained variables packed on one device (rank 0), served on the mesh
+if rank == 0:
+    one = resnet()
+    convert.from_jax_variables(one, trained)
+    deploy = qtt.pack_model(one, batch["img"][:8], device=dev)
+    torch.save(host(deploy), f"{d}/deploy.pt")
+    report["pack_leaves"] = sum(len(f) for f in deploy.values())
+    del one, deploy
+del trained
+torch.distributed.barrier()
+deploy = torch.load(f"{d}/deploy.pt")
+report["12d"] = {f"{dp}x{tp}": serve_check(resnet, deploy, dp, tp, tuple(cs.RESNET_PER_FWD),
+                                           True) for dp, tp in ((2, 1), (1, 2))}
+del deploy
+torch.cuda.empty_cache()
+# 12e: CLIP ViT-B/16 W8A8 zero-shot, phase 5a's deploy variables
+clip_deploy = torch.load(f"{d}/clip_deploy.pt")
+
+
+def clip():
+    return qtt.MODELS.build("clip_vit-b16", num_classes=cs.CLIP_CLASSES,
+                            ctx=qtt.QuantCtx(cs.CFG), device=dev)
+
+
+report["12e"] = {f"{dp}x{tp}": serve_check(clip, clip_deploy, dp, tp,
+                                           tuple(cs.CLIP_VIT_PER_FWD), False)
+                 for dp, tp in ((2, 1), (1, 2))}
+report["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+torch.distributed.destroy_process_group()
+print("MESHTRAIN " + json.dumps(report), flush=True)
+"""
+
+
+def grad_gap(got: dict, ref: dict, keys) -> float:
+    """|got - ref| / |ref| over the leaves ``keys``, as one vector."""
+    import torch
+
+    d = torch.cat([(got[k].float() - ref[k].float()).reshape(-1) for k in keys])
+    r = torch.cat([ref[k].float().reshape(-1) for k in keys])
+    return float(d.norm() / r.norm())
+
+
+def agreement(label: str, loss: float, grads: dict, ref: tuple, moved: list) -> None:
+    """Phase 12's rule (phase 7's card-against-CPU rule, with a margin): the
+    loss and each collection's gradients no further from 12a's than twice
+    the largest of 12a's own movements under ``MESH_PERTURBATIONS``
+    independent 1e-6 relative perturbations of its input (a step away in
+    any one int8 activation moves a quant-mode network as much as such a
+    perturbation does, so the gap and one movement are draws of the same
+    size: ``scripts/qat_noise_floor.py``); every leaf finite, and the leaves
+    with a nonzero gradient the same as 12a's."""
+    import torch
+
+    loss_a, grads_a = ref
+    check(set(grads) == set(grads_a), f"{label}: the trainable leaves differ from 12a's")
+    for key, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"{label}: {key} got no finite gradient")
+    check(nonzero_leaves(grads) == nonzero_leaves(grads_a),
+          f"{label}: leaves with a nonzero gradient differ from 12a's: "
+          f"{sorted(nonzero_leaves(grads) ^ nonzero_leaves(grads_a))[:5]}")
+    gap = abs(loss - loss_a) / abs(loss_a)
+    moves = [abs(lp - loss_a) / abs(loss_a) for lp, _ in moved]
+    log(f"{label}: loss {loss:.6f} vs 12a's {loss_a:.6f}: {gap:.3e} relative; 12a's own under "
+        f"1e-6 perturbations of its input {', '.join(f'{m:.3e}' for m in moves)}")
+    check(gap <= 2 * max(moves), f"{label}: the loss moved beyond twice 12a's own movement")
+    for col in ("params", "qparams"):
+        keys = sorted(k for k in grads_a if k.startswith(col + "/"))
+        gap = grad_gap(grads, grads_a, keys)
+        moves = [grad_gap(gp, grads_a, keys) for _, gp in moved]
+        worst = max((k for k in keys if bool(grads_a[k].any())),
+                    key=lambda k: grad_gap(grads, grads_a, [k]))
+        log(f"{label}: {col} gradient ({len(keys)} leaves) |mesh - 12a| / |12a| {gap:.3e}; 12a's "
+            f"own under the perturbations {', '.join(f'{m:.3e}' for m in moves)}; the largest "
+            f"leaf gap {worst} {grad_gap(grads, grads_a, [worst]):.3e} (its own "
+            f"{', '.join(f'{grad_gap(gp, grads_a, [worst]):.3e}' for _, gp in moved)})")
+        check(gap <= 2 * max(moves),
+              f"{label}: the {col} gradient moved beyond twice 12a's own movement")
+
+
+def mesh_train_phase(qtt, card, clip_deploy) -> None:
+    """Phase 12 (module docstring): QAT on one device (12a), on two ranks of
+    the one card at ``(2, 1)`` and ``(1, 2)`` (12b, 12c), the trained
+    ResNet-50 and CLIP zero-shot served packed on the mesh (12d, 12e), and
+    12a's step under the bf16 fake-quant switch (12f)."""
+    import tempfile
+
+    import torch
+    from quantize_tpu_torch.nn.variables import collections
+    from quantize_tpu_torch.parallel.scaling import spawn_ranks
+    from quantize_tpu_torch.quant.fakequant import set_quant_sim_dtype
+    from quantize_tpu_torch.runners.qat import loss_and_grads
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n = MESH_TRAIN_BATCH
+    img = torch.randn((n, 224, 224, 3), generator=gen, device=dev)
+    label = torch.randint(0, 1000, (n,), generator=gen, device=dev)
+    label[5] = -1  # one padded row: the masked mean
+    t0 = time.time()
+    model = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
+    qtt.init_model(model, img[:8], seed=0)
+    qtt.calibrate_model(model, [img[:16], img[16:]])
+    torch.cuda.synchronize()
+    log(f"phase 12: resnet50 W8A8 at 224 built, initialised from seed 0 and calibrated on one "
+        f"device ({time.time() - t0:.1f} s)")
+
+    def step(x):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, _, grads = loss_and_grads(model, x, label)
+        end.record()
+        end.synchronize()
+        return float(loss), {k: g.detach().cpu() for k, g in grads.items() if g is not None}, \
+            start.elapsed_time(end)
+
+    # 12a: one device, in process
+    step(img)  # warm-up
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss_a, grads_a, ms_a = step(img)
+    peak_a = torch.cuda.max_memory_allocated(dev) / 2**30
+    pert = torch.Generator(device=dev).manual_seed(13)
+    moved = []  # 12a's own movement under independent 1e-6 perturbations
+    for _ in range(MESH_PERTURBATIONS):
+        loss_p, grads_p, _ = step(img * (1 + 1e-6 * torch.randn(img.shape, generator=pert,
+                                                                  device=dev)))
+        moved.append((loss_p, grads_p))
+    n_grad = sum(g.numel() for g in grads_a.values())
+    log(f"time: phase 12a, one QAT step on one device (resnet50 W8A8, batch {n} at 224, "
+        f"quant-mode forward and backward over {len(grads_a)} trainable leaves, {n_grad} "
+        f"values): {ms_a:.1f} ms, loss {loss_a:.6f}, peak {peak_a:.2f} GiB allocated [{card}]")
+    check(math.isfinite(loss_a), f"12a: loss {loss_a}")
+
+    with tempfile.TemporaryDirectory() as d:
+        torch.save({c: {k: t.detach().cpu() for k, t in f.items()}
+                    for c, f in collections(model).items()}, f"{d}/variables.pt")
+        torch.save({"img": img.cpu(), "label": label.cpu()}, f"{d}/batch.pt")
+        torch.save(clip_deploy, f"{d}/clip_deploy.pt")
+        job = {"dir": d, "lr": MESH_TRAIN_LR, "batch": n, "dp_steps": MESH_DP_STEPS,
+               "tp_steps": MESH_TP_STEPS, "serve_batch": MESH_SERVE_BATCH}
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        outs = spawn_ranks(2, MESH_TRAIN_WORKER, [json.dumps(job)], timeout=MESH_TIMEOUT)
+        wall = time.time() - t0
+        reports = [json.loads(next(ln for ln in out.splitlines()
+                                   if ln.startswith("MESHTRAIN "))[10:]) for out in outs]
+        first = {tag: torch.load(f"{d}/{tag}_grads.pt") for tag in ("12b", "12c")}
+    log(f"phase 12b-12e: two ranks on the one card over gloo, {wall:.1f} s with start-up; "
+        f"peak allocated a rank {[round(r['peak_gib'], 2) for r in reports]} GiB [{card}]")
+
+    # 12b and 12c: the steps, their collectives, the ranks' agreement
+    per_step_bytes = 4 * (n_grad + 1)  # the gradients and the loss share
+    for tag, mesh, want_counts in (("12b", "(2, 1)", {"all-reduce": 2}),
+                                   ("12c", "(1, 2)", {"all-gather": 54, "all-reduce": 54})):
+        rec = [r[tag] for r in reports]
+        agreement(f"{tag} {mesh}", first[tag]["loss"], first[tag]["grads"],
+                  (loss_a, grads_a), moved)
+        for i, st in enumerate(rec[0]["steps"]):
+            log(f"time: phase {tag} {mesh}, step {i + 1}: {st['ms']:.1f} ms by CUDA events "
+                f"({st['wall_s']:.3f} s wall), loss {st['loss']:.6f}; collectives "
+                f"{st['counts']}, {st['bytes']} bytes reduced or gathered, {st['staged']} "
+                f"bytes staged through pinned host memory, {st['collective_ms']:.1f} ms in "
+                f"them; peak {rec[0]['peak_gib']:.2f} / {rec[1]['peak_gib']:.2f} GiB a rank "
+                f"[{card}]")
+        for r in rec:
+            for i, st in enumerate(r["steps"]):
+                # 12b: the valid count, then the gradients with the loss share;
+                # 12c: one gather a layer forward, its input gradient's reduce back
+                check(st["counts"] == want_counts,
+                      f"{tag}: step {i + 1} ran collectives {st['counts']}, not {want_counts}")
+                check(math.isfinite(st["loss"]), f"{tag}: step {i + 1} loss {st['loss']}")
+                check(st["same_whole"], f"{tag}: the ranks' replicated leaves differ after step "
+                      f"{i + 1}")
+                if tag == "12b":
+                    check(st["same_all"], f"12b: the ranks' variables differ after step {i + 1}")
+                    # the one reduce of every gradient value and the loss, and the count
+                    check(st["bytes"] == per_step_bytes + 4,
+                          f"12b: {st['bytes']} bytes reduced, not {per_step_bytes + 4}")
+    # 12d and 12e: the trained ResNet-50 and CLIP served packed on the mesh
+    for tag, per_fwd, what in (("12d", RESNET_PER_FWD, "trained resnet50 W8A8"),
+                               ("12e", CLIP_VIT_PER_FWD, "clip_vit-b16 W8A8 zero-shot")):
+        for mesh_key in ("2x1", "1x2"):
+            for rank, r in enumerate(reports):
+                rep = r[tag][mesh_key]
+                lbl = f"{tag} {what} ({mesh_key[0]}, {mesh_key[2]}) rank {rank}"
+                check(rep["finite"] and rep["shape"] == [MESH_SERVE_BATCH, 1000],
+                      f"{lbl}: logits {rep['shape']} not finite or of the wrong shape")
+                check(rep["equal"], f"{lbl}: {rep['n_differ']} logits differ from the "
+                      f"one-device forward (max abs {rep['max_abs']})")
+                one, ndev = rep["launches_1dev"], rep["launches_ndev"]
+                check(ndev == one, f"{lbl}: launches {ndev} differ from one device's {one}")
+                for name, k in per_fwd.items():
+                    check(ndev[name] == k, f"{lbl}: {name} launched {ndev[name]} times, not {k}")
+                check(rep["checked"] > 0, f"{lbl}: no kernel call held against its plain version")
+            rep = reports[0][tag][mesh_key]
+            log(f"phase {tag} ({mesh_key[0]}, {mesh_key[2]}): {what}, {MESH_SERVE_BATCH} a rank: "
+                f"both ranks' logits bit-equal to the one-device forward of the global batch; "
+                f"launches a forward {dict((k, v) for k, v in rep['launches_ndev'].items() if v)} "
+                f"equal to one device's; {rep['split']} layers on a slice, collectives "
+                f"{rep['counts']} ({rep['bytes']} bytes), {rep['load']} at load; "
+                f"{rep['checked']} kernel calls held against their plain versions, max abs err "
+                f"{rep['max_err']}")
+    for name in ("conv1x1_residual", "w8a8_gemm"):
+        for mesh_key in ("2x1", "1x2"):
+            ndev = reports[0]["12d"][mesh_key]["launches_ndev"]
+            check(ndev[f"{name}.wgmma"] == ndev[name],
+                  f"12d: not every {name} launch took the wgmma route: {ndev}")
+
+    # 12f: 12a's step under the bf16 fake-quant switch
+    try:
+        set_quant_sim_dtype("bfloat16")
+        step(img)  # warm-up
+        loss_f, _, ms_f = step(img)
+    finally:
+        set_quant_sim_dtype(None)
+    r = abs(loss_f - loss_a) / abs(loss_a)
+    log(f"time: phase 12f, 12a's step under set_quant_sim_dtype('bfloat16'): {ms_f:.1f} ms (f32 "
+        f"{ms_a:.1f} ms), loss {loss_f:.6f} vs f32 {loss_a:.6f} ({r:.3e} relative, <= 5e-2) "
+        f"[{card}]")
+    check(math.isfinite(loss_f) and r <= 5e-2, "12f: the bf16 fake-quant loss disagrees")
+    del model, grads_a, moved, first
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -4106,7 +4538,7 @@ def main() -> int:
     entries += vit32_entries
     log(f"vit_b_32 phase {time.time() - t0:.1f} s")
     t0 = time.time()
-    clip_phase(qtt, batch, card, dev)
+    clip_deploy = clip_phase(qtt, batch, card, dev)
     log(f"clip_vit-b16 phase {time.time() - t0:.1f} s")
     t0 = time.time()
     clip_rn_phase(qtt, batch, card, dev)
@@ -4157,6 +4589,9 @@ def main() -> int:
     t0 = time.time()
     multi_device_phase(qtt, card)
     log(f"multi-device phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    mesh_train_phase(qtt, card, clip_deploy)
+    log(f"training on a mesh phase {time.time() - t0:.1f} s")
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
         "ResNeXt-50's, "

@@ -63,11 +63,15 @@ def from_jax_variables(model: torch.nn.Module, variables: Mapping[str, Mapping])
             owner, leaf = _owner(mods, key)
             t = (value.detach().clone() if isinstance(value, torch.Tensor)
                  else torch.from_numpy(np.array(value))).to(device)
-            if col == "params" and getattr(owner, "tp_shard", None) is None:
-                cur = owner.get_var(col, leaf) if owner.has_var(col, leaf) else None
-                if cur is None or tuple(cur.shape) != tuple(t.shape):
+            if col == "params":
+                # a split layer's kernel and bias load at the slice's shape
+                want = None
+                if owner.has_var(col, leaf):
+                    want = (owner.param_shape(leaf) if hasattr(owner, "param_shape") else None
+                            ) or tuple(owner.get_var(col, leaf).shape)
+                if want is None or want != tuple(t.shape):
                     raise ValueError(f"params/{key}: shape {tuple(t.shape)} does not match "
-                                     f"the port's {None if cur is None else tuple(cur.shape)}")
+                                     f"the port's {want}")
             owner.put_var(col, leaf, t)
 
 

@@ -42,6 +42,12 @@ quant forwards under the hooks here). The packed dispatch mirrors ``layers.py:23
 Bias correction (``bias_correct``) keeps E[x] in ``qobs/bias_correct_EX``
 during calibration and adds the layer's response to the weight error
 W·static - W_hat to the bias in quant mode and at pack time.
+
+On a model-sharded mesh (:mod:`~quantize_tpu_torch.parallel.tensor_parallel`)
+a layer set to run on its slice of the out channels (``tp_shard``) runs
+``packed``, ``fp32`` and ``quant`` there, forward and backward, each
+gathering its output whole; ``calibrate``, ``pack`` and ``init_adaround``
+raise ValueError before any work.
 """
 from __future__ import annotations
 
@@ -122,6 +128,7 @@ class _QuantLayerBase(VarModule):
     def _setup(self, quant: LayerQuantCfg, kernel_shape: Tuple[int, ...], in_ch: int,
                with_bias: bool, device) -> None:
         self.quant = quant
+        self.kernel_shape = tuple(kernel_shape)
         # this rank's slice of the out channels under tensor parallelism
         # (parallel/tensor_parallel.py), set where sharded variables load
         self.tp_shard = None
@@ -136,6 +143,39 @@ class _QuantLayerBase(VarModule):
         n_w = math.prod(kernel_shape) // g if g else self.w_spec.n_channels(kernel_shape)
         self.w_quantizer = Quantizer(self.w_spec, n_w, device)
         self.a_quantizer = Quantizer(self.a_spec, in_ch if self.a_spec.per_channel else 1, device)
+
+    def set_tp_shard(self, shard) -> None:
+        """Run on ``shard``'s slice of the out channels, or whole (None);
+        the weight quantizer then sums the gradients of its whole leaves
+        over the shard's group (:mod:`~quantize_tpu_torch.parallel.tensor_parallel`)."""
+        self.tp_shard = shard
+        self.w_quantizer.tp_group = None if shard is None else shard.group
+
+    def param_shape(self, leaf: str) -> Optional[Tuple[int, ...]]:
+        """The shape a ``params`` leaf loads at: the float kernel's and the
+        bias's, their out channels cut to the slice on a split layer."""
+        if leaf not in ("kernel", "bias"):
+            return None
+        shape = self.kernel_shape if leaf == "kernel" else self.kernel_shape[-1:]
+        if self.tp_shard is not None:
+            shape = (*shape[:-1], self.tp_shard.hi - self.tp_shard.lo)
+        return shape
+
+    def put_var(self, collection: str, leaf: str, value: torch.Tensor) -> torch.Tensor:
+        if (collection == "params" and self.has_var(collection, leaf)
+                and self.get_var(collection, leaf).shape != value.shape
+                and tuple(value.shape) == self.param_shape(leaf)):
+            # a slice where the whole was (or back): a new parameter in place
+            attr = self._var_index[(collection, leaf)]
+            self._parameters[attr] = torch.nn.Parameter(value.detach().clone())
+            return self._parameters[attr]
+        return super().put_var(collection, leaf, value)
+
+    def _refuse_split(self, mode: str) -> None:
+        if self.tp_shard is not None:
+            raise ValueError(f"{type(self).__name__}: mode {mode!r} does not run on a slice of "
+                             f"the out channels (a model-sharded mesh); fp32, quant and packed "
+                             f"do. Load the variables whole to {mode}")
 
     def init_params(self, generator: torch.Generator) -> None:
         kernel = self.get_var("params", "kernel")
@@ -161,6 +201,9 @@ class _QuantLayerBase(VarModule):
         return corr if bias is None else bias + corr
 
     def _run(self, x: torch.Tensor, mode: str) -> torch.Tensor:
+        shard = self.tp_shard
+        if mode not in ("fp32", "quant"):
+            self._refuse_split(mode)
         kernel, bias = self.get_var("params", "kernel"), self._bias()
         if mode == "calibrate":
             self.a_quantizer(x, mode="calibrate")
@@ -175,11 +218,16 @@ class _QuantLayerBase(VarModule):
             xq, wq = self.a_quantizer(x, mode="fp32"), self.w_quantizer(kernel, mode="fp32")
         else:
             xq = self.a_quantizer(x, mode=mode)
+            if shard is not None:
+                # after the activation fake quant: its input gradient is
+                # then the sum over the slices on every rank
+                xq = shard.enter(xq)
             wq = self.w_quantizer(kernel, mode=mode)
         if mode == "quant":
             bias = self._corrected_bias(kernel, wq, bias)
         out = self._contract(xq, wq)
-        return out if bias is None else out + bias
+        out = out if bias is None else out + bias
+        return out if shard is None else shard.gather(out)
 
     def _pack(self, x: torch.Tensor) -> torch.Tensor:
         """mode='pack': bake the bias correction into the bias, quantize the
@@ -187,6 +235,7 @@ class _QuantLayerBase(VarModule):
         ``packed`` collection (AWQ also ``awq_recip`` = 1/awq_scale);
         returns the FP32 forward so the pack pass flows through the whole
         network."""
+        self._refuse_split("pack")
         w_spec, a_spec = self.w_spec, self.a_spec
         kernel, bias = self.get_var("params", "kernel"), self._bias()
         n_out = kernel.shape[-1]
@@ -249,7 +298,7 @@ class QuantDense(_QuantLayerBase):
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  quant: LayerQuantCfg = FP32, device=None):
         super().__init__()
-        self.features = features
+        self.in_features, self.features = in_features, features
         self._setup(quant, (in_features, features), in_features,
                     bool(use_bias or quant.bias_correct), device)
 

@@ -57,24 +57,39 @@ class Quantizer(VarModule):
         super().__init__()
         self.spec = spec
         self.n_channels = int(n_channels)
+        # the ``model`` group of a layer that runs on a slice of its out
+        # channels (parallel/tensor_parallel.py): the leaves this quantizer
+        # holds whole then get their gradient summed over it
+        self.tp_group = None
         if spec.enabled:
             self.put_var("qparams", "scale",
                          torch.ones((self.n_channels,), dtype=torch.float32, device=device))
             self.put_var("qparams", "zero",
                          torch.zeros((self.n_channels,), dtype=torch.float32, device=device))
 
-    def _static_scale(self) -> Optional[torch.Tensor]:
-        if self.has_var("qparams", "static_scale"):
-            return self.get_var("qparams", "static_scale")
-        return None
+    def _whole(self, t: torch.Tensor) -> torch.Tensor:
+        """``t``, a leaf used whole on a slice of the out channels: its
+        gradient summed over the ``model`` group."""
+        if self.tp_group is None:
+            return t
+        from ..parallel.tensor_parallel import identity_sum_grad
+
+        return identity_sum_grad(t, self.tp_group)
+
+    def _static_scale(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        if not self.has_var("qparams", "static_scale"):
+            return None
+        ss = self.get_var("qparams", "static_scale")
+        # one per out channel is cut to the slice; any other length is whole
+        return ss if ss.numel() == x.shape[self.spec.channel_axis] else self._whole(ss)
 
     def _awq_scale(self) -> Optional[torch.Tensor]:
         if self.has_var("qparams", "awq_scale"):
-            return self.get_var("qparams", "awq_scale")
+            return self._whole(self.get_var("qparams", "awq_scale"))
         return None
 
     def _apply_static(self, x: torch.Tensor) -> torch.Tensor:
-        ss = self._static_scale()
+        ss = self._static_scale(x)
         if ss is None:
             return x
         return x * broadcast_to_axis(ss, x.ndim, self.spec.channel_axis)
@@ -113,9 +128,14 @@ class Quantizer(VarModule):
 
         s = self.get_var("qparams", "scale")
         z = self.get_var("qparams", "zero")
-        ss = self._static_scale()
+        if not spec.per_channel:
+            s, z = self._whole(s), self._whole(z)
+        ss = self._static_scale(x)
         awq_scale = self._awq_scale()
         g = awq_group(spec)
+        if g and self.tp_group is not None:
+            raise ValueError("a grouped AWQ weight quantizer (q_group_size) does not run on a "
+                             "slice of the out channels")
         eff = s if ss is None else s * ss
         if mode == "init_adaround":
             if spec.adaround:

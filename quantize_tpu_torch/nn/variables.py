@@ -36,8 +36,13 @@ class VarModule(nn.Module):
         value = value.detach()
         if collection == "params":
             if attr in self._parameters:
+                cur = self._parameters[attr]
+                if cur.shape != value.shape:
+                    raise ValueError(f"params/{leaf}: a value of shape {tuple(value.shape)} "
+                                     f"cannot overwrite the parameter of shape "
+                                     f"{tuple(cur.shape)}")
                 with torch.no_grad():
-                    self._parameters[attr].copy_(value)
+                    cur.copy_(value)
             else:
                 self.register_parameter(attr, nn.Parameter(value.clone()))
         elif attr in self._buffers:

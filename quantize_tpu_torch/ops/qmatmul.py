@@ -547,3 +547,29 @@ def quant_matmul_w8a8(
                     w_zero.float().reshape(-1), None if bias is None else bias.float(),
                     w_zero_is_zero, w_km)
     return out.reshape(*lead, n)
+
+
+def quant_matmul_w8a8_xla(x: torch.Tensor, a_scale, a_zero, a_qmin: int, a_qmax: int,
+                          w_int: torch.Tensor, w_scale: torch.Tensor, w_zero: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          col_sum_w: Optional[torch.Tensor] = None,
+                          w_zero_is_zero: bool = False, pre_q=None) -> torch.Tensor:
+    """Kernel K1's math as plain PyTorch under JAX's name for its XLA twin
+    (``quantize_tpu/ops/pallas/qmatmul.py:517``): the activation quantize
+    (:func:`quantize_act_int8_plain`, or ``pre_q``), exact integer sums and
+    the zero-point/scale/bias epilogue (:func:`w8a8_gemm_plain`), on any
+    device. The packed path does not call it: it launches the kernel
+    (:func:`quant_matmul_w8a8`)."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    if pre_q is not None:
+        q_a, z_eff = pre_q
+        q_a = q_a.reshape(-1, k)
+    else:
+        q_a, z_eff = quantize_act_int8_plain(x.reshape(-1, k), a_scale, a_zero, a_qmin, a_qmax)
+    if col_sum_w is None:
+        col_sum_w = w_int.sum(dim=0, dtype=torch.int32)
+    a_scale = torch.as_tensor(a_scale, dtype=torch.float32, device=q_a.device)
+    out = w8a8_gemm_plain(q_a, torch.as_tensor(z_eff, dtype=torch.float32), a_scale, w_int,
+                          col_sum_w, w_scale.float(), w_zero.float(),
+                          None if bias is None else bias.float(), w_zero_is_zero)
+    return out.reshape(*lead, w_int.shape[1])

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from .qconv import conv_nhwc
 
@@ -52,6 +53,39 @@ def quant_matmul_int_ref(x, a_scale, a_zero, a_qmin, a_qmax, w_int, w_scale, w_z
                  + k * z_a * w_zero[None, :])
     out = a_scale * w_scale[None, :] * corrected
     return out if bias is None else out + bias
+
+
+def quant_matmul_wo_ref(x: torch.Tensor, w_int: torch.Tensor, w_scale: torch.Tensor,
+                        w_zero: torch.Tensor, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weight-only-quantized matmul (float activations): the weight
+    dequantized ``(w + z)·s`` in float32, then ``x @ w_deq``."""
+    w_deq = (w_int.float() + w_zero[None, :]) * w_scale[None, :]
+    out = x @ w_deq
+    return out if bias is None else out + bias
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, strides: Sequence[int] = (1, 1),
+           padding: Union[str, Sequence[Tuple[int, int]]] = "SAME"
+           ) -> Tuple[torch.Tensor, Tuple[int, int]]:
+    """NHWC -> (N, H', W', kh*kw*C) patches for conv-as-matmul, features in
+    the HWIO kernel's flattening order (kh, kw, C); ``"SAME"`` pads as JAX's
+    ``im2col`` does (the extra row or column at the end)."""
+    n, h, w, c = x.shape
+    if padding == "SAME":
+        pad_h = max((-(-h // strides[0]) - 1) * strides[0] + kh - h, 0)
+        pad_w = max((-(-w // strides[1]) - 1) * strides[1] + kw - w, 0)
+        pads = [(pad_h // 2, pad_h - pad_h // 2), (pad_w // 2, pad_w - pad_w // 2)]
+    elif padding == "VALID":
+        pads = [(0, 0), (0, 0)]
+    else:
+        pads = [tuple(p) for p in padding]
+    xp = F.pad(x, (0, 0, pads[1][0], pads[1][1], pads[0][0], pads[0][1]))
+    h_out = (xp.shape[1] - kh) // strides[0] + 1
+    w_out = (xp.shape[2] - kw) // strides[1] + 1
+    # (N, H', W', C, kh, kw) windows, then (kh, kw, C) order
+    win = xp.unfold(1, kh, strides[0]).unfold(2, kw, strides[1])
+    patches = win.permute(0, 1, 2, 4, 5, 3).reshape(n, h_out, w_out, kh * kw * c)
+    return patches, (h_out, w_out)
 
 
 def quant_conv2d_ref(x, a_scale, a_zero, a_qmin, a_qmax, w_int, w_scale, w_zero,

@@ -182,6 +182,29 @@ def shard_variables(mesh: Mesh, variables: Mapping[str, Any]) -> Dict[str, Any]:
                             mesh, spec)
 
 
+def _gather(tree: Any, spec: Any, group) -> Any:
+    from .tensor_parallel import all_gather
+
+    if isinstance(tree, Mapping):
+        return {k: _gather(v, spec[k], group) for k, v in tree.items()}
+    t = _as_tensor(tree).detach()
+    return all_gather(t, group, dim=spec.index("model")) if "model" in spec else t
+
+
+def gather_variables(mesh: Mesh, variables: Mapping[str, Any]) -> Dict[str, Any]:
+    """This rank's variables brought back whole (JAX's ``jax.device_get`` of
+    a sharded tree): each leaf that ``variables`` (a
+    :class:`ShardedVariables`: :func:`shard_variables`' output, or
+    :func:`~.tensor_parallel.rank_variables` of a model) holds as a slice is
+    gathered over ``model``, one collective a leaf; the rest is returned as
+    it is, in the same containers. Plain variables are returned as they
+    are."""
+    spec = getattr(variables, "spec", None)
+    if spec is None or mesh.shape["model"] == 1:
+        return dict(variables)
+    return _gather(dict(variables), spec, mesh.groups["model"])
+
+
 def shard_batch(mesh: Mesh, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """This rank's rows of a global batch dict, split over ``data`` (a
     contiguous split on dim 0), on its device (pinned, copied without

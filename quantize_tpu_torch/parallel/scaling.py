@@ -338,6 +338,8 @@ def _worker_main() -> None:
 
 
 _WORKER = "from quantize_tpu_torch.parallel.scaling import _worker_main; _worker_main()"
+# after a worker fails, how long the others may take to end on their own
+FAIL_GRACE_S = 5.0
 
 
 def spawn_ranks(n_processes: int, script: str, args: List[str] = (), timeout: float = 420.0,
@@ -347,9 +349,11 @@ def spawn_ranks(n_processes: int, script: str, args: List[str] = (), timeout: fl
     state a child cannot reuse), this repository on their path, and return
     each one's output (stdout and stderr). ``port`` (default: a free one)
     is for the ranks' ``tcp://127.0.0.1`` store (:func:`~.mesh.init_distributed`);
-    ``threads`` sets their ``OMP_NUM_THREADS``. A worker that fails or
-    outlives ``timeout`` seconds is killed with the others, and the
-    RuntimeError carries the last 3,000 characters of its output."""
+    ``threads`` sets their ``OMP_NUM_THREADS``. Once a worker fails, the
+    others have ``FAIL_GRACE_S`` to end; then every worker still running,
+    or one that outlives ``timeout`` seconds, is killed, and the
+    RuntimeError carries the last 3,000 characters of the output of the
+    lowest failing rank (or of the first one killed)."""
     from .mesh import free_port
 
     port = free_port() if port is None else port
@@ -370,7 +374,14 @@ def spawn_ranks(n_processes: int, script: str, args: List[str] = (), timeout: fl
         try:
             while time.monotonic() < deadline:
                 codes = [p.poll() for p in procs]
-                if any(c not in (None, 0) for c in codes) or all(c == 0 for c in codes):
+                if any(c not in (None, 0) for c in codes):
+                    # the others a few seconds to fail too, so that the error
+                    # names the lowest failing rank whatever the order
+                    deadline = min(deadline, time.monotonic() + FAIL_GRACE_S)
+                    while time.monotonic() < deadline and any(p.poll() is None for p in procs):
+                        time.sleep(0.05)
+                    break
+                if all(c == 0 for c in codes):
                     break
                 time.sleep(0.05)
         finally:

@@ -9,8 +9,10 @@ like torch ``clamp`` and the JAX ``ste_clamp``. AdaRound's rounding
 (``ste_floor_plus``) comes in through the ``round_fn`` argument of
 :func:`quantize_core` and :func:`fake_quant`.
 
-The JAX package's bf16 simulation switch (``set_quant_sim_dtype``) has no
-caller there and is not ported (ROADMAP.md).
+:func:`set_quant_sim_dtype` (JAX's switch) runs :func:`fake_quant`'s
+divide/round/clamp/dequant chain in bfloat16, each op rounded to bfloat16
+as eager JAX rounds it, for a float32 input without AdaRound rounding or
+an AWQ scale; the deploy quantize (:func:`quantize_int`) is not affected.
 """
 from __future__ import annotations
 
@@ -19,6 +21,26 @@ from typing import Callable, Optional
 import torch
 
 from .qspec import QuantSpec, broadcast_to_axis
+
+
+_SIM_DTYPE: Optional[torch.dtype] = None  # None: fake quant in the input's dtype
+
+
+def set_quant_sim_dtype(dtype) -> None:
+    """Select the fake-quant arithmetic dtype of simulation and QAT
+    forwards: ``"bfloat16"`` (or ``torch.bfloat16``) runs the chain in
+    bf16; None, ``"float32"`` or ``"f32"`` (or ``torch.float32``) restores
+    the exact float32 chain (the default)."""
+    global _SIM_DTYPE
+    if dtype in (None, "float32", "f32", torch.float32):
+        _SIM_DTYPE = None
+    else:
+        _SIM_DTYPE = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))
+
+
+def quant_sim_dtype() -> Optional[torch.dtype]:
+    """The dtype :func:`set_quant_sim_dtype` selected, or None."""
+    return _SIM_DTYPE
 
 
 class _RoundSTE(torch.autograd.Function):
@@ -106,7 +128,15 @@ def fake_quant(
 ) -> torch.Tensor:
     """Simulated quantization: quantize then dequantize. With ``awq_scale``
     the input is pre-scaled along ``awq_axis`` (the in-channel axis) before
-    quantization and divided back afterwards."""
+    quantization and divided back afterwards. Under
+    :func:`set_quant_sim_dtype` a float32 ``x`` with neither ``round_fn`` nor
+    ``awq_scale`` is cast in, run through the chain narrow and cast back
+    (the casts of scale and zero keep their gradients)."""
+    sd = _SIM_DTYPE
+    if sd is not None and x.dtype == torch.float32 and round_fn is None and awq_scale is None:
+        out = fake_quant(x.to(sd), scale.to(sd), zero.to(sd), qmin, qmax, channel_axis,
+                         None if static_scale is None else static_scale.to(sd))
+        return out.to(x.dtype)
     if awq_scale is not None:
         aws = broadcast_to_axis(awq_scale, x.ndim, awq_axis)
         x = x * aws

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..nn.variables import trainable
 from ..optim import Chain, Optimizer, Partition, Scale, build_optimizer
@@ -24,18 +25,43 @@ from .ptq import PTQ
 TRAINABLE = ("params", "qparams")
 
 
-def loss_and_grads(model: torch.nn.Module, img: torch.Tensor, label: torch.Tensor
+def loss_and_grads(model: torch.nn.Module, img: torch.Tensor, label: torch.Tensor, mesh=None
                    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Optional[torch.Tensor]]]:
     """The masked cross-entropy of ``model``'s quant-mode forward, its
     logits, and its gradient for every trainable leaf (``params`` and
-    ``qparams``; None where none reaches a leaf)."""
+    ``qparams``; None where none reaches a leaf).
+
+    On a ``mesh`` (:func:`~quantize_tpu_torch.parallel.make_mesh`) with
+    ``data`` of 2 or more, ``img`` and ``label`` are this rank's rows: the
+    count of valid labels is summed over ``data`` first (one all-reduce), so
+    that each rank's ``sum(loss * valid) / max(count, 1)`` is its share of
+    the global masked mean (JAX's ``_loss``, ``quantize_tpu/runners/
+    qat.py:63-71``); then the gradients and the shares are summed over
+    ``data`` (one all-reduce), and every rank returns the global loss and
+    gradients. The layers of a model-sharded mesh run their own collectives
+    (:mod:`~quantize_tpu_torch.parallel.tensor_parallel`)."""
     leaves = trainable(model, TRAINABLE)
     for t in leaves.values():
         t.requires_grad_(True)
     logits = model(img, mode="quant")
-    loss = masked_cross_entropy(logits, label)
+    if mesh is None or mesh.shape["data"] == 1:
+        loss = masked_cross_entropy(logits, label)
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return loss.detach(), logits.detach(), dict(zip(leaves, grads))
+    from ..parallel.tensor_parallel import all_reduce
+
+    group = mesh.groups["data"]
+    valid = label >= 0
+    loss_vec = F.cross_entropy(logits.float(), label.clamp(min=0).long(), reduction="none")
+    count = all_reduce(valid.sum().float(), group)
+    loss = (loss_vec * valid).sum() / count.clamp(min=1)
     grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    return loss.detach(), logits.detach(), dict(zip(leaves, grads))
+    have = [g for g in grads if g is not None]
+    summed = all_reduce(torch.cat([g.reshape(-1) for g in have] + [loss.detach().reshape(1)]),
+                        group)
+    parts = iter(summed.split([g.numel() for g in have] + [1]))
+    grads = [None if g is None else next(parts).view_as(g) for g in grads]
+    return next(parts).reshape(()), logits.detach(), dict(zip(leaves, grads))
 
 
 class QAT(PTQ):
