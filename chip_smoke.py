@@ -384,7 +384,33 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    ``set_quant_sim_dtype("bfloat16")``: a finite loss within 5% of f32's,
    its ms beside f32's. Both ranks share the card: no time here is a
    multi-card figure.
-13. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+13. Calibrate and pack on a mesh, the engine on a tensor-parallel mesh
+   (``calibrate_model``/``pack_model`` on a model loaded with
+   ``shard_variables``, ``InferenceEngine`` on ``(1, 2)``): ResNet-50 W8A8 at
+   224, 1,000 classes, MinMax, initialised from seed 0 on one device in
+   this process; four seeded global batches of 64; two ranks spawned on the
+   card over gloo (``MESH_CALIB_WORKER``). 13a. ``(2, 1)``: four calibration
+   steps, 32 rows a rank; both ranks' qparams and observer state bit-equal,
+   and within rtol 1e-5 (counts exact) of an in-process one-device
+   calibration of the same global batches (cuDNN sums 32 rows and 64 in
+   other orders: no bit-equality across processes); one all-gather a
+   quantizer a step (54). 13b. ``(1, 2)``: the same on slices, the first 32
+   rows of each batch on both ranks, against one device on those rows; one
+   all-gather a split layer a step (54). 13c. ``pack_model`` on ``(1, 2)``:
+   the deploy variables gathered whole bit-equal to the one-device pack of
+   13b's gathered calibrated variables (rank 0, the same card); the packed
+   forward from the ranks' own pack (fused residual tail, f32 carry) bit-equal
+   to that one device's, with its launches by kernel and route (K3 37, K2 16,
+   K1 1, KQ 54; K2 and K1 on ``wgmma``), every kernel call of one forward held
+   against its plain version. 13d. The engine on ``(1, 2)``, batch 32, f32
+   carry: the leader serves 128 requests, its follower runs the same
+   batches; the results bit-equal to the direct ``(1, 2)`` forward and to one
+   device, no failed request, both ranks end. Printed: the calibrate step's
+   CUDA-event ms at ``(1, 1)`` (32 and 64 rows), ``(2, 1)`` and ``(1, 2)``,
+   its collectives, bytes and ms; pack s; the engine's img/s, broadcast bytes
+   and ms a batch, all-gathers a batch. Both ranks share the card: no time
+   here is a multi-card figure.
+14. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
    beside its bound, its plain version and the nearest library call (K2
@@ -721,6 +747,15 @@ MESH_TP_STEPS = 2
 MESH_SERVE_BATCH = 32
 MESH_TIMEOUT = 420.0
 MESH_PERTURBATIONS = 3
+# phase 13: calibrate and pack on a mesh, the engine on a tensor-parallel
+# mesh (ResNet-50 W8A8 at 224, MinMax, seeded weights): rows a rank, global
+# calibration batches (of 2 x MESH_CALIB_ROWS; (1, 2) calibrates the first
+# MESH_CALIB_ROWS of each), the requests 13d serves in batches of
+# MESH_CALIB_ROWS
+MESH_CALIB_ROWS = 32
+MESH_CALIB_STEPS = 4
+MESH_ENGINE_REQUESTS = 128
+MESH_CALIB_TIMEOUT = 420.0
 VIT_SERVE_BATCH = 128
 # phase 10, export: ResNeXt-50's and ViT-B/32's batch (earlier paths, cut
 # from 256), and the KQ launches of each dispatch-cost loop
@@ -4460,6 +4495,342 @@ def mesh_train_phase(qtt, card, clip_deploy) -> None:
     torch.cuda.empty_cache()
 
 
+# phase 13's two ranks (module docstring): 13a-13d, one process a rank on
+# the one card over gloo; rank 0 writes the calibrated variables it gathered
+# whole under ``job["dir"]``
+MESH_CALIB_WORKER = r"""
+import hashlib, json, sys, time
+import numpy as np
+import torch
+import chip_smoke as cs
+import quantize_tpu_torch as qtt
+from quantize_tpu_torch import convert
+from quantize_tpu_torch.ops import reset_launch_counts
+from quantize_tpu_torch.parallel import (CollectiveCounter, InferenceEngine, gather_variables,
+                                         init_distributed, make_mesh, rank_variables,
+                                         shard_variables)
+from quantize_tpu_torch.parallel.scaling import _launch_census
+
+rank, world, port = (int(a) for a in sys.argv[1:4])
+job = json.loads(sys.argv[4])
+torch.cuda.set_device(rank % torch.cuda.device_count())
+init_distributed(rank, world, port)
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", torch.cuda.current_device())
+devices = [f"cuda:{r % torch.cuda.device_count()}" for r in range(world)]
+d = job["dir"]
+v = torch.load(f"{d}/variables.pt")
+batches = torch.load(f"{d}/batches.pt")
+n = job["rows"]
+report = {}
+
+
+def host(tree):
+    return ({k: host(t) for k, t in tree.items()} if isinstance(tree, dict)
+            else tree.detach().cpu())
+
+
+def flat(tree, cols=None):
+    return {f"{c}/{k}": t for c, f in tree.items() for k, t in f.items()
+            if cols is None or c in cols}
+
+
+def digest(tensors):
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def same_on_ranks(value):
+    out = [None] * world
+    torch.distributed.all_gather_object(out, value)
+    return all(o == out[0] for o in out)
+
+
+def resnet():
+    return qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(cs.CFG), device=dev)
+
+
+def calibrate(dp, tp, tag):
+    # each rank's rows of every global batch: its half at (2, 1), the
+    # first n rows on both ranks at (1, 2)
+    mesh = make_mesh(dp, tp, devices=devices)
+    model = resnet()
+    convert.from_jax_variables(model, shard_variables(mesh, v))
+    lo = mesh.coords[0] * n
+    steps = []
+    for b in batches:
+        x = b[lo:lo + n].to(dev)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        with CollectiveCounter() as c:
+            qtt.calibrate_model(model, [x], device=dev)
+        end.record()
+        end.synchronize()
+        steps.append({"ms": start.elapsed_time(end), "wall_s": time.perf_counter() - t0,
+                      "counts": c.counts, "bytes": c.nbytes, "staged": c.staged_bytes,
+                      "collective_ms": c.ms})
+    whole = gather_variables(mesh, rank_variables(model))
+    observed = flat(whole, ("qparams", "qobs"))
+    if rank == 0:
+        torch.save(host(observed), f"{d}/{tag}.pt")
+    out = {"steps": steps, "same": same_on_ranks(digest(observed)), "rows": [lo, lo + n],
+           "split": sum(getattr(m, "tp_shard", None) is not None for m in model.modules())}
+    return mesh, model, whole, out
+
+
+# 13a: data parallel
+_, m, _, report["13a"] = calibrate(2, 1, "13a")
+del m
+torch.cuda.empty_cache()
+# 13b: tensor parallel, on slices
+mesh, model, whole, report["13b"] = calibrate(1, 2, "13b")
+
+# 13c: pack on the slices, against one device's pack of the gathered variables
+sample = batches[0][:n].to(dev)
+xs = batches[-1][n:2 * n].to(dev)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+with CollectiveCounter() as c:
+    deploy = qtt.pack_model(model, sample, device=dev)
+torch.cuda.synchronize()
+rep = {"pack_s": time.perf_counter() - t0, "pack_counts": c.counts}
+gathered = flat(gather_variables(mesh, deploy))
+names = tuple(cs.RESNET_PER_FWD)
+max_err = {}
+with torch.inference_mode(), qtt.fused_residual(True):
+    model(xs, mode="packed")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with CollectiveCounter() as c:
+        got = model(xs, mode="packed")
+        torch.cuda.synchronize()
+    rep["launches_ndev"] = _launch_census()
+    rep["fwd_counts"] = c.counts
+    with cs.Recorder() as rec:
+        model(xs, mode="packed")
+    rep["checked"] = cs.check_kernels([rec.calls], names, max_err)
+rep["max_err"] = max_err
+rep["finite"] = bool(torch.isfinite(got).all())
+rep["shape"] = list(got.shape)
+one = None
+if rank == 0:
+    one = resnet()
+    convert.from_jax_variables(one, whole)
+    want = flat(qtt.pack_model(one, sample, device=dev))
+    rep["deploy_leaves"] = len(want)
+    rep["deploy_equal"] = want.keys() == gathered.keys() and all(
+        want[k].dtype == gathered[k].dtype and torch.equal(want[k], gathered[k]) for k in want)
+    with torch.inference_mode(), qtt.fused_residual(True):
+        one(xs, mode="packed")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ref = one(xs, mode="packed")
+        torch.cuda.synchronize()
+        rep["launches_1dev"] = _launch_census()
+    rep["logits_equal"] = bool(torch.equal(got, ref))
+    rep["n_differ"] = int((got != ref).sum())
+report["13c"] = rep
+del deploy, gathered, got, whole
+
+# 13d: the engine on (1, 2); the direct (1, 2) forward and one device first
+reqs = torch.cat([b[:n] for b in batches])[:job["requests"]]
+rep = {}
+with torch.inference_mode(), qtt.fused_residual(True):
+    direct = torch.cat([model(reqs[i:i + n].to(dev), mode="packed").cpu()
+                        for i in range(0, len(reqs), n)])
+    if one is not None:
+        ref = torch.cat([one(reqs[i:i + n].to(dev), mode="packed").cpu()
+                         for i in range(0, len(reqs), n)])
+        rep["direct_equal_one"] = bool(torch.equal(direct, ref))
+    torch.cuda.synchronize()
+del one
+eng = InferenceEngine(model, batch_size=n, mesh=mesh, max_wait_ms=50.0, device=dev)
+rep["leader"] = eng.is_leader
+with qtt.fused_residual(True):
+    if eng.is_leader:
+        with CollectiveCounter() as c:
+            eng.start()
+            t0 = time.perf_counter()
+            futs = eng.submit_batch(reqs.numpy())
+            served = np.concatenate([f.result(timeout=300) for f in futs])
+            rep["serve_s"] = time.perf_counter() - t0
+            eng.stop()
+        rep["counts"] = c.counts
+        rep["equal_direct"] = bool(np.array_equal(served, direct.numpy()))
+        rep["finite"] = bool(np.isfinite(served).all())
+    else:
+        try:
+            eng.submit(reqs[0].numpy())
+        except RuntimeError as exc:
+            rep["submit_refused"] = str(exc)[:120]
+        eng.start()
+        eng.stop()  # returns once the leader stops; raises if this rank failed
+    rep["stats"] = eng.stats()
+report["13d"] = rep
+report["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+torch.distributed.destroy_process_group()
+print("MESHCALIB " + json.dumps(report), flush=True)
+"""
+
+
+def observed_gap(got: dict, want: dict, label: str) -> float:
+    """The largest relative gap of ``got``'s qparams and observer state from
+    ``want``'s (the same leaves), checked within rtol 1e-5 (atol 1e-7), the
+    counts exact."""
+    import torch
+
+    check(set(got) == set(want), f"{label}: the calibrated leaves differ: "
+          f"{sorted(set(got) ^ set(want))[:4]}")
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key].to(w.device)
+        if key.endswith("count"):
+            check(torch.equal(g, w), f"{label}: {key} {g} against {w}")
+            continue
+        close = torch.isclose(g, w, rtol=1e-5, atol=1e-7)
+        check(bool(close.all()), f"{label}: {key} beyond rtol 1e-5: {g[~close][:3]} against "
+              f"{w[~close][:3]}")
+        worst = max(worst, float(((g - w).abs() / w.abs().clamp(min=1e-12)).max()))
+    return worst
+
+
+def mesh_calibrate_phase(qtt, card) -> None:
+    """Phase 13 (module docstring): calibrate on ``(2, 1)`` and ``(1, 2)``
+    against one device, pack on ``(1, 2)``, and the engine on ``(1, 2)``."""
+    import tempfile
+
+    import torch
+    from quantize_tpu_torch import convert
+    from quantize_tpu_torch.nn.variables import collections
+    from quantize_tpu_torch.parallel.scaling import spawn_ranks
+
+    dev = torch.device("cuda", 0)
+    n = MESH_CALIB_ROWS
+    gen = torch.Generator(device=dev).manual_seed(13)
+    batches = [torch.randn((2 * n, 224, 224, 3), generator=gen, device=dev)
+               for _ in range(MESH_CALIB_STEPS)]
+    t0 = time.time()
+    model = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
+    qtt.init_model(model, batches[0][:8], seed=0)
+    variables = {c: {k: t.detach().cpu() for k, t in f.items()}
+                 for c, f in collections(model).items()}
+    del model
+
+    def one_device(rows):
+        # the in-process reference: the same steps on one device, each timed
+        ref = qtt.MODELS.build("resnet50", num_classes=1000, ctx=qtt.QuantCtx(CFG))
+        convert.from_jax_variables(ref, variables)
+        ms = []
+        for b in batches:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            qtt.calibrate_model(ref, [b[rows]])
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        out = {f"{c}/{k}": t.detach().clone() for c, f in collections(ref).items()
+               if c in ("qparams", "qobs") for k, t in f.items()}
+        return out, ms
+
+    ref_a, ms_a = one_device(slice(None))
+    ref_b, ms_b = one_device(slice(0, n))
+    log(f"phase 13: resnet50 W8A8 at 224 initialised from seed 0; one-device calibration of "
+        f"{MESH_CALIB_STEPS} global batches ({time.time() - t0:.1f} s)")
+    log(f"time: phase 13 (1, 1), a calibrate step on one device: {2 * n} rows "
+        f"{', '.join(f'{m:.1f}' for m in ms_a)} ms; {n} rows "
+        f"{', '.join(f'{m:.1f}' for m in ms_b)} ms (CUDA events) [{card}]")
+    with tempfile.TemporaryDirectory() as d:
+        torch.save(variables, f"{d}/variables.pt")
+        torch.save([b.cpu() for b in batches], f"{d}/batches.pt")
+        del batches
+        torch.cuda.empty_cache()
+        job = {"dir": d, "rows": n, "requests": MESH_ENGINE_REQUESTS}
+        t0 = time.time()
+        outs = spawn_ranks(2, MESH_CALIB_WORKER, [json.dumps(job)], timeout=MESH_CALIB_TIMEOUT)
+        wall = time.time() - t0
+        reports = [json.loads(next(ln for ln in out.splitlines()
+                                   if ln.startswith("MESHCALIB "))[10:]) for out in outs]
+        got = {tag: torch.load(f"{d}/{tag}.pt") for tag in ("13a", "13b")}
+    log(f"phase 13a-13d: two ranks on the one card over gloo, {wall:.1f} s with start-up; "
+        f"peak allocated a rank {[round(r['peak_gib'], 2) for r in reports]} GiB [{card}]")
+
+    # 13a and 13b: the ranks agree bit for bit, and with one device within rtol
+    for tag, mesh, ref, split in (("13a", "(2, 1)", ref_a, 0), ("13b", "(1, 2)", ref_b, 54)):
+        rec = [r[tag] for r in reports]
+        check(all(r["same"] for r in rec),
+              f"{tag}: the ranks' qparams and observer state differ")
+        check(rec[0]["split"] == split, f"{tag}: {rec[0]['split']} layers on a slice, not "
+              f"{split}")
+        if tag == "13a":
+            check(rec[0]["rows"] != rec[1]["rows"], "13a: the ranks read the same rows")
+        worst = observed_gap(got[tag], ref, f"{tag} {mesh}")
+        for r in rec:
+            for i, st in enumerate(r["steps"]):
+                check(st["counts"] == {"all-gather": 54},
+                      f"{tag}: step {i + 1} ran collectives {st['counts']}, not 54 all-gathers")
+        for i, st in enumerate(rec[0]["steps"]):
+            log(f"time: phase {tag} {mesh}, calibrate step {i + 1}: {st['ms']:.1f} ms by CUDA "
+                f"events ({st['wall_s']:.3f} s wall), {n} rows a rank; collectives "
+                f"{st['counts']}, {st['bytes']} bytes gathered, {st['staged']} bytes staged "
+                f"through pinned host memory, {st['collective_ms']:.1f} ms in them [{card}]")
+        log(f"phase {tag} {mesh}: {len(ref)} qparams and observer leaves bit-equal on both "
+            f"ranks; the largest relative gap from one device {worst:.3e} (rtol 1e-5)")
+
+    # 13c: the pack on slices
+    rep = reports[0]["13c"]
+    for rank, r in enumerate(reports):
+        c = r["13c"]
+        lbl = f"13c rank {rank}"
+        check(c["finite"] and c["shape"] == [n, 1000], f"{lbl}: logits {c['shape']} not finite")
+        ndev = c["launches_ndev"]
+        for name, k in RESNET_PER_FWD.items():
+            check(ndev[name] == k, f"{lbl}: {name} launched {ndev[name]} times, not {k}")
+        for name in ("conv1x1_residual", "w8a8_gemm"):
+            check(ndev[f"{name}.wgmma"] == ndev[name],
+                  f"{lbl}: not every {name} launch took the wgmma route: {ndev}")
+        check(c["checked"] > 0, f"{lbl}: no kernel call held against its plain version")
+    check(rep["deploy_equal"], "13c: the gathered (1, 2) pack differs from one device's")
+    check(rep["logits_equal"], f"13c: {rep['n_differ']} logits differ from one device's")
+    check(rep["launches_ndev"] == rep["launches_1dev"],
+          f"13c: launches {rep['launches_ndev']} differ from one device's "
+          f"{rep['launches_1dev']}")
+    log(f"time: phase 13c (1, 2), pack_model {rep['pack_s']:.3f} s (collectives "
+        f"{rep['pack_counts']}); {rep['deploy_leaves']} deploy leaves gathered bit-equal to one "
+        f"device's pack; packed logits bit-equal to one device's, launches a forward "
+        f"{dict((k, v) for k, v in rep['launches_ndev'].items() if v)}, collectives "
+        f"{rep['fwd_counts']}; {rep['checked']} kernel calls held against their plain "
+        f"versions, max abs err {rep['max_err']} [{card}]")
+
+    # 13d: the engine on (1, 2)
+    lead, follow = reports[0]["13d"], reports[1]["13d"]
+    check(lead["leader"] and not follow["leader"], "13d: rank 0 must lead, rank 1 follow")
+    check("submit_refused" in follow, "13d: a follower took a request")
+    st = lead["stats"]
+    check(lead["equal_direct"] and lead["finite"],
+          "13d: the engine's results differ from the direct (1, 2) forward")
+    check(lead["direct_equal_one"], "13d: the direct (1, 2) forward differs from one device's")
+    check(st["processed"] == MESH_ENGINE_REQUESTS and st["failed"] == 0,
+          f"13d: {st['processed']} served, {st['failed']} failed")
+    check(follow["stats"]["batches"] == st["batches"],
+          f"13d: the follower ran {follow['stats']['batches']} batches, the leader "
+          f"{st['batches']}")
+    gathers = lead["counts"].get("all-gather", 0) / st["batches"]
+    check(gathers == 54, f"13d: {gathers} all-gathers a batch, not 54")
+    log(f"time: phase 13d (1, 2), the engine: {MESH_ENGINE_REQUESTS} requests in "
+        f"{st['batches']} batches of {n}, {MESH_ENGINE_REQUESTS / lead['serve_s']:.2f} img/s "
+        f"({lead['serve_s']:.2f} s), broadcast {st['broadcast_bytes']:.0f} bytes and "
+        f"{st['broadcast_ms']:.2f} ms a batch, {gathers:.0f} all-gathers a batch, collectives "
+        f"{lead['counts']}; results bit-equal to the direct (1, 2) forward and to one device; "
+        f"the follower ran the same {follow['stats']['batches']} batches and ended [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -4592,6 +4963,9 @@ def main() -> int:
     t0 = time.time()
     mesh_train_phase(qtt, card, clip_deploy)
     log(f"training on a mesh phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    mesh_calibrate_phase(qtt, card)
+    log(f"calibrate and pack on a mesh phase {time.time() - t0:.1f} s")
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
         "ResNeXt-50's, "

@@ -60,10 +60,17 @@ def init_model(model: torch.nn.Module, sample_x, seed: int = 0,
 def calibrate_model(model: torch.nn.Module, batches: Iterable,
                     device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     """Run observer calibration over ``batches`` (arrays, tensors or dicts
-    with an ``'img'`` key)."""
+    with an ``'img'`` key). On a model loaded onto a mesh each rank passes
+    its own rows of every global batch (``parallel.shard_batch``); the
+    observers reduce over the ranks, so every rank ends with the qparams of
+    the global batches. Returns this rank's variables (on a model-sharded
+    mesh as :class:`~quantize_tpu_torch.parallel.ShardedVariables`, for
+    ``parallel.gather_variables``)."""
+    from .parallel.tensor_parallel import rank_variables
+
     device = torch.device(device)
     model.to(device)
     with torch.no_grad():
         for batch in batches:
             model(_to_device(batch, device), mode="calibrate")
-    return collections(model)
+    return rank_variables(model)

@@ -8,6 +8,12 @@ variables under their flax names, like the JAX package's deploy pytree:
 ``packed``, ``params`` without the float kernel and bias of packed layers,
 and the other collections except observer state. :func:`unpack_model`
 inverts it.
+
+On a model loaded onto a mesh (:mod:`~quantize_tpu_torch.parallel`) each
+rank packs with its own rows; the layers on a slice of their out channels
+write their slices, and :func:`pack_model` returns this rank's deploy
+variables, whose ``parallel.gather_variables`` equals the one-device pack
+of the gathered calibrated variables.
 """
 from __future__ import annotations
 
@@ -17,7 +23,6 @@ import numpy as np
 import torch
 
 from . import convert
-from .nn.variables import collections
 
 _W_KEYS = ("w_int", "w_p4", "w_p4c")
 
@@ -31,12 +36,17 @@ def _to_device(x, device) -> torch.Tensor:
 
 def pack_model(model: torch.nn.Module, sample_x, device="cuda") -> Dict[str, Dict[str, torch.Tensor]]:
     """Run the pack pass on ``device`` and return the deploy variables
-    ``{collection: {"path/leaf": tensor}}``."""
+    ``{collection: {"path/leaf": tensor}}``: on a model-sharded mesh this
+    rank's, as :class:`~quantize_tpu_torch.parallel.ShardedVariables` (the
+    leaves of its split layers are slices)."""
+    from .parallel.mesh import ShardedVariables
+    from .parallel.tensor_parallel import rank_variables
+
     device = torch.device(device)
     model.to(device)
     with torch.no_grad():
         model(_to_device(sample_x, device), mode="pack")
-    cols = collections(model)
+    cols = rank_variables(model)
     packed = cols.get("packed", {})
     # a packed layer's float kernel and bias go, as in JAX's deploy pytree;
     # a model that is one layer (its variables at the root) keeps them
@@ -49,7 +59,11 @@ def pack_model(model: torch.nn.Module, sample_x, device="cuda") -> Dict[str, Dic
     for col, val in cols.items():
         if col not in ("params", "packed", "qobs"):
             deploy[col] = val
-    return deploy
+    spec = getattr(cols, "spec", None)
+    if spec is None:
+        return deploy
+    return ShardedVariables(deploy, cols.mesh,
+                            {col: {k: spec[col][k] for k in flat} for col, flat in deploy.items()})
 
 
 def unpack_model(deploy: Dict[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -45,9 +45,13 @@ W·static - W_hat to the bias in quant mode and at pack time.
 
 On a model-sharded mesh (:mod:`~quantize_tpu_torch.parallel.tensor_parallel`)
 a layer set to run on its slice of the out channels (``tp_shard``) runs
-``packed``, ``fp32`` and ``quant`` there, forward and backward, each
-gathering its output whole; ``calibrate``, ``pack`` and ``init_adaround``
-raise ValueError before any work.
+``packed``, ``fp32``, ``quant``, ``calibrate`` and ``pack`` there (forward
+and backward in the training modes), each gathering its output whole:
+``calibrate`` observes the whole input and the weight's slice, ``pack``
+writes the slice's deploy buffers. ``init_adaround`` raises ValueError
+before any work. On a mesh with more than one ``data`` rank, calibration
+reduces every observer over ``data`` (``data_group``; the bias corrector's
+batch mean too).
 """
 from __future__ import annotations
 
@@ -132,6 +136,9 @@ class _QuantLayerBase(VarModule):
         # this rank's slice of the out channels under tensor parallelism
         # (parallel/tensor_parallel.py), set where sharded variables load
         self.tp_shard = None
+        # the mesh's ``data`` group (two ranks or more), set where variables
+        # load onto a mesh: the bias corrector's batch mean is reduced over it
+        self.data_group = None
         self.w_spec = QuantSpec.from_config(dict(quant.weight), "weight", channel_axis=-1)
         self.a_spec = QuantSpec.from_config(dict(quant.activation), "activation", channel_axis=-1)
         self.corrector = BiasCorrect(**quant.bias_correct_kwargs()) if quant.bias_correct else None
@@ -174,8 +181,8 @@ class _QuantLayerBase(VarModule):
     def _refuse_split(self, mode: str) -> None:
         if self.tp_shard is not None:
             raise ValueError(f"{type(self).__name__}: mode {mode!r} does not run on a slice of "
-                             f"the out channels (a model-sharded mesh); fp32, quant and packed "
-                             f"do. Load the variables whole to {mode}")
+                             f"the out channels (a model-sharded mesh); fp32, quant, calibrate, "
+                             f"pack and packed do. Load the variables whole to {mode}")
 
     def init_params(self, generator: torch.Generator) -> None:
         kernel = self.get_var("params", "kernel")
@@ -188,24 +195,38 @@ class _QuantLayerBase(VarModule):
         return self.get_var("params", "bias") if self.has_var("params", "bias") else None
 
     def _corrected_bias(self, kernel: torch.Tensor, wq: torch.Tensor,
-                        bias: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+                        bias: Optional[torch.Tensor], whole: bool = False
+                        ) -> Optional[torch.Tensor]:
         """``bias`` plus the bias correction (the layer's response on E[x] to
         the weight error W·static - W_hat, reduced to one value per out
-        channel) once the corrector has calibrated; else ``bias``."""
+        channel) once the corrector has calibrated; else ``bias``. With
+        ``whole`` a layer on a slice gathers the weight error and cuts its
+        slice of the whole response: the pack then holds one device's bits
+        (a float conv or matmul over fewer channels may sum in another
+        order)."""
         if self.corrector is None or not self.has_var("qobs", "bias_correct_EX/EX"):
             return bias
         ori = self.w_quantizer(kernel, mode="fp32")
         ex = {"EX": self.get_var("qobs", "bias_correct_EX/EX")}
+        delta, shard = ori - wq, self.tp_shard if whole else None
+        if shard is not None:
+            from ..parallel.tensor_parallel import all_gather
+
+            delta = all_gather(delta, shard.group, dim=-1)
         corr = self._bias_reduce(self.corrector.correction(
-            ex, ori - wq, lambda dw, e: self._contract(e, dw)))
+            ex, delta, lambda dw, e: self._contract(e, dw)))
+        if shard is not None:
+            corr = shard.cut(corr)
         return corr if bias is None else bias + corr
 
     def _run(self, x: torch.Tensor, mode: str) -> torch.Tensor:
         shard = self.tp_shard
-        if mode not in ("fp32", "quant"):
+        if mode == "init_adaround":
             self._refuse_split(mode)
         kernel, bias = self.get_var("params", "kernel"), self._bias()
         if mode == "calibrate":
+            # on a slice: the activation observer sees the whole input, the
+            # weight observer the slice; the output is gathered below
             self.a_quantizer(x, mode="calibrate")
             self.w_quantizer(kernel, mode="calibrate", pre_act=x,
                              apply_fn=lambda w, a: self._contract(a, w))
@@ -213,8 +234,9 @@ class _QuantLayerBase(VarModule):
                 ex = (self.get_var("qobs", "bias_correct_EX/EX")
                       if self.has_var("qobs", "bias_correct_EX/EX")
                       else self.corrector.init_state(tuple(x.shape[1:]), device=x.device)["EX"])
+                rows = ((self.data_group, 0),) if self.data_group is not None else ()
                 self.put_var("qobs", "bias_correct_EX/EX",
-                             self.corrector.calibrate({"EX": ex}, x)["EX"])
+                             self.corrector.calibrate({"EX": ex}, x, rows)["EX"])
             xq, wq = self.a_quantizer(x, mode="fp32"), self.w_quantizer(kernel, mode="fp32")
         else:
             xq = self.a_quantizer(x, mode=mode)
@@ -234,14 +256,16 @@ class _QuantLayerBase(VarModule):
         weight to its integer grid and store the deploy buffers in the
         ``packed`` collection (AWQ also ``awq_recip`` = 1/awq_scale);
         returns the FP32 forward so the pack pass flows through the whole
-        network."""
-        self._refuse_split("pack")
+        network. On a slice of the out channels it writes the slice's
+        buffers (a per-tensor weight scale expanded to the slice's length)
+        and gathers its output."""
         w_spec, a_spec = self.w_spec, self.a_spec
         kernel, bias = self.get_var("params", "kernel"), self._bias()
         n_out = kernel.shape[-1]
         ori = self.w_quantizer(kernel, mode="fp32")
         if self.corrector is not None:
-            bias = self._corrected_bias(kernel, self.w_quantizer(kernel, mode="quant"), bias)
+            bias = self._corrected_bias(kernel, self.w_quantizer(kernel, mode="quant"), bias,
+                                        whole=True)
         self.put_var("packed", "bias", torch.zeros((n_out,), dtype=torch.float32, device=x.device)
                      if bias is None else bias.detach().float().clone())
         if w_spec.enabled:
@@ -269,7 +293,8 @@ class _QuantLayerBase(VarModule):
             self.put_var("packed", "a_scale", a_scale.float())
             self.put_var("packed", "a_zero", a_zero.float())
         out = self._contract(x, ori)
-        return out if bias is None else out + bias
+        out = out if bias is None else out + bias
+        return out if self.tp_shard is None else self.tp_shard.gather(out)
 
     def _awq_packed(self):
         """``(awq_recip, group_size)`` of an AWQ layer's deploy buffers, else

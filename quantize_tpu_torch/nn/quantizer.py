@@ -21,6 +21,19 @@ branches.
 
 ``qparams`` and ``adaround`` are buffers: a runner that trains them
 updates them in place (:func:`~quantize_tpu_torch.nn.variables.trainable`).
+
+On a mesh of ranks a quantizer knows the ``data`` group (``data_group``,
+where the mesh has more than one ``data`` rank) and, as the weight
+quantizer of a layer on a slice of its out channels, the ``model`` group
+(``tp_group``). ``'calibrate'`` then reduces its observer's statistics over
+what its tensor is split on (:mod:`~quantize_tpu_torch.quant.observers`):
+an activation over ``data`` (each rank reads its rows); a weight over
+``model`` where its range spans the out channels (per tensor), never over
+``data`` (every rank of a ``model`` slice holds the same weight); AWQ's
+input over ``data`` and its losses over both. The state and the qparams
+come out the same on every rank. AWQ's ``q_group_size`` groups run along
+one out column's in-features, so a slice of the out columns holds whole
+groups: its scales are the slice's, one device's order kept.
 """
 from __future__ import annotations
 
@@ -61,6 +74,9 @@ class Quantizer(VarModule):
         # channels (parallel/tensor_parallel.py): the leaves this quantizer
         # holds whole then get their gradient summed over it
         self.tp_group = None
+        # the mesh's ``data`` group where it has two ranks or more: an
+        # activation's calibration statistics are reduced over it
+        self.data_group = None
         if spec.enabled:
             self.put_var("qparams", "scale",
                          torch.ones((self.n_channels,), dtype=torch.float32, device=device))
@@ -94,23 +110,42 @@ class Quantizer(VarModule):
             return x
         return x * broadcast_to_axis(ss, x.ndim, self.spec.channel_axis)
 
+    def _splits(self) -> tuple:
+        """``(split, pre_split)``: the ``(group, axis)`` pairs that this
+        quantizer's tensor, and the layer input an AWQ weight quantizer
+        reads, are split on across ranks (module docstring)."""
+        rows = ((self.data_group, 0),) if self.data_group is not None else ()
+        if self.spec.flag == "activation":
+            return rows, ()
+        sliced = ((self.tp_group, self.spec.channel_axis),) if self.tp_group is not None else ()
+        if self.spec.range_name == "awq":
+            return sliced, rows
+        return (() if self.spec.per_channel else sliced), ()
+
     def calibrate(self, x: torch.Tensor, pre_act: Optional[torch.Tensor] = None,
                   apply_fn: Optional[Callable] = None) -> None:
         """Run one observer step and write scale/zero (and awq_scale)."""
         observer = build_observer(self.spec)
         awq = self.spec.range_name == "awq"
+        split, pre_split = self._splits()
         keys = [leaf for col, leaf in self._var_index if col == "qobs" and leaf.startswith("state/")]
         if keys:
             state = {k[len("state/"):]: self.get_var("qobs", k) for k in keys}
         else:
-            # AWQ's state is per in-channel
-            state = observer.init_state(pre_act.shape[-1] if awq else self.n_channels,
-                                        device=x.device)
+            # AWQ's state is per in-channel; a per-channel weight on a slice
+            # of the out channels keeps the slice's
+            n = self.n_channels
+            if awq:
+                n = pre_act.shape[-1]
+            elif self.tp_group is not None and self.spec.per_channel:
+                n = x.shape[self.spec.channel_axis]
+            state = observer.init_state(n, device=x.device)
         if awq:
-            state, s, z, awq_scale = observer(state, x, pre_act=pre_act, apply_fn=apply_fn)
+            state, s, z, awq_scale = observer(state, x, pre_act=pre_act, apply_fn=apply_fn,
+                                              split=split, pre_split=pre_split)
             self.put_var("qparams", "awq_scale", awq_scale)
         else:
-            state, s, z = observer(state, x)
+            state, s, z = observer(state, x, split=split)
         for k, v in state.items():
             self.put_var("qobs", f"state/{k}", v)
         self.put_var("qparams", "scale", s)
@@ -133,9 +168,6 @@ class Quantizer(VarModule):
         ss = self._static_scale(x)
         awq_scale = self._awq_scale()
         g = awq_group(spec)
-        if g and self.tp_group is not None:
-            raise ValueError("a grouped AWQ weight quantizer (q_group_size) does not run on a "
-                             "slice of the out channels")
         eff = s if ss is None else s * ss
         if mode == "init_adaround":
             if spec.adaround:

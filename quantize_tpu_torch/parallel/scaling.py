@@ -168,21 +168,6 @@ def _launch_census() -> Dict[str, int]:
     return out
 
 
-def _broadcast(variables: Dict[str, Dict[str, torch.Tensor]]) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Rank 0's ``{collection: {key: tensor}}`` on every rank, bit for bit
-    (through host memory, as bytes). Each rank packs the same seeded model,
-    but a float reduction of its calibration may round differently from
-    process to process; the replicas must hold one model."""
-    out: Dict[str, Dict[str, torch.Tensor]] = {}
-    for col, flat in variables.items():
-        out[col] = {}
-        for key, t in flat.items():
-            host = t.detach().cpu().contiguous().clone()
-            dist.broadcast(host.reshape(-1).view(torch.uint8), src=0)
-            out[col][key] = host.to(t.device)
-    return out
-
-
 def _world() -> tuple:
     return (dist.get_rank(), dist.get_world_size()) if dist.is_initialized() else (0, 1)
 
@@ -259,7 +244,9 @@ def measure_scaling(
     calibrate_model(model, [x1_np], device=local)
     deploy = pack_model(model, x1_np, device=local)
     if world > 1:
-        deploy = _broadcast(deploy)
+        from .tensor_parallel import broadcast_variables
+
+        deploy = broadcast_variables(deploy)
         from_jax_variables(model, deploy)
 
     def fn(x):

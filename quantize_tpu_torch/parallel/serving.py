@@ -19,9 +19,23 @@ server that
 
 With a mesh the engine serves on this rank's device: on a mesh of one
 device, or one rank of a data-parallel mesh (each rank serving its own
-requests with the whole model). A tensor-parallel mesh is refused: its
-ranks would have to form the same batches, which continuous batching by
-arrival time does not give.
+requests with the whole model). On a mesh with a ``model`` axis of two or
+more (the model loaded with ``shard_variables``, its layers on slices) the
+ranks of one ``model`` group must run the same batches, which JAX gets from
+its single controller's one queue (``quantize_tpu/parallel/serving.py:
+304-310``). Here the group's rank at ``model`` index 0 is the **leader**:
+it takes the requests, forms each batch and broadcasts it to the group
+(a small header, then the staged rows), and resolves the futures. The
+other ranks **follow**: :meth:`InferenceEngine.start` runs a thread that
+receives each batch and runs the same forward on it (its collectives meet
+the leader's), dropping the result; their ``submit*`` raises. The header
+carries the packed precision switches the leader fixed at its start, and a
+follower runs each batch under them, so the slices of one output are
+computed alike whatever the follower's own switches. The leader's
+``stop()`` ends its followers' loops; an idle leader sends a keep-alive
+header every second, and a follower that hears nothing from its leader for
+``_FOLLOW_TIMEOUT_S`` seconds fails (``stop()`` on it raises). Each
+data-parallel row of a ``(dp, tp)`` mesh has its own leader.
 """
 from __future__ import annotations
 
@@ -34,12 +48,38 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..nn import precision
 
 
 # how long stop() waits for each thread before it fails what is not yet served
 _STOP_TIMEOUT_S = 30.0
+# a leader's header to its followers, int64: (kind, rows, ndim, up to four
+# dims, the precision switches' code)
+_HEADER = 8
+_KEEPALIVE, _BATCH, _STOP = 0, 1, 2
+# how often an idle leader tells its followers it is there
+_KEEPALIVE_S = 1.0
+# how long a follower waits for a word from its leader before it fails
+_FOLLOW_TIMEOUT_S = 60.0
+_CARRIES = (torch.float32, torch.bfloat16)
+
+
+def _switches_code(settings: tuple) -> int:
+    """The packed precision switches ``(carry dtype, fused residual tail,
+    int8 carry)`` as one integer."""
+    carry, fused, qin = settings
+    return _CARRIES.index(carry) | int(fused) << 1 | int(qin) << 2
+
+
+def _switches(code: int):
+    """The switches of ``code`` while the context lasts."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(precision.packed_carry(_CARRIES[code & 1]))
+    stack.enter_context(precision.fused_residual(bool(code & 2)))
+    stack.enter_context(precision.qin_carry(bool(code & 4)))
+    return stack
 
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
@@ -136,10 +176,18 @@ class InferenceEngine:
         ``max_queue`` bounds queued chunks, not requests: ``submit`` puts a
         chunk of one, ``submit_many`` and ``submit_batch`` chunks of up to
         ``batch_size`` (``stats()["queue_depth"]`` counts chunks too)."""
-        if mesh is not None and mesh.shape["model"] > 1:
-            raise ValueError(f"the engine serves on one rank's device and cannot serve on a "
-                             f"tensor-parallel mesh ({mesh.shape}): serve each rank of a "
-                             f"data-parallel mesh, or on one device")
+        self.tp = 1 if mesh is None else mesh.shape["model"]
+        self.is_leader = True
+        if self.tp > 1:
+            group = getattr(mesh, "groups", {}).get("model")
+            if (group is None or not dist.is_initialized()
+                    or dist.get_world_size(group) != self.tp):
+                raise RuntimeError(f"the engine on a tensor-parallel mesh ({mesh.shape}) needs "
+                                   f"the mesh's model group of {self.tp} ranks (make_mesh under "
+                                   f"torch.distributed, one process a rank)")
+            self._group = group
+            self._leader = mesh.rank - mesh.coords[1]  # the group's global rank at index 0
+            self.is_leader = mesh.coords[1] == 0
         self.device = mesh.device if mesh is not None else torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("the engine serves on CUDA, and torch sees no CUDA device; "
@@ -183,11 +231,25 @@ class InferenceEngine:
         self._fail_lock = threading.Lock()  # n_failed is counted from several threads
         self.staging_s = 0.0  # host time assembling batches into pinned memory
         self.dispatch_s = 0.0  # host time queuing the copies and forwards
+        # tensor parallel: the batches' broadcasts (header and rows) to the
+        # followers, and a follower's failure
+        self.broadcast_s = 0.0
+        self.broadcast_bytes = 0
+        self._follow_thread: Optional[threading.Thread] = None
+        self.error: Optional[BaseException] = None
 
     # -- lifecycle --------------------------------------------------------
     def start(self) -> "InferenceEngine":
         """Start the staging, dispatch and drain threads, recording the
-        precision switches every batch is then served with."""
+        precision switches every batch is then served with; on a follower,
+        the thread that runs the leader's batches."""
+        if not self.is_leader:
+            if self._follow_thread is None:
+                self.error = None
+                self._follow_thread = threading.Thread(target=self._follow, daemon=True,
+                                                       name="qtt-engine-follow")
+                self._follow_thread.start()
+            return self
         if any(t is not None for t in (self._stage_thread, self._thread, self._drain_thread)):
             if self._stop.is_set():
                 raise RuntimeError("the engine's threads have not ended since stop() timed "
@@ -215,7 +277,19 @@ class InferenceEngine:
         request not yet dispatched with RuntimeError; the batch being
         dispatched still resolves, and the threads stay recorded, so that
         :meth:`start` cannot run a second loop beside them: call stop()
-        again to wait for them."""
+        again to wait for them.
+
+        On a follower: wait until its leader stops (or the follower fails,
+        at the latest ``_FOLLOW_TIMEOUT_S`` after the leader's last word),
+        then raise RuntimeError where it failed."""
+        if not self.is_leader:
+            if self._follow_thread is not None:
+                self._follow_thread.join()
+                self._follow_thread = None
+            if self.error is not None:
+                raise RuntimeError(f"the follower's leader (rank {self._leader}) failed or went "
+                                   f"silent: {self.error}") from self.error
+            return
         self._stop.set()
         for attr in ("_stage_thread", "_thread", "_drain_thread"):
             thread = getattr(self, attr)
@@ -257,8 +331,14 @@ class InferenceEngine:
         self.stop()
 
     # -- client API -------------------------------------------------------
+    def _check_leader(self) -> None:
+        if not self.is_leader:
+            raise RuntimeError(f"this rank follows its model group's leader (rank "
+                               f"{self._leader}) on a tensor-parallel mesh: submit there")
+
     def submit(self, image) -> Future:
         """One request; its future resolves to its result."""
+        self._check_leader()
         fut: Future = Future()
         self._queue.put((np.asarray(image, self.input_dtype)[None], [(fut, 1)]))
         return fut
@@ -269,6 +349,7 @@ class InferenceEngine:
         futures to ``futs``. ``images`` carries a leading request axis (a
         sequence of images or one stacked array): pass ``image[None]`` for
         one image, or use :meth:`submit`."""
+        self._check_leader()
         arr = np.asarray(images, self.input_dtype)
         futs: List[Future] = []
         for lo in range(0, len(arr), self.batch_size):
@@ -305,6 +386,8 @@ class InferenceEngine:
         time a batch on the staging and the dispatch thread."""
         batches = max(self.n_batches, 1)
         return {
+            "broadcast_ms": 1e3 * self.broadcast_s / batches,
+            "broadcast_bytes": self.broadcast_bytes / batches,
             "processed": self.n_processed,
             "batches": self.n_batches,
             "failed": self.n_failed,
@@ -418,15 +501,37 @@ class InferenceEngine:
                 f"carry) changed while the engine runs: {self._settings} at start(), "
                 f"{now[1:]} now; set them before start()")
 
-    def _dispatch(self, buf: torch.Tensor) -> tuple:
+    def _announce(self, kind: int, buf: Optional[torch.Tensor] = None, n: int = 0) -> None:
+        """The leader's word to its followers: a header, then a batch's rows."""
+        from .tensor_parallel import broadcast
+
+        hdr = torch.zeros(_HEADER, dtype=torch.int64)
+        hdr[0], hdr[1] = kind, n
+        hdr[_HEADER - 1] = _switches_code(self._settings)
+        if buf is not None:
+            if buf.dim() > _HEADER - 4:
+                raise ValueError(f"a batch of {buf.dim()} dims does not fit the header")
+            hdr[2] = buf.dim()
+            hdr[3:3 + buf.dim()] = torch.tensor(buf.shape)
+        t0 = time.perf_counter()
+        broadcast(hdr, self._group, self._leader)
+        if buf is not None:
+            broadcast(buf, self._group, self._leader)
+            self.broadcast_s += time.perf_counter() - t0
+            self.broadcast_bytes += hdr.nbytes + buf.nbytes
+
+    def _dispatch(self, buf: torch.Tensor, n: int = 0) -> tuple:
         """Queue one staged batch's copy to the device, its forward and the
-        result's copy to the host; returns ``(host result, CUDA event or
+        result's copy to the host (on a tensor-parallel mesh after the
+        batch went to the followers); returns ``(host result, CUDA event or
         None)``."""
         t0 = time.perf_counter()
         cuda = self.device.type == "cuda"
         x = buf.to(self.device, non_blocking=True) if cuda else buf
         before = precision.packed_settings()
         self._check_settings(before)
+        if self.tp > 1:
+            self._announce(_BATCH, buf, n)
         out = self._forward(x)
         self._check_settings(before)
         if cuda:
@@ -445,7 +550,11 @@ class InferenceEngine:
         try:
             self._dispatch_loop()
         finally:
-            self._inflight.put(None)  # after the last batch: the drain ends
+            try:
+                if self.tp > 1:
+                    self._announce(_STOP)  # the followers' loops end
+            finally:
+                self._inflight.put(None)  # after the last batch: the drain ends
 
     def _dispatch_loop(self) -> None:
         # grad mode and the current device are per thread
@@ -453,7 +562,14 @@ class InferenceEngine:
                       else contextlib.nullcontext())
         with torch.inference_mode(), device_ctx:
             while True:
-                item = self._staged.get()
+                if self.tp > 1:
+                    try:
+                        item = self._staged.get(timeout=_KEEPALIVE_S)
+                    except queue.Empty:
+                        self._announce(_KEEPALIVE)  # idle: the followers keep waiting
+                        continue
+                else:
+                    item = self._staged.get()
                 if item is None:
                     return
                 buf, sinks, n, error = item
@@ -463,7 +579,7 @@ class InferenceEngine:
                     if self._abandoned is not None:
                         self._fail(sinks, self._abandoned)
                         continue
-                    host, done = self._dispatch(buf)
+                    host, done = self._dispatch(buf, n)
                     del buf  # back to the pinned cache once its copy has run
                     self.max_observed_in_flight = max(self.max_observed_in_flight,
                                                       self._inflight.qsize() + 1)
@@ -494,3 +610,38 @@ class InferenceEngine:
                 for fut, _ in sinks:
                     if not fut.done():
                         fut.set_exception(exc)
+
+    def _follow(self) -> None:
+        """A follower's loop: the leader's batches, each through the same
+        forward (its collectives meet the leader's) under the leader's
+        precision switches, until the leader stops; a wait longer than
+        ``_FOLLOW_TIMEOUT_S`` fails it."""
+        from .tensor_parallel import broadcast
+
+        device_ctx = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                      else contextlib.nullcontext())
+        try:
+            with torch.inference_mode(), device_ctx:
+                hdr = torch.zeros(_HEADER, dtype=torch.int64)
+                while True:
+                    broadcast(hdr, self._group, self._leader, _FOLLOW_TIMEOUT_S)
+                    kind, n, ndim = (int(v) for v in hdr[:3])
+                    if kind == _STOP:
+                        return
+                    if kind == _KEEPALIVE:
+                        continue
+                    shape = tuple(int(d) for d in hdr[3:3 + ndim])
+                    buf = torch.empty(shape, dtype=self._in_dtype,
+                                      pin_memory=self.device.type == "cuda")
+                    t0 = time.perf_counter()
+                    broadcast(buf, self._group, self._leader, _FOLLOW_TIMEOUT_S)
+                    self.broadcast_s += time.perf_counter() - t0
+                    self.broadcast_bytes += hdr.nbytes + buf.nbytes
+                    code = int(hdr[_HEADER - 1])
+                    same = code == _switches_code(precision.packed_settings()[1:])
+                    with contextlib.nullcontext() if same else _switches(code):
+                        self._forward(buf.to(self.device, non_blocking=True))
+                    self.n_processed += n
+                    self.n_batches += 1
+        except Exception as exc:  # raised again by stop()
+            self.error = exc

@@ -11,9 +11,13 @@ float ``kernel`` and ``bias``; of the deploy buffers ``w_int`` or ``w_p4c``
 ``w_kmajor``, ``w_colsum``, the stem's ``w_s2d``), ``w_scale``, ``w_zero``,
 ``col_sum``, ``bias`` and the zero-point correction map ``corr_a``; and of
 its weight quantizer the per-channel ``scale``/``zero``, a per-channel
-``static_scale`` and AdaRound's ``V`` (:data:`QUANTIZER_SLICES`). The rules
-of JAX's spec leave ``corr_a``, ``static_scale`` and ``V`` whole; a split
-layer cuts them here.
+``static_scale``, AdaRound's ``V`` (:data:`QUANTIZER_SLICES`) and a
+per-channel observer's running statistics (:data:`OBSERVER_SLICES`). With
+AWQ's ``q_group_size`` the ``scale``/``zero`` (and the deploy ``w_scale``/
+``w_zero``) hold one value per group of an out column's in-features, out
+column major: the slice is the groups of its columns. The rules of JAX's
+spec leave ``corr_a``, ``static_scale``, ``V`` and the observer state
+whole; a split layer cuts them here.
 
 Modes on a slice:
 
@@ -35,8 +39,21 @@ Modes on a slice:
   ``scale``/``zero``, AWQ's ``awq_scale``) go through
   :func:`identity_sum_grad` too: each rank's gradient of them covers its
   slice only.
-* ``calibrate``, ``pack`` and ``init_adaround`` raise ValueError before any
-  work: their observers would need reductions across the slices.
+* ``calibrate``: the activation observer on the whole input, the weight
+  observer on the slice (a per-tensor range, an MSE grid's errors, AWQ's
+  losses reduced over ``model``: :mod:`~quantize_tpu_torch.quant.observers`),
+  the float forward on the slice, then the output gathered. The qparams and
+  observer state come out the same on every rank of the group (its slices
+  the same as one device's).
+* ``pack``: the slice's deploy buffers (``put_var`` rebuilds the kernels'
+  copies from them), then the float output gathered.
+* ``init_adaround`` raises ValueError before any work.
+
+Loading onto any mesh of two ranks or more also gives every quantizer, and
+every layer's bias corrector, the ``data`` group where the mesh has more
+than one ``data`` rank: calibration then reduces each observer over the
+rows of every rank (JAX calibrates the batch sharded over ``data`` as one
+global array). A mesh of one rank, or no mesh, sets no group.
 
 A layer whose out-channel split is not a per-channel function runs whole:
 grouped and depthwise convs (K3g, the float depthwise path), the
@@ -52,8 +69,9 @@ path on the CPU and the card, and ranks that share a card need no NCCL.
 """
 from __future__ import annotations
 
+import datetime
 import time
-from typing import Any, Callable, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
 import torch.distributed as dist
@@ -66,6 +84,9 @@ LAYER_SLICES = frozenset({"kernel", "bias", "w_int", "w_p4c", "w_scale", "w_zero
 # its weight quantizer's leaves held as slices where they are one per out
 # channel (``V`` is one per weight)
 QUANTIZER_SLICES = frozenset({"scale", "zero", "static_scale", "V"})
+# its weight quantizer's per-channel observer state (``qobs``), one per out
+# channel (AWQ's ``x_mean`` is one per in channel: whole)
+OBSERVER_SLICES = frozenset({"state/xmin", "state/xmax", "state/mu_sum", "state/lam_sum"})
 
 
 def _as_bytes(t: torch.Tensor) -> torch.Tensor:
@@ -110,6 +131,39 @@ def all_gather(t: torch.Tensor, group, dim: int = -1) -> torch.Tensor:
     shape = src.shape
     out = full.movedim(0, dim).reshape(*shape[:dim], world * shape[dim], *shape[dim + 1:])
     _record("all-gather", out, src.nbytes + out.nbytes if src.is_cuda else 0, timing)
+    return out
+
+
+def broadcast(t: torch.Tensor, group, src: int, timeout_s: Optional[float] = None
+              ) -> torch.Tensor:
+    """``t`` of global rank ``src`` on every rank of ``group``, written in
+    place (a contiguous CPU tensor of the same shape and dtype on every
+    rank). RuntimeError where it does not end within ``timeout_s`` seconds
+    (None: the process group's timeout). Reports one ``broadcast`` of its
+    bytes to the active :class:`~.scaling.CollectiveCounter`."""
+    start = time.perf_counter()
+    work = dist.broadcast(_as_bytes(t.reshape(1, -1))[0], src=src, group=group, async_op=True)
+    if timeout_s is None:
+        work.wait()
+    else:
+        work.wait(timeout=datetime.timedelta(seconds=timeout_s))
+    record_collective("broadcast", t.nbytes, 0, seconds=time.perf_counter() - start)
+    return t
+
+
+def broadcast_variables(variables: Mapping[str, Mapping[str, torch.Tensor]], group=None,
+                        src: int = 0) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Global rank ``src``'s ``{collection: {key: tensor}}`` on every rank of
+    ``group`` (None: every rank), bit for bit, each leaf through host memory
+    on its own device (:func:`broadcast`). Ranks that build the same seeded
+    model may still round a float reduction of its calibration differently
+    from process to process; this gives them one model."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for col, flat in variables.items():
+        out[col] = {}
+        for key, t in flat.items():
+            host = broadcast(t.detach().cpu().contiguous().clone(), group, src)
+            out[col][key] = host.to(t.device)
     return out
 
 
@@ -179,11 +233,15 @@ class TPShard:
         j = mesh.coords[1]
         self.mesh = mesh
         self.group = mesh.groups["model"]
+        self.n_out = n_out
         self.lo, self.hi = j * n_out // tp, (j + 1) * n_out // tp
 
     def cut(self, t: torch.Tensor) -> torch.Tensor:
-        """This rank's slice of a whole leaf's last axis."""
-        return t[..., self.lo:self.hi].contiguous()
+        """This rank's slice of a whole leaf's last axis: its out channels,
+        or of a leaf with ``m`` values a channel in channel-major order
+        (AWQ's group scales), the ``m`` of each of its channels."""
+        m = t.shape[-1] // self.n_out
+        return t[..., self.lo * m:self.hi * m].contiguous()
 
     def enter(self, x: torch.Tensor) -> torch.Tensor:
         """The whole input of a training forward on the slice
@@ -231,10 +289,15 @@ def _is_slice(layer, owner, col: str, leaf: str, whole_len: int) -> bool:
         return col in ("params", "packed") and leaf in LAYER_SLICES
     if col == "adaround":
         return leaf == "V"
+    if col == "qobs":
+        return (leaf in OBSERVER_SLICES and layer.w_spec.per_channel
+                and layer.w_spec.range_name != "awq" and whole_len == layer.features)
     if col != "qparams" or leaf not in QUANTIZER_SLICES:
         return False
-    if leaf in ("scale", "zero") and not layer.w_spec.per_channel:
-        return False  # a per-tensor quantizer's
+    if leaf in ("scale", "zero"):
+        # one per out channel, or per AWQ group (``n_channels`` of them);
+        # a per-tensor quantizer's are whole
+        return layer.w_spec.per_channel and whole_len == layer.w_quantizer.n_channels
     return whole_len == layer.features
 
 
@@ -262,6 +325,7 @@ def attach(model: torch.nn.Module, variables: Mapping[str, Any],
     for layer in touched.values():
         layer.set_tp_shard(None)
     mesh = getattr(variables, "mesh", None)
+    set_data_group(model, mesh)
     if mesh is None or mesh.shape["model"] == 1:
         return variables
     tp = mesh.shape["model"]
@@ -295,6 +359,19 @@ def attach(model: torch.nn.Module, variables: Mapping[str, Any],
                 value = all_gather(value, mesh.groups["model"], dim=spec.index("model"))
             out[col][key] = value
     return out
+
+
+def set_data_group(model: torch.nn.Module, mesh) -> None:
+    """Give every quantizer and layer of ``model`` the ``data`` group of
+    ``mesh`` where it has two ``data`` ranks or more, else none (module
+    docstring)."""
+    from ..nn.layers import _QuantLayerBase
+    from ..nn.quantizer import Quantizer
+
+    group = mesh.groups["data"] if mesh is not None and mesh.shape["data"] > 1 else None
+    for m in model.modules():
+        if isinstance(m, (Quantizer, _QuantLayerBase)):
+            m.data_group = group
 
 
 def rank_variables(model: torch.nn.Module):

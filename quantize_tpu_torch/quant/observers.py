@@ -16,10 +16,27 @@ quantization-induced bias. The JAX package's ``lax.scan`` grid loops are
 Python loops over the same grid points, keeping the first strict minimum.
 Quotients that JAX takes by a Python number divide by a tensor here (on
 CUDA PyTorch turns a division by a Python number into a multiplication).
+
+On a mesh of ranks (:mod:`~quantize_tpu_torch.parallel.tensor_parallel`) an
+observer may read a part of the tensor JAX reads whole: this rank's rows of
+a batch split over ``data``, or this rank's slice of a weight split over
+``model``. The caller passes ``split``, the ``(group, axis)`` pairs the
+tensor is split on (empty on one device, which keeps the one-device code).
+Each step then gives JAX's global-batch semantics: every rank computes its
+small statistics, gathers them over each group in one ``all_gather``
+(:func:`reduce_stats`) and reduces them locally in rank order, so every
+rank holds the same bits (gloo's own reduction order is not the port's to
+fix). MinMax and MAMinMax reduce their batch ranges (min of mins, max of
+maxes: exact); with ``percentile`` the tensor itself is gathered, the one
+gather of a whole activation; MSE and CrossEntropy reduce the range, then
+sum the whole grid of candidate errors, one gather; ACIQ reduces its count
+and sum before the running mean, then its deviations; AWQ reduces its
+input's sums and count before the grid and every ratio's (sum of squares,
+count) after it; BiasCorrect reduces the batch's (row sums, rows).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -30,6 +47,53 @@ from .qspec import QuantSpec, compute_scale_zero
 RANGES = Registry("range observers")
 
 State = Dict[str, torch.Tensor]
+# the (process group, axis) pairs a tensor is split on across ranks
+Split = Sequence[Tuple[Any, int]]
+
+_REDUCE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
+
+
+def reduce_stats(stats: List[torch.Tensor], ops: Sequence[str], split: Split) -> list:
+    """Each of ``stats`` reduced over the ranks of every group of ``split``
+    by its op in ``ops``: ``sum``, ``min``, ``max``, or ``count`` (an integer
+    count summed exactly, returned as a Python int). One ``all_gather`` a
+    group carries all of them (as float64, which holds every float32 value
+    and every count exactly); each rank then reduces the gathered rows in
+    rank order, so every rank gets the same bits."""
+    if not split:
+        return list(stats)
+    from ..parallel.tensor_parallel import all_gather
+
+    dtypes = [s.dtype for s in stats]
+    shapes = [s.shape for s in stats]
+    sizes = [s.numel() for s in stats]
+    flat = torch.cat([s.detach().double().reshape(-1) for s in stats])
+    for group, _ in split:
+        rows = all_gather(flat[None], group, dim=0)  # (ranks, n), in rank order
+        out = []
+        for part, op, dtype in zip(rows.split(sizes, dim=1), ops, dtypes):
+            if op == "count":
+                out.append(part.sum(dim=0))
+                continue
+            part = part.to(dtype)
+            acc = part[0]
+            for r in range(1, part.shape[0]):
+                acc = _REDUCE[op](acc, part[r])
+            out.append(acc.double())
+        flat = torch.cat(out)
+    parts = flat.split(sizes)
+    return [int(p.sum().item()) if op == "count" else p.to(dtype).reshape(shape)
+            for p, op, dtype, shape in zip(parts, ops, dtypes, shapes)]
+
+
+def gather_split(x: torch.Tensor, split: Split) -> torch.Tensor:
+    """``x`` whole: this rank's part gathered, in rank order, along the
+    axis of every group of ``split``."""
+    from ..parallel.tensor_parallel import all_gather
+
+    for group, axis in split:
+        x = all_gather(x, group, dim=axis)
+    return x
 
 
 def channel_view(x: torch.Tensor, channel_axis: int) -> torch.Tensor:
@@ -87,9 +151,14 @@ class MinMax:
             "count": state["count"] + 1,
         }
 
-    def batch_range(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Current-batch (xmin, xmax), shaped (C,) ((1,) for layer gran)."""
+    def batch_range(self, x: torch.Tensor, split: Split = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Current-batch (xmin, xmax), shaped (C,) ((1,) for layer gran),
+        over the whole of a tensor ``split`` across ranks: the ranks' ranges
+        reduced, or with ``percentile`` the tensor gathered whole (exact
+        either way)."""
         spec = self.spec
+        if split and self.percentile != 0.0:
+            return self.batch_range(gather_split(x, split))
         flat = channel_view(x, spec.channel_axis) if spec.per_channel else x.reshape(1, -1)
         n = flat.shape[-1]
         if spec.symmetric:
@@ -105,10 +174,14 @@ class MinMax:
             else:
                 xmin = _kth_smallest(flat, int(n * self.percentile) + 1)
                 xmax = _kth_smallest(flat, int(n * (1 - self.percentile)))
-        return xmin.float(), xmax.float()
+        xmin, xmax = xmin.float(), xmax.float()
+        if split:
+            xmin, xmax = reduce_stats([xmin, xmax], ("min", "max"), split)
+        return xmin, xmax
 
-    def range(self, state: State, x: torch.Tensor) -> Tuple[State, torch.Tensor, torch.Tensor]:
-        xmin, xmax = self.batch_range(x)
+    def range(self, state: State, x: torch.Tensor, split: Split = ()
+              ) -> Tuple[State, torch.Tensor, torch.Tensor]:
+        xmin, xmax = self.batch_range(x, split)
         state = self._update(state, xmin, xmax)
         return state, state["xmin"], state["xmax"]
 
@@ -117,8 +190,9 @@ class MinMax:
             xmin, xmax, self.spec.n_bits, self.spec.symmetric, self.spec.signed
         )
 
-    def __call__(self, state: State, x: torch.Tensor, **_) -> Tuple[State, torch.Tensor, torch.Tensor]:
-        state, xmin, xmax = self.range(state, x)
+    def __call__(self, state: State, x: torch.Tensor, split: Split = (), **_
+                 ) -> Tuple[State, torch.Tensor, torch.Tensor]:
+        state, xmin, xmax = self.range(state, x, split)
         scale, zero = self.quantize(xmin, xmax)
         return state, scale, zero
 
@@ -172,29 +246,38 @@ class MSE(MAMinMax):
             return channel_view(err, self.spec.channel_axis).sum(dim=-1)
         return err.sum().reshape(1)
 
-    def grid_search(self, x: torch.Tensor, xmin: torch.Tensor, xmax: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def grid_search(self, x: torch.Tensor, xmin: torch.Tensor, xmax: torch.Tensor,
+                    split: Split = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The whole grid's errors first (over a tensor ``split`` across
+        ranks: this rank's part's errors, the ``(steps, C)`` matrix summed
+        over the ranks in one gather), then the first strict minimum."""
         spec = self.spec
         x = x.float()
         c = xmin.shape[0]
-        best_err = torch.full((c,), float("inf"), dtype=torch.float32, device=x.device)
-        best_scale = torch.ones((c,), dtype=torch.float32, device=x.device)
-        best_zero = torch.zeros((c,), dtype=torch.float32, device=x.device)
+        cands, errs = [], []
         for i in range(int(self.maxshrink * self.grid) + 1):
             p = 1.0 - torch.tensor(float(i), dtype=torch.float32) / self.grid
             p = p.to(x.device)
             s, z = self.quantize(xmin * p, xmax * p)
             sim = fake_quant(x, s, z, spec.qmin, spec.qmax, spec.channel_axis)
-            err = self._reduce_err(self.measure(x, sim))
+            cands.append((s, z))
+            errs.append(self._reduce_err(self.measure(x, sim)))
+        if split:
+            errs = list(reduce_stats([torch.stack(errs)], ("sum",), split)[0].unbind(0))
+        best_err = torch.full((c,), float("inf"), dtype=torch.float32, device=x.device)
+        best_scale = torch.ones((c,), dtype=torch.float32, device=x.device)
+        best_zero = torch.zeros((c,), dtype=torch.float32, device=x.device)
+        for (s, z), err in zip(cands, errs):
             better = err < best_err
             best_err = torch.where(better, err, best_err)
             best_scale = torch.where(better, s, best_scale)
             best_zero = torch.where(better, z, best_zero)
         return best_scale, best_zero
 
-    def __call__(self, state: State, x: torch.Tensor, **_) -> Tuple[State, torch.Tensor, torch.Tensor]:
-        state, xmin, xmax = self.range(state, x)
-        scale, zero = self.grid_search(x, xmin, xmax)
+    def __call__(self, state: State, x: torch.Tensor, split: Split = (), **_
+                 ) -> Tuple[State, torch.Tensor, torch.Tensor]:
+        state, xmin, xmax = self.range(state, x, split)
+        scale, zero = self.grid_search(x, xmin, xmax, split)
         return state, scale, zero
 
 
@@ -250,14 +333,24 @@ class ACIQ(MinMax):
             "lam_sum": torch.zeros((n_channels,), dtype=torch.float32, device=device),
         }
 
-    def range(self, state: State, x: torch.Tensor) -> Tuple[State, torch.Tensor, torch.Tensor]:
+    def range(self, state: State, x: torch.Tensor, split: Split = ()
+              ) -> Tuple[State, torch.Tensor, torch.Tensor]:
+        """Over a tensor ``split`` across ranks: the count and sums reduced
+        first (the running mean is the global one), then the deviations
+        from it."""
         spec = self.spec
         flat = channel_view(x, spec.channel_axis) if spec.per_channel else x.reshape(1, -1)
         flat = flat.float()
-        num = state["num"] + flat.shape[-1]
-        mu_sum = state["mu_sum"] + flat.sum(dim=-1)
+        n, total = flat.shape[-1], flat.sum(dim=-1)
+        if split:
+            n, total = reduce_stats([torch.tensor(n, device=flat.device), total], ("count", "sum"), split)
+        num = state["num"] + n
+        mu_sum = state["mu_sum"] + total
         mu = mu_sum / num
-        lam_sum = state["lam_sum"] + (flat - mu[:, None]).abs().sum(dim=-1)
+        dev = (flat - mu[:, None]).abs().sum(dim=-1)
+        if split:
+            dev, = reduce_stats([dev], ("sum",), split)
+        lam_sum = state["lam_sum"] + dev
         lam = lam_sum / num
         state = {"num": num, "mu_sum": mu_sum, "lam_sum": lam_sum}
         if not self.fuse_relu:
@@ -295,11 +388,16 @@ class AWQ(MinMax):
         return {"x_mean": torch.zeros((n_channels_in,), dtype=torch.float32, device=device),
                 "num_x": torch.zeros((), dtype=torch.float32, device=device)}
 
-    def update_mean(self, state: State, pre_act: torch.Tensor) -> State:
-        """Running mean of |activation| per in-channel (in-channel last)."""
+    def update_mean(self, state: State, pre_act: torch.Tensor, split: Split = ()) -> State:
+        """Running mean of |activation| per in-channel (in-channel last);
+        over rows ``split`` across ranks, their sums and count reduced."""
         flat = pre_act.float().abs().reshape(-1, pre_act.shape[-1]).T
-        num = torch.tensor(float(flat.shape[-1]), dtype=torch.float32, device=pre_act.device)
-        x_mean = flat.mean(dim=-1)
+        rows = flat.shape[-1]
+        if split:
+            rows, sums = reduce_stats([torch.tensor(rows, device=flat.device), flat.sum(dim=-1)],
+                                      ("count", "sum"), split)
+        num = torch.tensor(float(rows), dtype=torch.float32, device=pre_act.device)
+        x_mean = sums / num if split else flat.mean(dim=-1)
         if not self.accumulate:
             return {"x_mean": x_mean, "num_x": num}
         seen = state["num_x"] > 0
@@ -309,8 +407,13 @@ class AWQ(MinMax):
                 "num_x": torch.where(seen, tot, num)}
 
     def __call__(self, state: State, w: torch.Tensor, pre_act: Optional[torch.Tensor] = None,
-                 apply_fn: Optional[Callable] = None, **_):
-        """Returns (state, scale, zero, awq_scale)."""
+                 apply_fn: Optional[Callable] = None, split: Split = (), pre_split: Split = (),
+                 **_):
+        """Returns (state, scale, zero, awq_scale). ``pre_split``: the splits
+        of ``pre_act``'s rows across ranks (the mean is reduced over them
+        before the grid); ``split``: those of ``w``'s out channels. Every
+        ratio's loss is then reduced as (sum of squares, count) over both,
+        all the grid's in one gather: a slice's output is a slice."""
         if self.spec.flag != "weight":
             raise ValueError("AWQ only supports weight quantization")
         if pre_act is None or apply_fn is None:
@@ -318,7 +421,8 @@ class AWQ(MinMax):
         spec = self.spec
         dev = w.device
         org_out = apply_fn(w, pre_act)
-        state = self.update_mean(state, pre_act)
+        state = self.update_mean(state, pre_act, pre_split)
+        out_split = (*pre_split, *split)
         x_mean = state["x_mean"]
         grouped = self.q_group_size > 0
         n_scales = (w.numel() // self.q_group_size if grouped else w.shape[spec.channel_axis])
@@ -327,12 +431,16 @@ class AWQ(MinMax):
                 torch.zeros((n_scales,), dtype=torch.float32, device=dev),
                 torch.ones((x_mean.shape[0],), dtype=torch.float32, device=dev))
         grid = torch.tensor(float(self.grid), dtype=torch.float32)
+        cands, losses, sums = [], [], []
         for r in range(self.grid):
             ratio = (torch.tensor(float(r), dtype=torch.float32) / grid).to(dev)
             aws = torch.clamp(x_mean ** ratio, min=1e-4)
             aws = aws / torch.sqrt(aws.max() * aws.min())
             # scale along the in-channel axis (-2 of the weight)
             w_s = w * aws[:, None]
+            # per out channel or per group of one out column's in-features
+            # (the constructor refuses per tensor): the ranges of a slice of
+            # the out channels are its own, with no collective
             if grouped:
                 wg = group_view(w_s, self.q_group_size)
                 if spec.symmetric:
@@ -349,9 +457,19 @@ class AWQ(MinMax):
                 w_sim = fake_quant(w_s, s, z, spec.qmin, spec.qmax, spec.channel_axis)
             w_sim = w_sim / aws[:, None]
             out = apply_fn(w_sim, pre_act)
-            loss = ((org_out - out).float() ** 2).mean()
+            sq = (org_out - out).float() ** 2
+            cands.append((s, z, aws))
+            if out_split:
+                sums.append(sq.sum())
+            else:
+                losses.append(sq.mean())
+        if out_split:
+            total, count = reduce_stats([torch.stack(sums), torch.tensor(sq.numel(), device=dev)],
+                                        ("sum", "count"), out_split)
+            losses = list((total / torch.tensor(float(count), device=dev)).unbind(0))
+        for cand, loss in zip(cands, losses):
             better = loss < best_loss
-            best = tuple(torch.where(better, n, o) for n, o in zip((s, z, aws), best))
+            best = tuple(torch.where(better, n, o) for n, o in zip(cand, best))
             best_loss = torch.where(better, loss, best_loss)
         scale, zero, awq_scale = best
         return state, scale, zero, awq_scale
@@ -373,8 +491,16 @@ class BiasCorrect:
     def init_state(self, sample_shape: Tuple[int, ...], device=None) -> State:
         return {"EX": torch.zeros((1, *sample_shape), dtype=torch.float32, device=device)}
 
-    def calibrate(self, state: State, x: torch.Tensor) -> State:
-        mean = x.float().mean(dim=0, keepdim=True)
+    def calibrate(self, state: State, x: torch.Tensor, split: Split = ()) -> State:
+        """One EMA step of the batch mean; over rows ``split`` across ranks,
+        their (row sums, rows) reduced."""
+        if split:
+            sums, rows = reduce_stats([x.float().sum(dim=0, keepdim=True),
+                                       torch.tensor(x.shape[0], device=x.device)],
+                                      ("sum", "count"), split)
+            mean = sums / torch.tensor(float(rows), device=x.device)
+        else:
+            mean = x.float().mean(dim=0, keepdim=True)
         return {"EX": self.momentum * mean + (1 - self.momentum) * state["EX"]}
 
     def correction(self, state: State, delta_w: torch.Tensor, apply_fn: Callable) -> torch.Tensor:

@@ -26,10 +26,12 @@ RUNNERS.register_dict({"ptq": PTQ, "qat": QAT, "adaround": AdaRound})
 
 
 def build_runner(cfg, train_loader=None, val_loader=None, test_loader=None,
-                 device="cuda") -> BasicRunner:
+                 device="cuda", mesh=None) -> BasicRunner:
+    """The runner ``cfg.runner.name`` names; with ``mesh`` (every rank of it
+    builds the same runner) it runs on the ranks (the PTQ runner)."""
     name = cfg.runner.name if cfg.runner else "ptq"
     cls = RUNNERS.lookup(name)
-    return cls(cfg, train_loader, val_loader, test_loader, device=device)
+    return cls(cfg, train_loader, val_loader, test_loader, device=device, mesh=mesh)
 
 
 def _loader(cfg, which: str):
@@ -38,9 +40,10 @@ def _loader(cfg, which: str):
     return build_dataloader(cfg, which, transform=transform)
 
 
-def execute_runner(cfg, device="cuda") -> Optional[dict]:
+def execute_runner(cfg, device="cuda", mesh=None) -> Optional[dict]:
     """Build loaders + runner, run it, then test from the best checkpoint
-    (reference ``runner/__init__.py:41-77``)."""
+    (reference ``runner/__init__.py:41-77``); with ``mesh``, on its ranks
+    (every rank calls this with the same config)."""
     logger = get_logger()
     train_loader = _loader(cfg, "train")
     val_loader = _loader(cfg, "val")
@@ -52,7 +55,7 @@ def execute_runner(cfg, device="cuda") -> Optional[dict]:
         cfg.model.num_classes = ds.dataset.num_classes
         cfg.model.classnames = list(ds.dataset.classnames)
 
-    runner = build_runner(cfg, train_loader, val_loader, test_loader, device=device)
+    runner = build_runner(cfg, train_loader, val_loader, test_loader, device=device, mesh=mesh)
     if train_loader is not None:
         elastic = cfg.train.elastic if cfg.train else None
         if elastic:
@@ -67,7 +70,8 @@ def execute_runner(cfg, device="cuda") -> Optional[dict]:
             hb_path = os.path.join(cfg.output_dir or "results", "p0.heartbeat")
             result_sup = supervised_run(
                 lambda attempt: runner if attempt == 0 else build_runner(
-                    cfg, _loader(cfg, "train"), val_loader, test_loader, device=device),
+                    cfg, _loader(cfg, "train"), val_loader, test_loader, device=device,
+                    mesh=mesh),
                 max_restarts=int(elastic.max_restarts or 3),
                 backoff_s=float(elastic.backoff_s or 0.5),
                 ckpt_every_epochs=int(elastic.ckpt_every_epochs or 1),

@@ -94,7 +94,10 @@ class _Stop(Exception):
 class AdaRound(PTQ):
     name = "adaround"
 
-    def __init__(self, cfg, *loaders, device="cuda"):
+    def __init__(self, cfg, *loaders, device="cuda", mesh=None):
+        if mesh is not None and mesh.size > 1:
+            raise ValueError("the AdaRound runner does not run on a mesh of ranks yet; the PTQ "
+                             "runner does")
         super().__init__(cfg, *loaders, device=device)
         self.initialized = False
         self.optimizer = None

@@ -7,6 +7,16 @@ best-model tracking recorded into ``cfg.runner.best``. The model's state
 lives in its modules, on the runner's device (CUDA unless the caller asks
 for the CPU); :attr:`BasicRunner.variables` reads and writes it under the
 flax names. Steps run eagerly, where JAX jits them.
+
+On a mesh of ranks (``mesh``, every rank running the same runner over the
+same loaders; JAX's runner reads ``self.mesh``, ``runners/base.py:167``)
+the model is initialised whole, rank 0's variables are broadcast and
+loaded onto the mesh, each batch's rows of this rank are placed on its
+device (:func:`~quantize_tpu_torch.parallel.input_pipeline.host_slice` by
+its ``data`` index, as ``prefetch_to_mesh`` does), evaluation sums its
+(correct, total) counts over ``data``, and checkpoints are written by rank
+0 from the variables gathered whole. The PTQ runner runs there; QAT and
+AdaRound do not yet.
 """
 from __future__ import annotations
 
@@ -61,8 +71,10 @@ class BasicRunner:
     name = "base"
 
     def __init__(self, cfg, train_loader=None, val_loader=None, test_loader=None,
-                 device="cuda"):
-        self.device = torch.device(device)
+                 device="cuda", mesh=None):
+        # a mesh of one device is that device
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = torch.device(mesh.device if mesh is not None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("the runner runs on CUDA, and torch sees no CUDA device; "
                                "pass device='cpu' (--device cpu) to run on the CPU")
@@ -92,7 +104,12 @@ class BasicRunner:
     @variables.setter
     def variables(self, variables) -> None:
         """Load nested ``{collection: {module: {...: array}}}`` variables (the
-        JAX package's layout), creating entries that do not exist yet."""
+        JAX package's layout), creating entries that do not exist yet; on a
+        mesh, each rank's share of them (``shard_variables``)."""
+        if self.mesh is not None:
+            from ..parallel.mesh import shard_variables
+
+            variables = shard_variables(self.mesh, variables)
         convert.from_jax_variables(self.model, variables)
         self._initialized = True
 
@@ -108,6 +125,13 @@ class BasicRunner:
         self._initialized = True
         self._maybe_import_torch_checkpoint()
         self._maybe_precompute_zeroshot()
+        if self.mesh is not None:
+            # every rank initialised the same model from the same batch; a
+            # float reduction may still round differently from process to
+            # process, so all take rank 0's, then their share of them
+            from ..parallel.tensor_parallel import broadcast_variables
+
+            self.variables = broadcast_variables(collections(self.model))
 
     def _maybe_import_torch_checkpoint(self) -> None:
         """``cfg.model.torch_checkpoint``: convert a user-provided torch
@@ -172,11 +196,16 @@ class BasicRunner:
         pinned, copied without blocking the host), so that loading overlaps
         the device's work; an exception of the loader reaches the caller.
         The thread stops when the generator is closed or collected."""
-        from ..parallel.input_pipeline import PrefetchIterator
+        from ..parallel.input_pipeline import PrefetchIterator, host_slice
 
         bs = loader.batch_size
-        with PrefetchIterator((pad_batch(b, bs) for b in loader), prefetch=2,
-                              device=self.device) as it:
+        batches = (pad_batch(b, bs) for b in loader)
+        if self.mesh is not None:
+            dp = self.mesh.shape["data"]
+            if bs % dp:
+                raise ValueError(f"a batch of {bs} does not split over {dp} data ranks")
+            batches = (host_slice(b, self.mesh.coords[0], dp) for b in batches)
+        with PrefetchIterator(batches, prefetch=2, device=self.device) as it:
             yield from it
 
     def run(self) -> None:
@@ -216,6 +245,11 @@ class BasicRunner:
             c, t = masked_topk_correct(logits, batch["label"])
             correct += int(c)
             total += int(t)
+        if self.mesh is not None and self.mesh.shape["data"] > 1:
+            from ..parallel.tensor_parallel import all_reduce
+
+            correct, total = (int(n) for n in all_reduce(
+                torch.tensor([correct, total], dtype=torch.int64), self.mesh.groups["data"]))
         top1 = 100.0 * correct / max(total, 1)
         result = {"top1": top1, "n": total}
         self.logger.info(f"eval: top1 {top1:.2f}% over {total} examples (quantized={quantized})")
@@ -225,12 +259,25 @@ class BasicRunner:
     def save_checkpoint(self, path: str, extra: Optional[Dict[str, Any]] = None) -> None:
         """``torch.save`` of ``{"variables": {collection: {module: {...:
         tensor}}}, "extra": extra}``: the JAX layout, as CPU tensors, so
-        that loading needs no pickled code (``weights_only``)."""
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        cpu = {col: convert.unflatten({k: v.detach().cpu() for k, v in flat.items()})
-               for col, flat in self.variables.items()}
-        torch.save({"variables": cpu, "extra": extra or {}}, path)
-        self.logger.info(f"checkpoint saved to {path}")
+        that loading needs no pickled code (``weights_only``). On a mesh
+        every rank calls it; rank 0 writes the variables gathered whole,
+        and the others wait for the file."""
+        variables = self.variables
+        if self.mesh is not None:
+            from ..parallel.mesh import gather_variables
+            from ..parallel.tensor_parallel import rank_variables
+
+            variables = gather_variables(self.mesh, rank_variables(self.model))
+        if self.mesh is None or self.mesh.rank == 0:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            cpu = {col: convert.unflatten({k: v.detach().cpu() for k, v in flat.items()})
+                   for col, flat in variables.items()}
+            torch.save({"variables": cpu, "extra": extra or {}}, path)
+            self.logger.info(f"checkpoint saved to {path}")
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     def load_checkpoint(self, path: str) -> Dict[str, Any]:
         """Load a checkpoint of :meth:`save_checkpoint`, or one the JAX

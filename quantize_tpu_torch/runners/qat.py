@@ -67,7 +67,10 @@ def loss_and_grads(model: torch.nn.Module, img: torch.Tensor, label: torch.Tenso
 class QAT(PTQ):
     name = "qat"
 
-    def __init__(self, cfg, *loaders, device="cuda"):
+    def __init__(self, cfg, *loaders, device="cuda", mesh=None):
+        if mesh is not None and mesh.size > 1:
+            raise ValueError("the QAT runner does not run on a mesh of ranks yet; the PTQ "
+                             "runner does")
         super().__init__(cfg, *loaders, device=device)
         self.calibrated_epoch = int(cfg.train.calibrated_epoch or 1)
         self.max_epoch += self.calibrated_epoch

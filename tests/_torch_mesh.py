@@ -16,10 +16,30 @@ that each rank takes its ``data`` rows of, the device (``"cpu"``, or
   (``gather_variables`` over ``rank_variables``' spec), the trainable leaves
   this rank holds whole (for the ranks to be compared with each other),
   the updated variables gathered whole, and the collectives of the step;
-* ``refuse``: calibrate and pack on the loaded model, each of which must
-  raise ValueError and leave every variable as it was;
+* ``refuse``: calibrate and pack on the loaded model (which used to raise
+  on a split layer): whether each ran and changed the variables; then
+  ``init_adaround``, which must raise ValueError and leave every variable
+  as it was;
 * ``roundtrip``: ``gather_variables(mesh, shard_variables(mesh, v))``
-  against ``v``, bit for bit.
+  against ``v``, bit for bit;
+* ``calibrate``: a list of global batches (``.npy``), each rank calibrating
+  on its rows of each (``qtt.calibrate_model``): the variables gathered
+  whole, and the collectives of the first step;
+* ``pack``: a global batch whose rows each rank packs with
+  (``qtt.pack_model``): the deploy variables gathered whole, and the packed
+  logits of this rank's rows of ``x``;
+* ``engine``: an ``InferenceEngine`` over the variables on the mesh, batch
+  ``batch``: the leader of each ``model`` group serves the images of ``x``
+  in its ``data`` rows; a follower's ``submit`` must raise, and its
+  ``stop()`` returns once the leader stops; ``follower_carry`` sets the
+  follower's packed carry dtype to another than the leader's before it
+  starts (it must serve under the leader's, and have its own back after);
+  ``silent`` instead leaves the leader idle without an engine, and the
+  follower's ``stop()`` must raise within ``follow_timeout_s`` (set as the
+  engine's ``_FOLLOW_TIMEOUT_S``);
+* ``runner``: the PTQ runner through ``execute_runner`` over a config file
+  and ``--opts``, on the mesh: its test result (rank 0 writes the
+  checkpoints, gathered whole, into the job's ``output_dir``).
 """
 import json
 
@@ -31,13 +51,14 @@ from quantize_tpu_torch.parallel.scaling import spawn_ranks
 TIMEOUT = 240.0
 
 WORKER = r"""
-import json, sys
+import json, sys, time
 import numpy as np, torch
 torch.set_num_threads(1)
 import quantize_tpu_torch as qtt
 from quantize_tpu_torch import convert, optim
 from quantize_tpu_torch.nn.variables import collections, trainable
-from quantize_tpu_torch.parallel import (CollectiveCounter, ShardedVariables, gather_variables,
+from quantize_tpu_torch.parallel import (CollectiveCounter, InferenceEngine, ShardedVariables,
+                                         gather_variables,
                                          init_distributed, make_mesh, rank_variables,
                                          shard_variables)
 from quantize_tpu_torch.runners.qat import TRAINABLE, loss_and_grads
@@ -83,16 +104,17 @@ for job in jobs:
         torch.cuda.set_device(rank % torch.cuda.device_count())
     mesh = make_mesh(dp, tp, devices=[f"cuda:{r % torch.cuda.device_count()}" if cuda
                                       else "cpu" for r in range(world)])
-    model = build(job, mesh.device)
-    v = torch.load(job["variables"], weights_only=True)
-    with CollectiveCounter() as load:
-        convert.from_jax_variables(model, shard_variables(mesh, v))
-    rep = {"load": load.counts, "split": sorted(
-        p for p, m in model.named_modules() if getattr(m, "tp_shard", None) is not None)}
-    x = torch.from_numpy(np.load(job["x"])).to(mesh.device)
-    n = x.shape[0] // dp
-    rows = slice(mesh.coords[0] * n, (mesh.coords[0] + 1) * n)
-    saved = {}
+    rep, saved = {}, {}
+    if "variables" in job:
+        model = build(job, mesh.device)
+        v = torch.load(job["variables"], weights_only=True)
+        with CollectiveCounter() as load:
+            convert.from_jax_variables(model, shard_variables(mesh, v))
+        rep = {"load": load.counts, "split": sorted(
+            p for p, m in model.named_modules() if getattr(m, "tp_shard", None) is not None)}
+        x = torch.from_numpy(np.load(job["x"])).to(mesh.device)
+        n = x.shape[0] // dp
+        rows = slice(mesh.coords[0] * n, (mesh.coords[0] + 1) * n)
     if "forward" in job:
         for mode in job["forward"]:
             with torch.no_grad(), CollectiveCounter() as c:
@@ -124,24 +146,108 @@ for job in jobs:
                             for k, t in t.items() if c in TRAINABLE}
     if "refuse" in job:
         before = snapshot(model)
-        refused = []
+        ran = []
         for what, call in (("calibrate", lambda: model(x[rows], mode="calibrate")),
                            ("pack", lambda: qtt.pack_model(model, x[rows],
                                                            device=mesh.device))):
-            try:
-                call()
-            except ValueError as exc:
-                refused.append([what, str(exc)])
+            call()
+            ran.append(what)
+        calibrated = snapshot(model)
+        rep["ran"] = ran
+        rep["changed"] = before.keys() != calibrated.keys() or any(
+            not torch.equal(before[k], calibrated[k]) for k in before)
+        refused = []
+        try:
+            model(x[rows], mode="init_adaround")
+        except ValueError as exc:
+            refused.append(["init_adaround", str(exc)])
         after = snapshot(model)
         rep["refused"] = refused
-        rep["unchanged"] = before.keys() == after.keys() and all(
-            torch.equal(before[k], after[k]) for k in before)
+        rep["unchanged"] = calibrated.keys() == after.keys() and all(
+            torch.equal(calibrated[k], after[k]) for k in calibrated)
     if "roundtrip" in job:
         back = gather_variables(mesh, shard_variables(mesh, v))
         rep["roundtrip"] = all(
             back[c][k].dtype == t.dtype and torch.equal(back[c][k].cpu(), t)
             for c, f in v.items() for k, t in f.items()) and back.keys() == v.keys()
         rep["roundtrip_leaves"] = sum(len(f) for f in v.values())
+    if "calibrate" in job:
+        for i, path in enumerate(job["calibrate"]):
+            xb = torch.from_numpy(np.load(path)).to(mesh.device)
+            nb = xb.shape[0] // dp
+            with CollectiveCounter() as c:
+                qtt.calibrate_model(model, [xb[mesh.coords[0] * nb:(mesh.coords[0] + 1) * nb]],
+                                    device=mesh.device)
+            if i == 0:
+                rep["calibrate"] = c.counts
+        saved["calibrated"] = {f"{c}/{k}": t for c, f in
+                               gather_variables(mesh, rank_variables(model)).items()
+                               for k, t in f.items()}
+    if "pack" in job:
+        xp = torch.from_numpy(np.load(job["pack"])).to(mesh.device)
+        npk = xp.shape[0] // dp
+        with CollectiveCounter() as c:
+            deploy = qtt.pack_model(model, xp[mesh.coords[0] * npk:(mesh.coords[0] + 1) * npk],
+                                    device=mesh.device)
+        rep["pack"] = c.counts
+        rep["pack_sharded"] = isinstance(deploy, ShardedVariables)
+        saved["deploy"] = {f"{c}/{k}": t for c, f in gather_variables(mesh, deploy).items()
+                           for k, t in f.items()}
+        with torch.no_grad():
+            saved["packed"] = model(x[rows], mode="packed")
+    if "engine" in job:
+        from quantize_tpu_torch.nn import precision
+        from quantize_tpu_torch.parallel import serving
+
+        if "follow_timeout_s" in job["engine"]:
+            serving._FOLLOW_TIMEOUT_S = job["engine"]["follow_timeout_s"]
+        eng = InferenceEngine(model, batch_size=job["engine"]["batch"], mesh=mesh,
+                              max_wait_ms=job["engine"].get("wait_ms", 20.0),
+                              device=mesh.device)
+        rep["leader"] = eng.is_leader
+        images = x[rows].numpy()
+        if job["engine"].get("silent"):
+            if not eng.is_leader:
+                eng.start()
+                t0 = time.perf_counter()
+                try:
+                    eng.stop()
+                except RuntimeError as exc:
+                    rep["follower_error"] = str(exc)
+                rep["follower_s"] = time.perf_counter() - t0
+            torch.distributed.barrier()
+        elif eng.is_leader:
+            with CollectiveCounter() as c:
+                with eng:
+                    futs = eng.submit_many(list(images))
+                    saved["served"] = torch.from_numpy(np.stack([f.result(timeout=120)
+                                                                 for f in futs]))
+            rep["engine"] = {**eng.stats(), "counts": c.counts}
+        else:
+            try:
+                eng.submit(images[0])
+            except RuntimeError as exc:
+                rep["submit_error"] = str(exc)
+            carry = job["engine"].get("follower_carry")
+            if carry:
+                precision.set_packed_carry_dtype(carry)
+            eng.start()
+            eng.stop()
+            rep["engine"] = eng.stats()
+            rep["follower_carry"] = str(precision.packed_carry_dtype())
+            precision.set_packed_carry_dtype(None)
+    if "runner" in job:
+        import argparse
+        from quantize_tpu_torch.cli import setup_cfg
+        from quantize_tpu_torch.runners import execute_runner
+        from quantize_tpu_torch.utils import set_random_seed
+
+        r = job["runner"]
+        cfg = setup_cfg(argparse.Namespace(cfg=r["cfg"], output_dir=r["output_dir"],
+                                           opts=r["opts"]))
+        set_random_seed(cfg.seed)
+        result = execute_runner(cfg, device="cpu", mesh=mesh)
+        rep["runner"] = result
     torch.save(host(saved), job["out"] + f".rank{rank}.pt")
     report[job["name"]] = rep
 torch.distributed.destroy_process_group()

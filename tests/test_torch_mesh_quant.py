@@ -11,9 +11,12 @@ gloo ranks on the CPU (``tests/_torch_mesh.py``), the counterpart of
 * The load that used to raise (a slice copied into the whole kernel): the
   port's own quant-mode variables (``qtt.init_model``, then
   ``convert.to_numpy``) on a ``(1, 2)`` mesh.
-* ``calibrate`` and ``pack`` on a split layer raise ValueError and change
-  nothing; ``gather_variables`` of ``shard_variables`` gives every leaf
-  back bit for bit (quant-mode and deploy variables).
+* ``calibrate`` and ``pack`` run on a split layer (they raised before
+  calibration and pack were ported to slices: ``tests/
+  test_torch_mesh_calibrate.py`` holds them against JAX);
+  ``init_adaround`` still raises ValueError and changes nothing;
+  ``gather_variables`` of ``shard_variables`` gives every leaf back bit for
+  bit (quant-mode and deploy variables).
 * The global masked loss: at ``(2, 1)`` with all of rank 1's labels at -1,
   the loss and gradients equal the one-device step on the whole batch (the
   port's and JAX's, ``tests/_torch_train_parity.py``'s criterion).
@@ -187,10 +190,24 @@ def test_own_quant_variables_load_on_a_model_sharded_mesh(ranks):
 
 
 def test_calibrate_and_pack_refuse_a_split_layer(ranks):
+    """Calibrate and pack used to raise on a split layer; they now run on
+    its slice and write the variables (the name is this test's since
+    before)."""
     reports, _ = ranks[0][2]
     for rank in range(2):
         rep = reports[rank]["refuse1x2"]
-        assert [what for what, _ in rep["refused"]] == ["calibrate", "pack"]
+        assert rep["split"] == LAYERS
+        assert rep["ran"] == ["calibrate", "pack"]
+        assert rep["changed"]
+
+
+def test_init_adaround_refuses_a_split_layer(ranks):
+    """``init_adaround`` still raises ValueError on a slice, before any
+    work."""
+    reports, _ = ranks[0][2]
+    for rank in range(2):
+        rep = reports[rank]["refuse1x2"]
+        assert [what for what, _ in rep["refused"]] == ["init_adaround"]
         assert all("slice of the out channels" in msg for _, msg in rep["refused"])
         assert rep["unchanged"]
 

@@ -10,7 +10,7 @@ equal the port's direct ``model(preprocess(x), mode="packed")`` bit for bit
 row by row), and JAX's within 1e-3 of max|logits| (the packed-parity
 criterion of ``tests/_torch_parity.py``: JAX's engine runs its forward
 under ``jit``). The mesh cases run on a one-device CPU mesh; a mesh of two
-devices is refused. Every engine runs in a context manager and every
+devices needs a process group of two. Every engine runs in a context manager and every
 ``result()`` has a timeout.
 """
 import queue
@@ -154,8 +154,9 @@ def test_serving_bounded_queue_backpressure(packed):
 
 def test_serving_on_mesh(packed):
     """A one-device mesh: the engine serves on the mesh's device; a mesh of
-    two ranks needs a process group of two, and a tensor-parallel mesh is
-    refused (its ranks would have to form the same batches)."""
+    two ranks, data- or tensor-parallel, needs a process group of two (the
+    tensor-parallel engine its mesh's model group: tests/
+    test_torch_mesh_engine.py serves there)."""
     mesh = make_mesh(1, 1, devices=[CPU])
     rng = np.random.default_rng(3)
     images = [rng.normal(size=(16, 16, 3)).astype(np.float32) for _ in range(8)]
@@ -168,8 +169,10 @@ def test_serving_on_mesh(packed):
         packed, images, batch_size=8, mesh=jax_make_mesh(dp=4, tp=1), max_wait_ms=50.0)))
     with pytest.raises(RuntimeError, match="needs torch.distributed initialised with 2"):
         InferenceEngine(port_model(), batch_size=8, mesh=make_mesh(2, 1, devices=[CPU, CPU]))
+    with pytest.raises(RuntimeError, match="needs torch.distributed initialised with 2"):
+        InferenceEngine(port_model(), batch_size=8, mesh=make_mesh(1, 2, devices=[CPU, CPU]))
     tp_mesh = SimpleNamespace(shape={"data": 1, "model": 2}, device=CPU)
-    with pytest.raises(ValueError, match="tensor-parallel mesh"):
+    with pytest.raises(RuntimeError, match="model group of 2 ranks"):
         InferenceEngine(port_model(), batch_size=8, mesh=tp_mesh)
 
 
