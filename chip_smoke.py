@@ -410,7 +410,55 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    its collectives, bytes and ms; pack s; the engine's img/s, broadcast bytes
    and ms a batch, all-gathers a batch. Both ranks share the card: no time
    here is a multi-card figure.
-14. Times (CUDA-event medians): each model's packed forward at f32 and bf16
+14. The QAT and AdaRound runners on a mesh (``runners.QAT`` and
+   ``runners.AdaRound`` with ``mesh=``): ResNet-18 at 224, 1,000 classes, the
+   synthetic dataset at that shape, two ranks spawned on the card over gloo
+   (``MESH_RUNNER_WORKER``) against one device in this process on the same
+   global batches, and that device's own movement when every batch it reads
+   is moved by an independent 1e-6 relative perturbation. 14a. The QAT
+   runner through ``execute_runner`` (``configs/runners/qat/base.yaml``, Adam
+   1e-5, ``calibrated_epoch`` 1, with ``QAT_QUANT_CFG``'s quant section, W8A8):
+   three global batches of 64, a calibration epoch over them, then three
+   training steps, at ``(2, 1)`` and ``(1, 2)``: the ranks' replicated
+   variables bit-equal (SHA-256) after every step; the collectives of each
+   step exact (a calibration step at ``(2, 1)`` 21 all-gathers, one a
+   quantizer reading rows, and the masked loss's all-reduce, at ``(1, 2)`` 21
+   all-gathers, one a split layer; a training step at ``(2, 1)`` the valid
+   count's and the gradients' all-reduces, at ``(1, 2)`` 21 all-gathers and
+   21 input-gradient all-reduces); the variables gathered after the first
+   training step, by collection, within twice one device's own movement
+   under three perturbations (phase 12's rule); rank 0's checkpoint
+   reloading on one device bit-equal to the ranks' final variables; the
+   test top-1 the same on both ranks. The ``(1, 2)``-trained model packed
+   on one device and served at ``(2, 1)`` and ``(1, 2)``, 32 a rank: logits
+   bit-equal to one device, launches by kernel and route equal to one
+   device's (K3 20, K1 1, KQ 21), every kernel call held against its plain
+   version. 14b. The AdaRound runner (``configs/runners/adaround/base.yaml``:
+   W4 per-channel MinMax weight-only, Adam 1e-3, β dynamic), two cached
+   global batches of 16, ``max_epoch`` 1: blockwise at ``(2, 1)`` and
+   ``(1, 2)``, joint at ``(2, 1)`` (2 steps), sequential at ``(1, 2)``: V
+   bit-equal on the ranks that replicate it; the layer order and
+   ``layer_losses`` the same on both ranks and the order one device's; the
+   rounding decisions floor(w / s - z) + [V >= 0] differing from one
+   device's in no more than twice as many weights as its own under two
+   perturbations (at least one: a count cannot resolve less), and V within
+   twice its own movement; the collectives of each layer's reconstruction
+   exact (at ``(2, 1)`` the element counts' and each step's gradient
+   all-reduce; at ``(1, 2)`` a split layer's gather a step and its
+   regularization's all-reduce, the whole head none), of each joint step
+   the two all-reduces, and each sequential input pass gathering exactly
+   the split layers before the layer it stops at on both ranks. The
+   ``(1, 2)`` blockwise model packed on its slices: its packed ints equal
+   to the AdaRound rounding (phase 7b's gate), served at ``(1, 2)`` bit-equal
+   to one device with K5's calls held against the plain version (every
+   deploy layer whole there: its weight-only convs pack for a float conv,
+   which the card sums in another order over half the out channels, and
+   its head as split-half int4). Printed:
+   the QAT step's CUDA-event ms at ``(1, 1)``, ``(2, 1)`` and ``(1, 2)``, the
+   AdaRound layer-step and joint step ms at each mesh, the collectives,
+   bytes and ms of each. Both ranks share the card: no time here is a
+   multi-card figure.
+15. Times (CUDA-event medians): each model's packed forward at f32 and bf16
    carry (ViT-B/32 also with int8 scores) beside its float32 forward (TF32
    off) as the yardstick, and each kernel at each of its main-path shapes
    beside its bound, its plain version and the nearest library call (K2
@@ -756,6 +804,25 @@ MESH_CALIB_ROWS = 32
 MESH_CALIB_STEPS = 4
 MESH_ENGINE_REQUESTS = 128
 MESH_CALIB_TIMEOUT = 420.0
+# phase 14: the QAT and AdaRound runners on a mesh (ResNet-18 at 224, 1,000
+# classes, synthetic data): QAT's global batch and its batches (one
+# calibration epoch over them, then as many training steps); AdaRound's
+# global batch (cut from base.yaml's 64: a (1, 2) sequential run gathers
+# every split layer's output once for each layer after it) and its cached
+# batches; the one-device runs perturbed for the noise floor
+QAT_BASE_CFG = "configs/runners/qat/base.yaml"
+QAT_QUANT_CFG = "configs/runners/ptq/minmax/ptq_rn18_w8a8_bnf_sym_chan_in1k_16shots.yaml"
+ADA_BASE_CFG = "configs/runners/adaround/base.yaml"
+MESH_RUNNER_IMAGE = 224
+MESH_QAT_BATCH = 64
+MESH_QAT_BATCHES = 3
+MESH_ADA_BATCH = 16
+MESH_ADA_BATCHES = 2
+MESH_ADA_RUNS = (("blockwise", 2, 1), ("blockwise", 1, 2), ("joint", 2, 1),
+                 ("sequential", 1, 2))
+MESH_RUNNER_SERVE = 32
+MESH_RUNNER_TIMEOUT = 600.0
+RESNET18_WO_PER_FWD = {"wo_gemm": 1}
 VIT_SERVE_BATCH = 128
 # phase 10, export: ResNeXt-50's and ViT-B/32's batch (earlier paths, cut
 # from 256), and the KQ launches of each dispatch-cost loop
@@ -2816,9 +2883,7 @@ def adaround_phase(qtt, card, dev) -> None:
     import torch
     import quantize_tpu_torch.runners as runners
     from quantize_tpu_torch.nn.variables import trainable
-    from quantize_tpu_torch.ops.qmatmul import unpack_int4_splithalf
     from quantize_tpu_torch.quant.adaround import rect_sigmoid
-    from quantize_tpu_torch.quant.pack import unpack_int4_pairs
     from quantize_tpu_torch.utils import Logger
 
     rng = np.random.default_rng(8)
@@ -2886,23 +2951,7 @@ def adaround_phase(qtt, card, dev) -> None:
 
         sample = torch.from_numpy(batches[0]["img"]).to(dev)
         qtt.pack_model(model, sample, device=dev)
-        n_ints = 0
-        for path, layer in layers.items():
-            q = layer.w_quantizer
-            w = layer.get_var("params", "kernel")
-            v_over = w / q.get_var("qparams", "scale") - q.get_var("qparams", "zero")
-            want = torch.clamp(torch.round(torch.floor(v_over)
-                                           + rect_sigmoid(q.get_var("adaround", "V"))),
-                               q.spec.qmin, q.spec.qmax)
-            if layer.has_var("packed", "w_p4c"):
-                got = unpack_int4_pairs(layer.get_var("packed", "w_p4c"), axis=2)
-            elif layer.has_var("packed", "w_p4"):
-                got = unpack_int4_splithalf(layer.get_var("packed", "w_p4"))
-            else:
-                got = layer.get_var("packed", "w_int")
-            check(bool(torch.equal(got.float(), want)),
-                  f"adaround: {path}: the packed ints are not the AdaRound rounding")
-            n_ints += want.numel()
+        n_ints = adaround_ints(layers, "adaround")
         log(f"adaround: the packed ints of all {len(layers)} layers ({n_ints} weights) equal "
             f"round(floor(w / s - z) + h(V)) bit for bit")
 
@@ -2923,6 +2972,35 @@ def adaround_phase(qtt, card, dev) -> None:
         torch.set_grad_enabled(True)
     del runner, model, requests, outs, rec
     torch.cuda.empty_cache()
+
+
+def adaround_ints(layers: dict, label: str) -> int:
+    """Check that every packed AdaRound layer of ``layers`` (``{path:
+    layer}``) holds round(floor(w / s - z) + h(V)), clamped to its grid,
+    bit for bit; returns the weights checked (phases 7b, 14b)."""
+    import torch
+    from quantize_tpu_torch.ops.qmatmul import unpack_int4_splithalf
+    from quantize_tpu_torch.quant.adaround import rect_sigmoid
+    from quantize_tpu_torch.quant.pack import unpack_int4_pairs
+
+    n_ints = 0
+    for path, layer in layers.items():
+        q = layer.w_quantizer
+        w = layer.get_var("params", "kernel")
+        v_over = w / q.get_var("qparams", "scale") - q.get_var("qparams", "zero")
+        want = torch.clamp(torch.round(torch.floor(v_over)
+                                       + rect_sigmoid(q.get_var("adaround", "V"))),
+                           q.spec.qmin, q.spec.qmax)
+        if layer.has_var("packed", "w_p4c"):
+            got = unpack_int4_pairs(layer.get_var("packed", "w_p4c"), axis=2)
+        elif layer.has_var("packed", "w_p4"):
+            got = unpack_int4_splithalf(layer.get_var("packed", "w_p4"))
+        else:
+            got = layer.get_var("packed", "w_int")
+        check(bool(torch.equal(got.float(), want)),
+              f"{label}: {path}: the packed ints are not the AdaRound rounding")
+        n_ints += want.numel()
+    return n_ints
 
 
 def train_cli_phase(card, dev) -> None:
@@ -4122,17 +4200,15 @@ def multi_device_phase(qtt, card) -> None:
 # the one card over gloo; writes rank 0's first-step gradients, the trained
 # variables and the packed deploy variables under ``job["dir"]``
 MESH_TRAIN_WORKER = r"""
-import contextlib, hashlib, json, sys, time
+import json, sys, time
 import torch
 import chip_smoke as cs
 import quantize_tpu_torch as qtt
 from quantize_tpu_torch import convert, optim
 from quantize_tpu_torch.nn.variables import trainable
-from quantize_tpu_torch.ops import reset_launch_counts
 from quantize_tpu_torch.parallel import (CollectiveCounter, ShardedVariables, gather_variables,
                                          init_distributed, make_mesh, rank_variables,
                                          shard_variables)
-from quantize_tpu_torch.parallel.scaling import _launch_census
 from quantize_tpu_torch.runners.qat import TRAINABLE, loss_and_grads
 
 rank, world, port = (int(a) for a in sys.argv[1:4])
@@ -4152,14 +4228,6 @@ report = {}
 def host(tree):
     return ({k: host(t) for k, t in tree.items()} if isinstance(tree, dict)
             else tree.detach().cpu())
-
-
-def digest(tensors):
-    h = hashlib.sha256()
-    for k in sorted(tensors):
-        h.update(k.encode())
-        h.update(tensors[k].detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()
 
 
 def same_on_ranks(value):
@@ -4212,8 +4280,8 @@ def train(mesh, rows, steps, tag):
             "loss": float(loss), "ms": start.elapsed_time(end), "wall_s": wall,
             "counts": c.counts, "bytes": c.nbytes, "staged": c.staged_bytes,
             "collective_ms": c.ms,
-            "same_all": same_on_ranks(digest(tr)),
-            "same_whole": same_on_ranks(digest({k: t for k, t in tr.items()
+            "same_all": same_on_ranks(cs.sha256(tr)),
+            "same_whole": same_on_ranks(cs.sha256({k: t for k, t in tr.items()
                                                 if k not in sliced}))})
         del grads
     out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
@@ -4221,43 +4289,8 @@ def train(mesh, rows, steps, tag):
 
 
 def serve_check(build, deploy, dp, tp, names, fused):
-    # the one-device forward of the global batch, then this rank's rows on
-    # the mesh: logits bit for bit, launches by kernel and route, every
-    # kernel call of the sharded forward held against its plain version
-    mesh = make_mesh(dp, tp, devices=devices)
-    model = build()
-    convert.from_jax_variables(model, deploy)
-    n = job["serve_batch"]
-    gen = torch.Generator(device=dev).manual_seed(120)
-    xg = torch.randn((n * dp, 224, 224, 3), generator=gen, device=dev)
-    rows = slice(mesh.coords[0] * n, (mesh.coords[0] + 1) * n)
-    switch = qtt.fused_residual(True) if fused else contextlib.nullcontext()
-    with torch.inference_mode(), switch:
-        model(xg, mode="packed")  # first call outside the counted run
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        ref = model(xg, mode="packed")[rows]
-        torch.cuda.synchronize()
-        one = _launch_census()
-        with CollectiveCounter() as load:
-            convert.from_jax_variables(model, shard_variables(mesh, deploy))
-        model(xg[rows], mode="packed")
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        with CollectiveCounter() as c:
-            got = model(xg[rows], mode="packed")
-            torch.cuda.synchronize()
-        ndev = _launch_census()
-        max_err = {}
-        with cs.Recorder() as rec:
-            model(xg[rows], mode="packed")
-        checked = cs.check_kernels([rec.calls], names, max_err)
-    return {"equal": bool(torch.equal(got, ref)), "n_differ": int((got != ref).sum()),
-            "max_abs": float((got.float() - ref.float()).abs().max()),
-            "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape),
-            "launches_1dev": one, "launches_ndev": ndev, "counts": c.counts,
-            "bytes": c.nbytes, "load": load.counts, "checked": checked, "max_err": max_err,
-            "split": sum(getattr(m, "tp_shard", None) is not None for m in model.modules())}
+    return cs.mesh_serve_check(qtt, build(), deploy, make_mesh(dp, tp, devices=devices), names,
+                               fused, job["serve_batch"])
 
 
 # 12b: data parallel, 16 rows a rank
@@ -4303,6 +4336,55 @@ report["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
 torch.distributed.destroy_process_group()
 print("MESHTRAIN " + json.dumps(report), flush=True)
 """
+
+
+def mesh_serve_check(qtt, model, deploy, mesh, names, fused: bool, n: int,
+                     seed: int = 120, image: int = 224) -> dict:
+    """Deploy variables served packed on a mesh (phases 12d, 12e, 14): the
+    one-device forward of a seeded global batch of ``n`` rows a ``data``
+    rank, then this rank's rows on ``mesh``; the logits, the launches by
+    kernel and route of each, the collectives, and every kernel call of
+    the sharded forward held against its plain version."""
+    import contextlib
+
+    import torch
+    from quantize_tpu_torch import convert
+    from quantize_tpu_torch.ops import reset_launch_counts
+    from quantize_tpu_torch.parallel import CollectiveCounter, shard_variables
+    from quantize_tpu_torch.parallel.scaling import _launch_census
+
+    convert.from_jax_variables(model, deploy)
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xg = torch.randn((n * mesh.shape["data"], image, image, 3), generator=gen, device=dev)
+    rows = slice(mesh.coords[0] * n, (mesh.coords[0] + 1) * n)
+    switch = qtt.fused_residual(True) if fused else contextlib.nullcontext()
+    with torch.inference_mode(), switch:
+        model(xg, mode="packed")  # first call outside the counted run
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ref = model(xg, mode="packed")[rows]
+        torch.cuda.synchronize()
+        one = _launch_census()
+        with CollectiveCounter() as load:
+            convert.from_jax_variables(model, shard_variables(mesh, deploy))
+        model(xg[rows], mode="packed")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        with CollectiveCounter() as c:
+            got = model(xg[rows], mode="packed")
+            torch.cuda.synchronize()
+        ndev = _launch_census()
+        max_err = {}
+        with Recorder() as rec:
+            model(xg[rows], mode="packed")
+        checked = check_kernels([rec.calls], names, max_err)
+    return {"equal": bool(torch.equal(got, ref)), "n_differ": int((got != ref).sum()),
+            "max_abs": float((got.float() - ref.float()).abs().max()),
+            "finite": bool(torch.isfinite(got).all()), "shape": list(got.shape),
+            "launches_1dev": one, "launches_ndev": ndev, "counts": c.counts,
+            "bytes": c.nbytes, "load": load.counts, "checked": checked, "max_err": max_err,
+            "split": sum(getattr(m, "tp_shard", None) is not None for m in model.modules())}
 
 
 def grad_gap(got: dict, ref: dict, keys) -> float:
@@ -4499,7 +4581,7 @@ def mesh_train_phase(qtt, card, clip_deploy) -> None:
 # the one card over gloo; rank 0 writes the calibrated variables it gathered
 # whole under ``job["dir"]``
 MESH_CALIB_WORKER = r"""
-import hashlib, json, sys, time
+import json, sys, time
 import numpy as np
 import torch
 import chip_smoke as cs
@@ -4534,14 +4616,6 @@ def host(tree):
 def flat(tree, cols=None):
     return {f"{c}/{k}": t for c, f in tree.items() for k, t in f.items()
             if cols is None or c in cols}
-
-
-def digest(tensors):
-    h = hashlib.sha256()
-    for k in sorted(tensors):
-        h.update(k.encode())
-        h.update(tensors[k].detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
-    return h.hexdigest()
 
 
 def same_on_ranks(value):
@@ -4579,7 +4653,7 @@ def calibrate(dp, tp, tag):
     observed = flat(whole, ("qparams", "qobs"))
     if rank == 0:
         torch.save(host(observed), f"{d}/{tag}.pt")
-    out = {"steps": steps, "same": same_on_ranks(digest(observed)), "rows": [lo, lo + n],
+    out = {"steps": steps, "same": same_on_ranks(cs.sha256(observed)), "rows": [lo, lo + n],
            "split": sum(getattr(m, "tp_shard", None) is not None for m in model.modules())}
     return mesh, model, whole, out
 
@@ -4831,6 +4905,583 @@ def mesh_calibrate_phase(qtt, card) -> None:
         f"the follower ran the same {follow['stats']['batches']} batches and ended [{card}]")
 
 
+# phase 14's two ranks (module docstring): 14a and 14b, one process a rank on
+# the one card over gloo; rank 0 writes, under ``job["dir"]``, the QAT
+# variables after the first training step and each AdaRound run's gathered
+# V, kernels and weight qparams
+MESH_RUNNER_WORKER = r"""
+import copy, json, sys, time
+import torch
+import chip_smoke as cs
+import quantize_tpu_torch as qtt
+import quantize_tpu_torch.runners as runners
+from quantize_tpu_torch import convert
+from quantize_tpu_torch.data import build_dataloader
+from quantize_tpu_torch.nn.variables import collections
+from quantize_tpu_torch.parallel import (CollectiveCounter, gather_variables, init_distributed,
+                                         make_mesh, rank_variables)
+
+rank, world, port = (int(a) for a in sys.argv[1:4])
+job = json.loads(sys.argv[4])
+torch.cuda.set_device(rank % torch.cuda.device_count())
+init_distributed(rank, world, port)
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", torch.cuda.current_device())
+devices = [f"cuda:{r % torch.cuda.device_count()}" for r in range(world)]
+d = job["dir"]
+report = {}
+
+
+def host(tree):
+    return ({k: host(t) for k, t in tree.items()} if isinstance(tree, dict)
+            else tree.detach().cpu())
+
+
+def flat(tree):
+    return {f"{c}/{k}": t for c, f in tree.items() for k, t in f.items()}
+
+
+def digests(model):
+    # this rank's variables, and those it holds whole (not a split layer's slice)
+    own = flat(collections(model))
+    spec = getattr(rank_variables(model), "spec", None) or {}
+    cut = {f"{c}/{k}" for c, t in spec.items() for k, s in t.items() if s}
+    return {"all": cs.sha256(own), "whole": cs.sha256({k: t for k, t in own.items()
+                                                        if k not in cut})}
+
+
+def timed(fn, *args):
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    with CollectiveCounter() as c:
+        out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, {"ms": start.elapsed_time(end), "counts": c.counts, "bytes": c.nbytes,
+                 "staged": c.staged_bytes, "collective_ms": c.ms}
+
+
+def qat(dp, tp, tag):
+    # 14a: the QAT runner through execute_runner, every step timed, counted
+    # and digested; the variables after the first training step gathered
+    mesh = make_mesh(dp, tp, devices=devices)
+    steps = []
+    train_step = runners.QAT.train_step
+
+    def step(self, batch, epoch, it, total_iters):
+        training = self.initialized
+        out, rec = timed(train_step, self, batch, epoch, it, total_iters)
+        rec.update(training=training, loss=out[0], **digests(self.model))
+        steps.append(rec)
+        if training and sum(st["training"] for st in steps) == 1:
+            first = flat(gather_variables(mesh, rank_variables(self.model)))
+            if rank == 0:
+                torch.save(host({k: t for k, t in first.items()
+                                 if k.startswith(("params/", "qparams/"))}),
+                           f"{d}/{tag}_step1.pt")
+        if it == total_iters - 1:
+            rec["final"] = cs.sha256(flat(gather_variables(mesh, rank_variables(self.model))))
+        return out
+
+    runners.QAT.train_step = step
+    try:
+        result = runners.execute_runner(cs.mesh_runner_cfg("qat", f"{d}/{tag}"), device=dev,
+                                        mesh=mesh)
+    finally:
+        runners.QAT.train_step = train_step
+    return {"steps": steps, "result": result}
+
+
+t0 = time.perf_counter()
+report["14a"] = {"2x1": qat(2, 1, "qat2x1"), "1x2": qat(1, 2, "qat1x2")}
+report["14a_s"] = time.perf_counter() - t0
+torch.cuda.empty_cache()
+quant = cs.mesh_runner_cfg("qat", d).quant
+
+
+def resnet18(q):
+    return qtt.MODELS.build("resnet18", num_classes=1000, ctx=qtt.QuantCtx(q), device=dev)
+
+
+# the (1, 2)-trained variables packed on one device (rank 0), served on both meshes
+gen = torch.Generator(device=dev).manual_seed(140)
+sample = torch.randn((8, cs.MESH_RUNNER_IMAGE, cs.MESH_RUNNER_IMAGE, 3), generator=gen,
+                     device=dev)
+if rank == 0:
+    one = resnet18(quant)
+    convert.from_jax_variables(one, torch.load(f"{d}/qat1x2/ckpt_last.pkl",
+                                               weights_only=True)["variables"])
+    torch.save(host(qtt.pack_model(one, sample, device=dev)), f"{d}/qat_deploy.pt")
+    del one
+torch.distributed.barrier()
+deploy = torch.load(f"{d}/qat_deploy.pt")
+report["14a_serve"] = {f"{dp}x{tp}": cs.mesh_serve_check(
+    qtt, resnet18(quant), deploy, make_mesh(dp, tp, devices=devices),
+    tuple(cs.RESNET18_PER_FWD), False, job["serve"], image=cs.MESH_RUNNER_IMAGE)
+    for dp, tp in ((2, 1), (1, 2))}
+del deploy
+torch.cuda.empty_cache()
+
+# 14b: the AdaRound runner, each run from a copy of one train loader (the
+# same global batches in the same order)
+loader = build_dataloader(cs.mesh_runner_cfg("adaround", d, "blockwise"), "train")
+
+
+def adaround(mode, dp, tp):
+    tag = f"{mode}{dp}x{tp}"
+    mesh = make_mesh(dp, tp, devices=devices)
+    runner = runners.build_runner(cs.mesh_runner_cfg("adaround", f"{d}/{tag}", mode),
+                                  copy.copy(loader), device=dev, mesh=mesh)
+    layers, stops, steps = [], [], []
+    reconstruct, quant_input, train_step = (runner.reconstruct_layer, runner._quant_input,
+                                            runner.train_step)
+
+    def layer_step(path, layer, pairs, steps_total):
+        loss, rec = timed(reconstruct, path, layer, pairs, steps_total)
+        layers.append({"path": path, "steps": steps_total, "split": layer.tp_shard is not None,
+                       **rec})
+        return loss
+
+    def counted_input(path, layer, img):
+        with CollectiveCounter() as c:
+            out = quant_input(path, layer, img)
+        stops.append([path, c.counts])
+        return out
+
+    def step(*args):
+        out, rec = timed(train_step, *args)
+        steps.append(rec)
+        return out
+
+    runner.reconstruct_layer, runner._quant_input, runner.train_step = (layer_step,
+                                                                        counted_input, step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    whole = flat(gather_variables(mesh, rank_variables(runner.model)))
+    if rank == 0:
+        torch.save(host({k: t for k, t in whole.items() if k.startswith("adaround/")
+                         or k.endswith(("/kernel", "w_quantizer/scale", "w_quantizer/zero"))}),
+                   f"{d}/{tag}.pt")
+    v = {k: t for k, t in collections(runner.model)["adaround"].items()}
+    spec = getattr(rank_variables(runner.model), "spec", None) or {}
+    cut = {k for k, s in spec.get("adaround", {}).items() if s}
+    out = {"layers": layers, "stops": stops, "steps": steps, "wall_s": wall,
+           "layer_losses": runner.layer_losses, "order": list(runner.layer_losses),
+           "v_all": cs.sha256(v), "v_whole": cs.sha256({k: t for k, t in v.items()
+                                                        if k not in cut}),
+           "split": sum(getattr(m, "tp_shard", None) is not None
+                        for m in runner.model.modules())}
+    return runner, mesh, out
+
+
+report["14b"] = {}
+for mode, dp, tp in cs.MESH_ADA_RUNS:
+    runner, mesh, report["14b"][f"{mode}{dp}x{tp}"] = adaround(mode, dp, tp)
+    if (mode, dp, tp) != ("blockwise", 1, 2):
+        del runner
+        torch.cuda.empty_cache()
+        continue
+    # the (1, 2) blockwise model packed on its slices: its ints against the
+    # rounding (rank 0, gathered whole), then served at (1, 2)
+    with CollectiveCounter() as c:
+        deploy = gather_variables(mesh, qtt.pack_model(runner.model, sample, device=dev))
+    rep = {"pack_counts": c.counts}
+    ada_quant = runner.cfg.quant
+    trained = gather_variables(mesh, rank_variables(runner.model))
+    if rank == 0:
+        one = qtt.MODELS.build("resnet18", num_classes=1000, ctx=qtt.QuantCtx(ada_quant),
+                               device=dev)
+        convert.from_jax_variables(one, trained)
+        convert.from_jax_variables(one, deploy)
+        ada_layers = {n.replace(".", "/"): m for n, m in one.named_modules()
+                      if hasattr(m, "w_quantizer") and m.w_quantizer.has_var("adaround", "V")}
+        rep["ints"] = cs.adaround_ints(ada_layers, "14b (1, 2) blockwise")
+        rep["ada_layers"] = len(ada_layers)
+        del one
+    del runner, trained
+    rep["serve"] = cs.mesh_serve_check(
+        qtt, qtt.MODELS.build("resnet18", num_classes=1000, ctx=qtt.QuantCtx(ada_quant),
+                              device=dev), deploy, make_mesh(1, 2, devices=devices),
+        tuple(cs.RESNET18_WO_PER_FWD), False, job["serve"], image=cs.MESH_RUNNER_IMAGE)
+    report["14b_pack"] = rep
+    del deploy
+    torch.cuda.empty_cache()
+report["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+torch.distributed.destroy_process_group()
+print("MESHRUNNER " + json.dumps(report), flush=True)
+"""
+
+
+def sha256(tensors: dict) -> str:
+    """A SHA-256 digest of ``{name: tensor}``: names and bytes, in name
+    order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        h.update(k.encode())
+        h.update(tensors[k].detach().reshape(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_runner_cfg(kind: str, out_dir, mode: str = ""):
+    """Phase 14's run config: the synthetic config (``RUNNER_CFG``, whose
+    chain holds ``QAT_QUANT_CFG``'s quant section) at ImageNet's shape, 224
+    x 224 and 1,000 classes, with ResNet-18 and QAT's or AdaRound's base
+    config (``reconstruction`` ``mode``), cut to ``MESH_QAT_BATCHES`` or
+    ``MESH_ADA_BATCHES`` global batches and one epoch."""
+    import argparse
+
+    from quantize_tpu_torch.cli import setup_cfg
+
+    qat = kind == "qat"
+    batch, batches = ((MESH_QAT_BATCH, MESH_QAT_BATCHES) if qat
+                      else (MESH_ADA_BATCH, MESH_ADA_BATCHES))
+    data = [f"{split}_dataset.{k}={v}" for split, n in (("train", batch * batches),
+                                                         ("val", 64), ("test", 64))
+            for k, v in (("image_size", MESH_RUNNER_IMAGE), ("num_classes", 1000), ("n", n))]
+    opts = ["model.name=resnet18", f"train_loader.batch_size={batch}",
+            "val_loader.batch_size=32", "test_loader.batch_size=32", "train.max_epoch=1",
+            "train.print_freq=1000", "train.eval_freq=0", *data]
+    if not qat:
+        opts += [f"runner.reconstruction={mode}", f"runner.max_cached_batches={batches}"]
+    return setup_cfg(argparse.Namespace(cfg=[RUNNER_CFG, QAT_BASE_CFG if qat else ADA_BASE_CFG],
+                                        output_dir=str(out_dir), opts=opts))
+
+
+def decisions(flat: dict):
+    """Every AdaRound weight's rounding decision, floor(w / s - z) + [V >=
+    0], over the layers of ``flat`` (``{"collection/path/leaf": tensor}``),
+    in one vector, and the V in another."""
+    import torch
+
+    dec, vs = [], []
+    for key in sorted(k for k in flat if k.startswith("adaround/")):
+        path = key[len("adaround/"):-len("/w_quantizer/V")]
+        v = flat[key].float()
+        w_over = (flat[f"params/{path}/kernel"] / flat[f"qparams/{path}/w_quantizer/scale"]
+                  - flat[f"qparams/{path}/w_quantizer/zero"])
+        dec.append((torch.floor(w_over) + (v >= 0)).reshape(-1))
+        vs.append(v.reshape(-1))
+    return torch.cat(dec), torch.cat(vs)
+
+
+def mesh_runner_refs(qtt, dev) -> tuple:
+    """Phase 14's one-device runs in this process: the QAT runner (its
+    variables after the first training step) and each AdaRound
+    reconstruction, on the same global batches as the ranks, and again with
+    every batch the runs read moved by an independent 1e-6 relative
+    perturbation (QAT three times, each to its first training step;
+    AdaRound twice a mode): their variables and times."""
+    import copy
+    import tempfile
+
+    import torch
+    import quantize_tpu_torch.runners as runners
+    from quantize_tpu_torch.data import build_dataloader
+    from quantize_tpu_torch.nn.variables import collections
+    from quantize_tpu_torch.utils import Logger
+
+    class Stop(Exception):
+        pass
+
+    def run(kind, mode, seed, out_dir):
+        cfg = mesh_runner_cfg(kind, out_dir, mode)
+        runner = runners.build_runner(cfg, copy.copy(loaders[kind]), device=dev)
+        rec = {"layer_ms": [], "step_ms": []}
+
+        def variables():
+            return {f"{c}/{k}": t.detach().clone() for c, f in collections(runner.model).items()
+                    if c in ("params", "qparams", "adaround") for k, t in f.items()}
+
+        if seed is not None:
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            prefetch = runner._prefetch
+
+            def perturbed(loader):
+                for b in prefetch(loader):
+                    yield {**b, "img": b["img"] * (1 + 1e-6 * torch.randn(
+                        b["img"].shape, generator=gen, device=dev))}
+
+            runner._prefetch = perturbed
+
+        def timed(fn, into):
+            def call(*args):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args)
+                end.record()
+                end.synchronize()
+                into.append(start.elapsed_time(end))
+                return out
+            return call
+
+        if kind == "qat":
+            train_step = runner.train_step
+
+            def step(*args):
+                training = runner.initialized
+                out = timed(train_step, rec["step_ms"] if training else [])(*args)
+                if training and len(rec["step_ms"]) == 1:
+                    rec["vars"] = variables()
+                    if seed is not None:  # a perturbed run ends at its first step
+                        raise Stop
+                return out
+
+            runner.train_step = step
+        else:
+            runner.reconstruct_layer = timed(runner.reconstruct_layer, rec["layer_ms"])
+            runner.train_step = timed(runner.train_step, rec["step_ms"])
+        try:
+            runner.run()
+        except Stop:
+            pass
+        torch.cuda.synchronize()
+        rec.setdefault("vars", variables())
+        rec["order"] = list(getattr(runner, "layer_losses", {}))
+        return rec
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        Logger(out_dir)
+        loaders = {kind: build_dataloader(mesh_runner_cfg(kind, out_dir, "blockwise"), "train")
+                   for kind in ("qat", "adaround")}
+        qat = [run("qat", "", seed, f"{out_dir}/qat{i}")
+               for i, seed in enumerate([None, 141, 142, 143])]
+        ada = {mode: [run("adaround", mode, seed, f"{out_dir}/{mode}{i}")
+                      for i, seed in enumerate([None, 144, 145])]
+               for mode in sorted({m for m, _, _ in MESH_ADA_RUNS})}
+    Logger(None)
+    return qat, ada
+
+
+def mesh_runner_phase(qtt, card) -> None:
+    """Phase 14 (module docstring): the QAT and AdaRound runners on two ranks
+    of the one card at ``(2, 1)`` and ``(1, 2)``, held against one device
+    in this process and its own movement under 1e-6 input perturbations."""
+    import tempfile
+
+    import torch
+    import quantize_tpu_torch.runners as runners
+    from quantize_tpu_torch.nn.variables import collections
+    from quantize_tpu_torch.parallel.scaling import spawn_ranks
+    from quantize_tpu_torch.utils import Config, Logger
+
+    dev = torch.device("cuda", 0)
+    quant = Config()
+    quant.merge_from_yaml(QAT_QUANT_CFG)
+    cfg = mesh_runner_cfg("qat", "unused")
+    check(cfg.quant.to_dict() == quant.quant.to_dict() and cfg.optimizer.name == "adam"
+          and float(cfg.optimizer.lr) == 1e-5 and cfg.train.calibrated_epoch == 1,
+          f"14a: the QAT config is not {QAT_BASE_CFG} with {QAT_QUANT_CFG}'s quant section")
+    t0 = time.time()
+    qat_refs, ada_refs = mesh_runner_refs(qtt, dev)
+    log(f"phase 14: one-device runs of the QAT runner (to its first training step) and the "
+        f"AdaRound runner (blockwise, joint, sequential), each also under 1e-6 input "
+        f"perturbations, {time.time() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as d:
+        Logger(d)
+        job = {"dir": d, "serve": MESH_RUNNER_SERVE, "ada_batch": MESH_ADA_BATCH}
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        outs = spawn_ranks(2, MESH_RUNNER_WORKER, [json.dumps(job)], timeout=MESH_RUNNER_TIMEOUT)
+        wall = time.time() - t0
+        reports = [json.loads(next(ln for ln in out.splitlines()
+                                   if ln.startswith("MESHRUNNER "))[11:]) for out in outs]
+        step1 = {tag: torch.load(f"{d}/qat{tag}_step1.pt") for tag in ("2x1", "1x2")}
+        ada = {f"{m}{dp}x{tp}": torch.load(f"{d}/{m}{dp}x{tp}.pt") for m, dp, tp in MESH_ADA_RUNS}
+        reloaded = {}
+        for tag in ("2x1", "1x2"):
+            one = runners.build_runner(mesh_runner_cfg("qat", f"{d}/reload"), device=dev)
+            one.load_checkpoint(f"{d}/qat{tag}/ckpt_last.pkl")
+            reloaded[tag] = sha256({f"{c}/{k}": t for c, f in collections(one.model).items()
+                                    for k, t in f.items()})
+            del one
+    Logger(None)  # the runs' log files went with their directories
+    log(f"phase 14a-14b: two ranks on the one card over gloo, {wall:.1f} s with start-up "
+        f"(14a {reports[0]['14a_s']:.1f} s); peak allocated a rank "
+        f"{[round(r['peak_gib'], 2) for r in reports]} GiB [{card}]")
+
+    # 14a: the QAT runner
+    ref_vars, *moved_vars = [{k: t.cpu() for k, t in r["vars"].items()} for r in qat_refs]
+    one_ms = ", ".join(f"{t:.1f}" for t in qat_refs[0]["step_ms"])
+    log(f"time: phase 14a (1, 1), the QAT runner's training steps (resnet18 W8A8, batch "
+        f"{MESH_QAT_BATCH} at {MESH_RUNNER_IMAGE}, Adam 1e-5): {one_ms} ms by CUDA events "
+        f"[{card}]")
+    want_calib = {"2x1": {"all-gather": 21, "all-reduce": 1}, "1x2": {"all-gather": 21}}
+    want_train = {"2x1": {"all-reduce": 2}, "1x2": {"all-gather": 21, "all-reduce": 21}}
+    for tag, mesh in (("2x1", "(2, 1)"), ("1x2", "(1, 2)")):
+        recs = [r["14a"][tag] for r in reports]
+        check(recs[0]["result"] == recs[1]["result"] and 0.0 <= recs[0]["result"]["top1"] <= 100
+              and recs[0]["result"]["n"] == 64,
+              f"14a {mesh}: test results {[r['result'] for r in recs]}")
+        steps = [r["steps"] for r in recs]
+        check([st["training"] for st in steps[0]] == [False] * MESH_QAT_BATCHES
+              + [True] * MESH_QAT_BATCHES, f"14a {mesh}: steps {len(steps[0])}")
+        for i, (a, b) in enumerate(zip(*steps)):
+            # every variable replicated over data at (2, 1); the whole ones at (1, 2)
+            check(a["whole"] == b["whole"] and (tag == "1x2" or a["all"] == b["all"]),
+                  f"14a {mesh}: the ranks' replicated variables differ after step {i + 1}")
+            for st in (a, b):
+                want = want_train[tag] if st["training"] else want_calib[tag]
+                check(st["counts"] == want,
+                      f"14a {mesh}: step {i + 1} ran collectives {st['counts']}, not {want}")
+                check(math.isfinite(st["loss"]), f"14a {mesh}: step {i + 1} loss {st['loss']}")
+            check(a["loss"] == b["loss"], f"14a {mesh}: the ranks report other losses")
+        check(steps[0][-1]["final"] == reloaded[tag],
+              f"14a {mesh}: rank 0's checkpoint does not reload bit-equal on one device")
+        for col in ("params", "qparams"):
+            keys = sorted(k for k in ref_vars if k.startswith(col + "/"))
+            gap = grad_gap(step1[tag], ref_vars, keys)
+            own = [grad_gap(m, ref_vars, keys) for m in moved_vars]
+            log(f"phase 14a {mesh}: {col} after the first training step, |mesh - one device| / "
+                f"|one device| {gap:.3e}; one device's own under 1e-6 input perturbations "
+                f"{', '.join(f'{m:.3e}' for m in own)}")
+            check(gap <= 2 * max(own), f"14a {mesh}: the {col} moved beyond twice one "
+                  f"device's own movement")
+        for i, st in enumerate(steps[0]):
+            what = "training" if st["training"] else "calibration"
+            log(f"time: phase 14a {mesh}, {what} step {i + 1}: {st['ms']:.1f} ms by CUDA events, "
+                f"loss {st['loss']:.6f}; collectives {st['counts']}, {st['bytes']} bytes "
+                f"reduced or gathered, {st['staged']} bytes staged through pinned host memory, "
+                f"{st['collective_ms']:.1f} ms in them [{card}; two ranks share the card]")
+        log(f"phase 14a {mesh}: execute_runner's test top-1 {recs[0]['result']['top1']:.2f}% "
+            f"over {recs[0]['result']['n']} on both ranks; the ranks' replicated variables "
+            f"bit-equal (SHA-256) after each of {len(steps[0])} steps; rank 0's checkpoint "
+            f"reloads on one device bit-equal")
+    for tag in ("2x1", "1x2"):
+        for rank, r in enumerate(reports):
+            rep = r["14a_serve"][tag]
+            lbl = f"14a the trained resnet18 W8A8 ({tag[0]}, {tag[2]}) rank {rank}"
+            check(rep["finite"] and rep["shape"] == [MESH_RUNNER_SERVE, 1000],
+                  f"{lbl}: logits {rep['shape']} not finite or of the wrong shape")
+            check(rep["equal"], f"{lbl}: {rep['n_differ']} logits differ from the one-device "
+                  f"forward (max abs {rep['max_abs']})")
+            check(rep["launches_ndev"] == rep["launches_1dev"],
+                  f"{lbl}: launches {rep['launches_ndev']} differ from one device's")
+            for name, k in RESNET18_PER_FWD.items():
+                check(rep["launches_ndev"][name] == k,
+                      f"{lbl}: {name} launched {rep['launches_ndev'][name]} times, not {k}")
+            check(rep["checked"] > 0, f"{lbl}: no kernel call held against its plain version")
+        rep = reports[0]["14a_serve"][tag]
+        log(f"phase 14a ({tag[0]}, {tag[2]}): the (1, 2)-trained resnet18 W8A8 packed, "
+            f"{MESH_RUNNER_SERVE} a rank: both ranks' logits bit-equal to the one-device forward; "
+            f"launches a forward {dict((k, v) for k, v in rep['launches_ndev'].items() if v)} "
+            f"equal to one device's; {rep['split']} layers on a slice, collectives "
+            f"{rep['counts']} ({rep['bytes']} bytes); {rep['checked']} kernel calls held "
+            f"against their plain versions, max abs err {rep['max_err']}")
+
+    # 14b: the AdaRound runner
+    for mode, refs in sorted(ada_refs.items()):
+        # a layer's reconstruction runs MESH_ADA_BATCHES steps (max_epoch 1)
+        ms = ([t / MESH_ADA_BATCHES for t in refs[0]["layer_ms"]] if refs[0]["layer_ms"]
+              else refs[0]["step_ms"])
+        what = "layer-step" if refs[0]["layer_ms"] else "joint step"
+        log(f"time: phase 14b (1, 1), adaround {mode} (resnet18 W4 weight-only, batch "
+            f"{MESH_ADA_BATCH} at {MESH_RUNNER_IMAGE}): median {statistics.median(ms):.2f} ms a "
+            f"{what} (of {len(ms)}: {min(ms):.2f}-{max(ms):.2f}) [{card}]")
+    for mode, dp, tp in MESH_ADA_RUNS:
+        tag, mesh = f"{mode}{dp}x{tp}", f"({dp}, {tp})"
+        recs = [r["14b"][tag] for r in reports]
+        check(recs[0]["order"] == recs[1]["order"]
+              and recs[0]["layer_losses"] == recs[1]["layer_losses"],
+              f"14b {mode} {mesh}: the ranks' layer order or losses differ")
+        check(recs[0]["v_whole"] == recs[1]["v_whole"]
+              and (tp > 1 or recs[0]["v_all"] == recs[1]["v_all"]),
+              f"14b {mode} {mesh}: V differs between the ranks that replicate it")
+        refs = ada_refs[mode]
+        d_ref, v_ref = decisions(refs[0]["vars"])
+        d_mesh, v_mesh = decisions({k: t.to(dev) for k, t in ada[tag].items()})
+        own = [decisions(r["vars"]) for r in refs[1:]]
+        differ = int((d_mesh != d_ref).sum())
+        own_differ = [int((dd != d_ref).sum()) for dd, _ in own]
+        gap = float((v_mesh - v_ref).norm())
+        own_gap = [float((vv - v_ref).norm()) for _, vv in own]
+        log(f"phase 14b {mode} {mesh}: rounding decisions differing from one device's "
+            f"{differ} of {d_ref.numel()}; one device's own under 1e-6 input perturbations "
+            f"{own_differ}; |V_mesh - V_1| {gap:.3e}, its own "
+            f"{', '.join(f'{g:.3e}' for g in own_gap)}")
+        # a count below one decision cannot be told apart
+        check(differ <= 2 * max(max(own_differ), 1),
+              f"14b {mode} {mesh}: {differ} decisions differ from one device's, beyond twice "
+              f"its own {own_differ}")
+        check(gap <= 2 * max(own_gap), f"14b {mode} {mesh}: V moved beyond twice one "
+              f"device's own movement")
+        if mode != "joint":
+            check(recs[0]["order"] == refs[0]["order"] and len(recs[0]["order"]) == 21,
+                  f"14b {mode} {mesh}: layer order {recs[0]['order'][:3]}... not one device's")
+            per_layer = {"2x1": {"all-reduce": 1 + MESH_ADA_BATCHES}}
+            for r in recs:
+                for lay in r["layers"]:
+                    want = ({"all-gather": lay["steps"], "all-reduce": 1} if lay["split"] else {}
+                            ) if tp > 1 else per_layer["2x1"]
+                    check(lay["counts"] == want, f"14b {mode} {mesh}: {lay['path']} ran "
+                          f"collectives {lay['counts']}, not {want}")
+            lay_ms = [lay["ms"] / lay["steps"] for lay in recs[0]["layers"]]
+            log(f"time: phase 14b {mode} {mesh}: median {statistics.median(lay_ms):.2f} ms a "
+                f"layer-step ({min(lay_ms):.2f}-{max(lay_ms):.2f}; {len(lay_ms)} layers x "
+                f"{recs[0]['layers'][0]['steps']} steps), "
+                f"{recs[0]['wall_s']:.1f} s the run; collectives a split layer "
+                f"{next((lay['counts'] for lay in recs[0]['layers'] if lay['split']), {})} "
+                f"(a layer at (2, 1) {per_layer['2x1']}), "
+                f"{sum(lay['bytes'] for lay in recs[0]['layers'])} bytes, "
+                f"{sum(lay['collective_ms'] for lay in recs[0]['layers']):.1f} ms in them "
+                f"[{card}; two ranks share the card]")
+        if mode == "sequential":
+            split = {lay["path"]: lay["split"] for lay in recs[0]["layers"]}
+            order = recs[0]["order"]
+            for r in recs:
+                check(r["stops"] == recs[0]["stops"], f"14b sequential {mesh}: the ranks' input "
+                      f"passes ran other collectives")
+                for path, counts in r["stops"]:
+                    before = sum(split[p] for p in order[:order.index(path)])
+                    want = {"all-gather": before} if before else {}
+                    check(counts == want, f"14b sequential {mesh}: {path}'s input pass ran "
+                          f"{counts}, not {want}")
+            log(f"phase 14b sequential {mesh}: every input pass stopped before its layer on both "
+                f"ranks, having gathered the split layers before it and nothing more "
+                f"({len(recs[0]['stops'])} passes)")
+        if mode == "joint":
+            for r in recs:
+                for st in r["steps"]:
+                    check(st["counts"] == {"all-reduce": 2}, f"14b joint {mesh}: a step ran "
+                          f"{st['counts']}, not the tap counts' and the gradients' all-reduces")
+            step_ms = ", ".join(f"{st['ms']:.1f}" for st in recs[0]["steps"])
+            log(f"time: phase 14b joint {mesh}: {step_ms} ms a step by CUDA "
+                f"events, collectives {recs[0]['steps'][0]['counts']} "
+                f"({recs[0]['steps'][0]['bytes']} bytes) [{card}; two ranks share the card]")
+    pack = reports[0]["14b_pack"]
+    check(pack["ints"] > 0 and pack["ada_layers"] == 21,
+          f"14b: {pack['ada_layers']} packed AdaRound layers checked")
+    for rank, r in enumerate(reports):
+        rep = r["14b_pack"]["serve"]
+        lbl = f"14b the AdaRound resnet18 W4 (1, 2) rank {rank}"
+        check(rep["finite"] and rep["equal"], f"{lbl}: {rep['n_differ']} logits differ from "
+              f"the one-device forward")
+        check(rep["launches_ndev"] == rep["launches_1dev"]
+              and rep["launches_ndev"]["wo_gemm"] == RESNET18_WO_PER_FWD["wo_gemm"],
+              f"{lbl}: launches {rep['launches_ndev']} against one device's")
+        check(rep["checked"] > 0, f"{lbl}: no K5 call held against its plain version")
+        # its convs pack for the float weight-only conv, its head as split-half int4
+        check(rep["split"] == 0, f"{lbl}: {rep['split']} deploy layers on a slice")
+    rep = reports[0]["14b_pack"]
+    log(f"phase 14b (1, 2) blockwise: packed on its slices ({rep['pack_counts']}); the packed "
+        f"ints of all {pack['ada_layers']} layers ({pack['ints']} weights) equal round(floor(w / s "
+        f"- z) + h(V)); served at (1, 2), {MESH_RUNNER_SERVE} a rank, every layer whole (the "
+        f"weight-only convs are float convs; {rep['serve']['load']} at load), logits bit-equal "
+        f"to one device, launches "
+        f"{dict((k, v) for k, v in rep['serve']['launches_ndev'].items() if v)}, "
+        f"{rep['serve']['checked']} K5 calls held against the plain version, max abs err "
+        f"{rep['serve']['max_err']}")
+
+
 def main() -> int:
     import torch
 
@@ -4966,6 +5617,9 @@ def main() -> int:
     t0 = time.time()
     mesh_calibrate_phase(qtt, card)
     log(f"calibrate and pack on a mesh phase {time.time() - t0:.1f} s")
+    t0 = time.time()
+    mesh_runner_phase(qtt, card)
+    log(f"QAT and AdaRound runners on a mesh phase {time.time() - t0:.1f} s")
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
         "ResNeXt-50's, "

@@ -45,11 +45,12 @@ W·static - W_hat to the bias in quant mode and at pack time.
 
 On a model-sharded mesh (:mod:`~quantize_tpu_torch.parallel.tensor_parallel`)
 a layer set to run on its slice of the out channels (``tp_shard``) runs
-``packed``, ``fp32``, ``quant``, ``calibrate`` and ``pack`` there (forward
-and backward in the training modes), each gathering its output whole:
-``calibrate`` observes the whole input and the weight's slice, ``pack``
-writes the slice's deploy buffers. ``init_adaround`` raises ValueError
-before any work. On a mesh with more than one ``data`` rank, calibration
+every mode there (forward and backward in the training modes), each
+gathering its output whole: ``calibrate`` observes the whole input and the
+weight's slice, ``pack`` writes the slice's deploy buffers,
+``init_adaround`` writes the slice's ``V`` (elementwise in the slice's
+kernel and per-channel qparams: the slice of one device's ``V``, bit for
+bit). On a mesh with more than one ``data`` rank, calibration
 reduces every observer over ``data`` (``data_group``; the bias corrector's
 batch mean too).
 """
@@ -178,12 +179,6 @@ class _QuantLayerBase(VarModule):
             return self._parameters[attr]
         return super().put_var(collection, leaf, value)
 
-    def _refuse_split(self, mode: str) -> None:
-        if self.tp_shard is not None:
-            raise ValueError(f"{type(self).__name__}: mode {mode!r} does not run on a slice of "
-                             f"the out channels (a model-sharded mesh); fp32, quant, calibrate, "
-                             f"pack and packed do. Load the variables whole to {mode}")
-
     def init_params(self, generator: torch.Generator) -> None:
         kernel = self.get_var("params", "kernel")
         lecun_normal_(kernel, int(math.prod(kernel.shape[:-1])), generator)
@@ -221,8 +216,6 @@ class _QuantLayerBase(VarModule):
 
     def _run(self, x: torch.Tensor, mode: str) -> torch.Tensor:
         shard = self.tp_shard
-        if mode == "init_adaround":
-            self._refuse_split(mode)
         kernel, bias = self.get_var("params", "kernel"), self._bias()
         if mode == "calibrate":
             # on a slice: the activation observer sees the whole input, the

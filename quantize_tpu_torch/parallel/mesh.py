@@ -85,6 +85,13 @@ class Mesh:
         return f"Mesh({self.shape}, rank {self.rank}, {list(self.devices.flat)})"
 
 
+def axis_group(mesh: Optional[Mesh], axis: str):
+    """``mesh``'s gloo group along ``axis`` (``"data"`` or ``"model"``)
+    where that axis has two ranks or more; else None (no mesh, or nothing to
+    reduce over)."""
+    return mesh.groups[axis] if mesh is not None and mesh.shape[axis] > 1 else None
+
+
 def make_mesh(dp: int = 1, tp: int = 1, devices: Optional[Sequence] = None) -> Mesh:
     """A ``(data=dp, model=tp)`` mesh. One device: the first of ``devices``
     (default: the visible CUDA devices). More: every process of a

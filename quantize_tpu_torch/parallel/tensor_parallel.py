@@ -47,7 +47,13 @@ Modes on a slice:
   the same as one device's).
 * ``pack``: the slice's deploy buffers (``put_var`` rebuilds the kernels'
   copies from them), then the float output gathered.
-* ``init_adaround`` raises ValueError before any work.
+* ``init_adaround``: the activation quantizer on the whole input, the
+  weight quantizer writing the slice's ``V`` from the slice's kernel and
+  per-channel ``scale``/``zero`` (a per-tensor quantizer's whole ones),
+  elementwise, so the slice of one device's ``V`` bit for bit; then the
+  float output gathered. AdaRound's regularization of a slice takes the
+  whole ``V``'s element count
+  (:func:`~quantize_tpu_torch.quant.adaround.regularization`).
 
 Loading onto any mesh of two ranks or more also gives every quantizer, and
 every layer's bias corrector, the ``data`` group where the mesh has more
@@ -57,8 +63,13 @@ global array). A mesh of one rank, or no mesh, sets no group.
 
 A layer whose out-channel split is not a per-channel function runs whole:
 grouped and depthwise convs (K3g, the float depthwise path), the
-projections of an attention block (K8/K9 read the fused q/k/v), and dense
-layers whose weights pack as split-half int4 (K4's ``w_p4``). Its sharded
+projections of an attention block (K8/K9 read the fused q/k/v), dense
+layers whose weights pack as split-half int4 (K4's ``w_p4``), and a conv
+loaded with deploy variables whose packed forward is a float conv (the
+weight-only, per-channel-activation and AWQ layouts: on the card the
+library's conv over half the out channels sums in another order, so only
+K3's int32 sums split bit for bit; with float variables it splits for
+training). Its sharded
 leaves, like those of every other module (norms, embeddings, observers),
 are gathered back whole when the variables are loaded. Every gather and
 reduce counts as a collective (:class:`~.scaling.CollectiveCounter`).
@@ -276,6 +287,9 @@ def _splits(layer, spec: Mapping[str, Any], in_attention: bool) -> bool:
         return False
     if isinstance(layer, QuantDense) and layer._use_p4(layer.in_features):
         return False  # its packed weights are split-half int4: whole in every mode
+    if isinstance(layer, QuantConv) and ("w_int" in spec or "w_p4c" in spec) and (
+            not layer.a_spec.enabled or layer.a_spec.per_channel or "awq_recip" in spec):
+        return False  # its packed forward is a float conv (K3 takes per-tensor int8 only)
     weight = next((spec[k] for k in ("w_int", "w_p4c", "kernel") if k in spec), ())
     return "model" in weight and (not isinstance(layer, QuantConv)
                                   or layer.feature_group_count == 1)
@@ -367,8 +381,9 @@ def set_data_group(model: torch.nn.Module, mesh) -> None:
     docstring)."""
     from ..nn.layers import _QuantLayerBase
     from ..nn.quantizer import Quantizer
+    from .mesh import axis_group
 
-    group = mesh.groups["data"] if mesh is not None and mesh.shape["data"] > 1 else None
+    group = axis_group(mesh, "data")
     for m in model.modules():
         if isinstance(m, (Quantizer, _QuantLayerBase)):
             m.data_group = group

@@ -20,7 +20,7 @@ JAX's numbers:
 """
 from __future__ import annotations
 
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -45,14 +45,21 @@ def init_v(x_over_scale: torch.Tensor, gamma: float = GAMMA, zeta: float = ZETA)
 
 
 def regularization(v: torch.Tensor, beta: Union[float, torch.Tensor], gamma: float = GAMMA,
-                   zeta: float = ZETA, reduction: str = "mean") -> torch.Tensor:
+                   zeta: float = ZETA, reduction: str = "mean",
+                   numel: Optional[int] = None) -> torch.Tensor:
+    """Σ(1 − |2h(V)−1|^β), or its mean over ``numel`` elements (default
+    ``v.numel()``). ``v`` may be a rank's slice of a V split over the
+    ``model`` axis of a mesh: with ``numel`` the whole V's element count,
+    the mean is then the slice's share of the whole V's mean (JAX's
+    ``jnp.mean`` over a sharded V), whose gradient is the slice of the whole
+    gradient; the shares summed over ``model`` give its value."""
     h = rect_sigmoid(v, gamma, zeta)
     # beta as a float32 tensor on v's device, as JAX's traced beta: the
     # power and its gradient then take the general path
     beta = torch.as_tensor(beta, dtype=torch.float32, device=v.device)
     reg = 1.0 - torch.pow(torch.abs(2.0 * h - 1.0), beta)
     if reduction == "mean":
-        return reg.sum() / reg.new_full((), float(reg.numel()))
+        return reg.sum() / reg.new_full((), float(reg.numel() if numel is None else numel))
     if reduction == "sum":
         return reg.sum()
     return reg

@@ -28,7 +28,7 @@ RUNNERS.register_dict({"ptq": PTQ, "qat": QAT, "adaround": AdaRound})
 def build_runner(cfg, train_loader=None, val_loader=None, test_loader=None,
                  device="cuda", mesh=None) -> BasicRunner:
     """The runner ``cfg.runner.name`` names; with ``mesh`` (every rank of it
-    builds the same runner) it runs on the ranks (the PTQ runner)."""
+    builds the same runner) it runs on the ranks (PTQ, QAT and AdaRound)."""
     name = cfg.runner.name if cfg.runner else "ptq"
     cls = RUNNERS.lookup(name)
     return cls(cfg, train_loader, val_loader, test_loader, device=device, mesh=mesh)
@@ -67,7 +67,9 @@ def execute_runner(cfg, device="cuda", mesh=None) -> Optional[dict]:
             from ..parallel.fault import HealthMonitor, Heartbeat
             from .resume import supervised_run
 
-            hb_path = os.path.join(cfg.output_dir or "results", "p0.heartbeat")
+            # one heartbeat a rank (p<rank>.heartbeat), so that a wedged rank shows
+            rank = mesh.rank if mesh is not None else 0
+            hb_path = os.path.join(cfg.output_dir or "results", f"p{rank}.heartbeat")
             result_sup = supervised_run(
                 lambda attempt: runner if attempt == 0 else build_runner(
                     cfg, _loader(cfg, "train"), val_loader, test_loader, device=device,
@@ -76,7 +78,7 @@ def execute_runner(cfg, device="cuda", mesh=None) -> Optional[dict]:
                 backoff_s=float(elastic.backoff_s or 0.5),
                 ckpt_every_epochs=int(elastic.ckpt_every_epochs or 1),
                 monitor_factory=(HealthMonitor if elastic.monitor else None),
-                heartbeat=Heartbeat(hb_path),
+                heartbeat=Heartbeat(hb_path, process_index=rank),
             )
             runner = result_sup.runner
             if result_sup.restarts:

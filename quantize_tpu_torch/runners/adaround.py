@@ -29,24 +29,118 @@ taps are recorded with forward hooks
 (:class:`~quantize_tpu_torch.nn.layers.capture_taps`). Each step runs
 eagerly, the layer module itself on its cached input.
 ``cfg.runner.max_cached_batches`` caps the batches a blockwise run caches.
+
+On a ``(data, model)`` mesh of ranks (``mesh``; JAX's jitted steps under
+GSPMD on sharded variables) every rank computes what one device computes on
+the global batch:
+
+* each rank reads its ``data`` rows of every batch, the first batch of
+  ``init_adaround`` included (its calibrate pass reduces the observers over
+  ``data``), and a blockwise or sequential run caches its own rows;
+* a reconstruction MSE is a mean over the global rows: each rank divides its
+  sum of squared errors by the element count summed over ``data``, and the
+  recon gradients and values are summed over ``data`` (one all-reduce a
+  step), the regularization's are not (its V is the same on every rank of
+  the group);
+* a layer on a slice of its out channels holds its slice of V; its quant
+  forward gathers the output whole, so the MSE is the whole output's and
+  V's gradient the slice of one device's; the regularization of the slice
+  divides by the whole V's element count, and only the reported loss sums
+  it over ``model``;
+* the sequential dataflow's forward stops at the same layer on every rank,
+  before that layer's collectives (a pre-hook), so no rank waits in a
+  gather the others never reach.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import math
+from typing import Dict, List, Optional
 
 import torch
 
 from ..nn.layers import QuantConv, QuantDense, capture_taps
 from ..nn.variables import trainable
 from ..optim import Optimizer, build_optimizer
+from ..parallel.mesh import axis_group
 from ..quant.adaround import beta_schedule, regularization
 from .base import masked_topk_correct, pad_batch
 from .ptq import PTQ
 
 
-def mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mse(a: torch.Tensor, b: torch.Tensor, count: Optional[float] = None) -> torch.Tensor:
+    """The mean squared error, over ``count`` elements (default: ``a``'s)."""
     d = (a - b) ** 2
-    return d.sum() / d.new_full((), float(d.numel()))
+    return d.sum() / d.new_full((), float(d.numel() if count is None else count))
+
+
+def global_counts(tensors, data) -> List[float]:
+    """The element count of each of ``tensors`` summed over the ``data``
+    group (one all-reduce, exact in float64): the divisors of a mean over
+    the global rows. Without a group, their own counts."""
+    counts = [float(t.numel()) for t in tensors]
+    if data is None:
+        return counts
+    from ..parallel.tensor_parallel import all_reduce
+
+    return all_reduce(torch.tensor(counts, dtype=torch.float64), data).tolist()
+
+
+def v_layers(model: torch.nn.Module) -> Dict[str, torch.nn.Module]:
+    """``{"adaround/<path>/w_quantizer/V": layer}`` over the dense and conv
+    layers that own a V."""
+    return {f"adaround/{name.replace('.', '/')}/w_quantizer/V": mod
+            for name, mod in model.named_modules()
+            if isinstance(mod, (QuantConv, QuantDense))
+            and mod.w_quantizer.has_var("adaround", "V")}
+
+
+def regularizations(leaves: Dict[str, torch.Tensor], layers: Dict[str, torch.nn.Module],
+                    beta: float) -> tuple:
+    """``(whole, split)``: the summed regularization of the Vs each held whole
+    and of those held as a slice of a split layer's out channels (each
+    divided by its whole V's element count)."""
+    whole = split = 0
+    for key, v in leaves.items():
+        layer = layers[key]
+        reg = regularization(v, beta, numel=math.prod(layer.kernel_shape))
+        if layer.tp_shard is None:
+            whole = whole + reg
+        else:
+            split = split + reg
+    return whole, split
+
+
+def step_grads(recon: torch.Tensor, reg: torch.Tensor, params: List[torch.Tensor], data):
+    """``(recon value, gradients)`` of ``recon + reg`` for ``params``. On a
+    ``data`` group ``recon`` is this rank's share of the global MSE: its
+    gradients and value are summed over the group (one all-reduce), the
+    regularization's, the same on every rank, are added after."""
+    if data is None:
+        grads = torch.autograd.grad(recon + reg, params, allow_unused=True)
+        return recon.detach(), list(grads)
+    from ..parallel.tensor_parallel import all_reduce
+
+    g_rec = torch.autograd.grad(recon, params, allow_unused=True)
+    g_reg = torch.autograd.grad(reg, params, allow_unused=True)
+    have = [g for g in g_rec if g is not None]
+    summed = all_reduce(torch.cat([g.reshape(-1) for g in have] + [recon.detach().reshape(1)]),
+                        data)
+    parts = iter(summed.split([g.numel() for g in have] + [1]))
+    grads = []
+    for a, b in zip(g_rec, g_reg):
+        a = None if a is None else next(parts).view_as(a)
+        grads.append(b if a is None else a if b is None else a + b)
+    return next(parts).reshape(()), grads
+
+
+def reported_loss(recon: torch.Tensor, whole, split, model_group) -> torch.Tensor:
+    """The loss as one device reports it: ``recon`` plus the
+    regularization, the split layers' shares summed over ``model``."""
+    if model_group is not None and torch.is_tensor(split):
+        from ..parallel.tensor_parallel import all_reduce
+
+        split = all_reduce(split.detach().reshape(1), model_group).reshape(())
+    return (recon + whole + split).detach()
 
 
 def calibrate_taps(model: torch.nn.Module, img: torch.Tensor) -> dict:
@@ -57,25 +151,32 @@ def calibrate_taps(model: torch.nn.Module, img: torch.Tensor) -> dict:
     return fp.taps
 
 
-def reconstruction_loss(model: torch.nn.Module, img: torch.Tensor, fp_taps: dict, beta: float):
+def reconstruction_loss(model: torch.nn.Module, img: torch.Tensor, fp_taps: dict, beta: float,
+                        mesh=None):
     """A quant pass's loss, logits and ``V`` gradients: the MSE of every tap
     layer's output against ``fp_taps``, summed in the order of JAX's (sorted)
-    taps tree, plus every V's regularization at ``beta``."""
+    taps tree, plus every V's regularization at ``beta``.
+
+    On a ``mesh`` ``img`` and ``fp_taps`` are this rank's rows: each tap's
+    element count is summed over ``data`` (one all-reduce), then the recon
+    gradients and value (one more), and on a model-sharded mesh the split
+    layers' regularization value over ``model`` (module docstring); every
+    rank returns the global loss and its own leaves' gradients."""
     leaves = trainable(model, ("adaround",))
     for v in leaves.values():
         v.requires_grad_(True)
     with capture_taps(model) as qt:
         logits = model(img, mode="quant")
+    pairs = [(q, o) for path in sorted(qt.taps, key=lambda p: tuple(p.split("/")))
+             for q, o in zip(qt.taps[path]["out"], fp_taps[path]["out"])]
+    data = axis_group(mesh, "data")
     recon = 0
-    for path in sorted(qt.taps, key=lambda p: tuple(p.split("/"))):
-        for q, o in zip(qt.taps[path]["out"], fp_taps[path]["out"]):
-            recon = recon + mse(q, o)
-    reg = 0
-    for v in leaves.values():
-        reg = reg + regularization(v, beta)
-    loss = recon + reg
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    return loss.detach(), logits.detach(), dict(zip(leaves, grads))
+    for (q, o), count in zip(pairs, global_counts([q for q, _ in pairs], data)):
+        recon = recon + mse(q, o, count)
+    whole, split = regularizations(leaves, v_layers(model), beta)
+    recon, grads = step_grads(recon, whole + split, list(leaves.values()), data)
+    loss = reported_loss(recon, whole, split, axis_group(mesh, "model"))
+    return loss, logits.detach(), dict(zip(leaves, grads))
 
 
 def init_adaround(model: torch.nn.Module, img: torch.Tensor) -> None:
@@ -95,10 +196,7 @@ class AdaRound(PTQ):
     name = "adaround"
 
     def __init__(self, cfg, *loaders, device="cuda", mesh=None):
-        if mesh is not None and mesh.size > 1:
-            raise ValueError("the AdaRound runner does not run on a mesh of ranks yet; the PTQ "
-                             "runner does")
-        super().__init__(cfg, *loaders, device=device)
+        super().__init__(cfg, *loaders, device=device, mesh=mesh)
         self.initialized = False
         self.optimizer = None
         self.layer_losses: Dict[str, float] = {}
@@ -131,7 +229,7 @@ class AdaRound(PTQ):
         if not self.initialized:
             self._init_adaround(img)
         loss, logits, grads = reconstruction_loss(self.model, img, calibrate_taps(self.model, img),
-                                                  self._beta(it, total_iters))
+                                                  self._beta(it, total_iters), self.mesh)
         self.optimizer.step(trainable(self.model, ("adaround",)), grads)
         c, t = masked_topk_correct(logits, label)
         return float(loss), float(100.0 * c / t.clamp(min=1)), len(label)
@@ -139,9 +237,8 @@ class AdaRound(PTQ):
     # -- blockwise and sequential reconstruction ------------------------------
     def ada_layers(self) -> Dict[str, torch.nn.Module]:
         """``{flax path: layer}`` of the dense and conv layers that own a V."""
-        return {name.replace(".", "/"): mod for name, mod in self.model.named_modules()
-                if isinstance(mod, (QuantConv, QuantDense))
-                and mod.w_quantizer.has_var("adaround", "V")}
+        return {key[len("adaround/"):-len("/w_quantizer/V")]: mod
+                for key, mod in v_layers(self.model).items()}
 
     def _store(self, t: torch.Tensor) -> torch.Tensor:
         """A host copy of a captured tensor (pinned, copied without blocking,
@@ -175,19 +272,27 @@ class AdaRound(PTQ):
         """Optimize ``layer``'s V alone against ``pairs`` ((input, FP32
         output) host tensors, one per cached batch) for ``steps_total``
         steps, cycling over the batches, with a fresh optimizer state;
-        returns the last step's loss."""
+        returns the last step's loss. On a mesh the pairs are this rank's
+        rows, each step's recon gradient is summed over ``data`` (one
+        all-reduce), and the returned loss is the global one, the same on
+        every rank (module docstring)."""
         key = f"adaround/{path}/w_quantizer/V"
         v = layer.w_quantizer.get_var("adaround", "V")
         opt = Optimizer(build_optimizer(self.cfg, steps_per_epoch=len(pairs)), {key: v})
-        loss = torch.zeros(())
+        data = axis_group(self.mesh, "data")
+        counts = global_counts([y for _, y in pairs], data)
+        numel = math.prod(layer.kernel_shape)
+        recon = reg = torch.zeros(())
         for it in range(steps_total):
             x_in, y_fp = (t.to(self.device, non_blocking=True) for t in pairs[it % len(pairs)])
             v = layer.w_quantizer.get_var("adaround", "V").requires_grad_(True)
             y = layer(x_in, mode="quant")
-            loss = mse(y, y_fp) + regularization(v, self._beta(it, steps_total))
-            grad, = torch.autograd.grad(loss, [v])
+            reg = regularization(v, self._beta(it, steps_total), numel=numel)
+            recon, (grad,) = step_grads(mse(y, y_fp, counts[it % len(pairs)]), reg, [v], data)
             opt.step({key: v}, {key: grad})
-        return float(loss.detach())
+        if layer.tp_shard is None:
+            return float(reported_loss(recon, reg, 0, None))
+        return float(reported_loss(recon, 0, reg, axis_group(self.mesh, "model")))
 
     def run(self) -> None:
         if self._reconstruction() == "joint":
@@ -201,7 +306,7 @@ class AdaRound(PTQ):
         for batch in self._prefetch(self.train_loader):
             with torch.no_grad():
                 self.model(batch["img"], mode="calibrate")
-        self._init_adaround(torch.from_numpy(first["img"]).to(self.device))
+        self._init_adaround(torch.from_numpy(self._rows(first)["img"]).to(self.device))
         layers = self.ada_layers()
 
         # one capture pass per batch: each AdaRound layer's (input, FP32

@@ -15,8 +15,9 @@ loaded onto the mesh, each batch's rows of this rank are placed on its
 device (:func:`~quantize_tpu_torch.parallel.input_pipeline.host_slice` by
 its ``data`` index, as ``prefetch_to_mesh`` does), evaluation sums its
 (correct, total) counts over ``data``, and checkpoints are written by rank
-0 from the variables gathered whole. The PTQ runner runs there; QAT and
-AdaRound do not yet.
+0 from the variables gathered whole. A calibration step reports the
+global batch's masked loss. The PTQ, QAT and AdaRound runners run there
+(their steps: :mod:`.qat`, :mod:`.adaround`).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from .. import api, convert
 from ..models import build_model
 from ..nn.intercept import QuantCtx
 from ..nn.variables import collections
+from ..parallel.mesh import axis_group
 from ..utils import MovingAverageMeter, get_logger
 
 
@@ -57,12 +59,20 @@ def masked_topk_correct(logits: torch.Tensor, labels: torch.Tensor, k: int = 1):
     return correct.sum(), valid.sum()
 
 
-def masked_cross_entropy(logits: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+def masked_cross_entropy(logits: torch.Tensor, label: torch.Tensor, group=None) -> torch.Tensor:
     """Mean softmax cross-entropy over the labels >= 0 (padding is -1), as
-    optax's ``softmax_cross_entropy_with_integer_labels`` masked."""
+    optax's ``softmax_cross_entropy_with_integer_labels`` masked. With a
+    ``group`` (a mesh's ``data`` group; no gradient) ``logits`` and ``label``
+    are this rank's rows, and the mean is over every rank's (one
+    all-reduce of the sum and the count)."""
     valid = label >= 0
     loss = F.cross_entropy(logits.float(), label.clamp(min=0).long(), reduction="none")
-    return (loss * valid).sum() / valid.sum().clamp(min=1)
+    if group is None:
+        return (loss * valid).sum() / valid.sum().clamp(min=1)
+    from ..parallel.tensor_parallel import all_reduce
+
+    total, count = all_reduce(torch.stack([(loss * valid).sum(), valid.sum().float()]), group)
+    return total / count.clamp(min=1)
 
 
 class BasicRunner:
@@ -196,17 +206,25 @@ class BasicRunner:
         pinned, copied without blocking the host), so that loading overlaps
         the device's work; an exception of the loader reaches the caller.
         The thread stops when the generator is closed or collected."""
-        from ..parallel.input_pipeline import PrefetchIterator, host_slice
+        from ..parallel.input_pipeline import PrefetchIterator
 
         bs = loader.batch_size
-        batches = (pad_batch(b, bs) for b in loader)
-        if self.mesh is not None:
-            dp = self.mesh.shape["data"]
-            if bs % dp:
-                raise ValueError(f"a batch of {bs} does not split over {dp} data ranks")
-            batches = (host_slice(b, self.mesh.coords[0], dp) for b in batches)
+        if self.mesh is not None and bs % self.mesh.shape["data"]:
+            raise ValueError(f"a batch of {bs} does not split over "
+                             f"{self.mesh.shape['data']} data ranks")
+        batches = (self._rows(pad_batch(b, bs)) for b in loader)
         with PrefetchIterator(batches, prefetch=2, device=self.device) as it:
             yield from it
+
+    def _rows(self, batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        """This rank's rows of a global host batch (its ``data`` index's
+        share, :func:`~quantize_tpu_torch.parallel.input_pipeline.host_slice`);
+        the whole batch off a mesh."""
+        if self.mesh is None:
+            return batch
+        from ..parallel.input_pipeline import host_slice
+
+        return host_slice(batch, self.mesh.coords[0], self.mesh.shape["data"])
 
     def run(self) -> None:
         """Calibration/train loop (reference ``runner/base.py:108-147``)."""
@@ -245,11 +263,12 @@ class BasicRunner:
             c, t = masked_topk_correct(logits, batch["label"])
             correct += int(c)
             total += int(t)
-        if self.mesh is not None and self.mesh.shape["data"] > 1:
+        data = axis_group(self.mesh, "data")
+        if data is not None:
             from ..parallel.tensor_parallel import all_reduce
 
             correct, total = (int(n) for n in all_reduce(
-                torch.tensor([correct, total], dtype=torch.int64), self.mesh.groups["data"]))
+                torch.tensor([correct, total], dtype=torch.int64), data))
         top1 = 100.0 * correct / max(total, 1)
         result = {"top1": top1, "n": total}
         self.logger.info(f"eval: top1 {top1:.2f}% over {total} examples (quantized={quantized})")

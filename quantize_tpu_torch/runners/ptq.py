@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import axis_group
 from .base import BasicRunner, masked_cross_entropy, masked_topk_correct
 
 
@@ -19,7 +20,7 @@ class PTQ(BasicRunner):
         img, label = batch["img"], batch["label"]
         with torch.no_grad():
             logits = self.model(img, mode="calibrate").float()
-        loss = masked_cross_entropy(logits, label)
+        loss = masked_cross_entropy(logits, label, axis_group(self.mesh, "data"))
         c, t = masked_topk_correct(logits, label)
         return float(loss), float(100.0 * c / t.clamp(min=1)), len(label)
 

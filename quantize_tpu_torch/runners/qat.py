@@ -9,6 +9,14 @@ the masked cross-entropy through the quant-mode graph (straight-through
 gradients; BatchNorm on its running statistics). ``optimizer.
 qparams_lr_scale`` gives ``qparams`` an optimizer of their own whose
 updates it scales (optax's ``multi_transform``).
+
+On a ``(data, model)`` mesh of ranks (``mesh``) each rank reads its ``data``
+rows; :func:`loss_and_grads` gives every rank the global batch's loss and
+its own leaves' gradients (whole, or a split layer's slice), and the
+optimizer runs over those leaves: its transforms are elementwise (no global
+norm), so a slice's update is the slice of one device's update, and the
+ranks of a ``data`` group stay bit-equal. The calibration epochs,
+evaluation and checkpoints are the PTQ runner's on the mesh.
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import torch.nn.functional as F
 
 from ..nn.variables import trainable
 from ..optim import Chain, Optimizer, Partition, Scale, build_optimizer
+from ..parallel.mesh import axis_group
 from .base import masked_cross_entropy, masked_topk_correct
 from .ptq import PTQ
 
@@ -44,13 +53,13 @@ def loss_and_grads(model: torch.nn.Module, img: torch.Tensor, label: torch.Tenso
     for t in leaves.values():
         t.requires_grad_(True)
     logits = model(img, mode="quant")
-    if mesh is None or mesh.shape["data"] == 1:
+    group = axis_group(mesh, "data")
+    if group is None:
         loss = masked_cross_entropy(logits, label)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         return loss.detach(), logits.detach(), dict(zip(leaves, grads))
     from ..parallel.tensor_parallel import all_reduce
 
-    group = mesh.groups["data"]
     valid = label >= 0
     loss_vec = F.cross_entropy(logits.float(), label.clamp(min=0).long(), reduction="none")
     count = all_reduce(valid.sum().float(), group)
@@ -68,10 +77,7 @@ class QAT(PTQ):
     name = "qat"
 
     def __init__(self, cfg, *loaders, device="cuda", mesh=None):
-        if mesh is not None and mesh.size > 1:
-            raise ValueError("the QAT runner does not run on a mesh of ranks yet; the PTQ "
-                             "runner does")
-        super().__init__(cfg, *loaders, device=device)
+        super().__init__(cfg, *loaders, device=device, mesh=mesh)
         self.calibrated_epoch = int(cfg.train.calibrated_epoch or 1)
         self.max_epoch += self.calibrated_epoch
         self.initialized = False
@@ -94,7 +100,7 @@ class QAT(PTQ):
         if not self.initialized:
             return super().train_step(batch, epoch, it, total_iters)
         img, label = batch["img"], batch["label"]
-        loss, logits, grads = loss_and_grads(self.model, img, label)
+        loss, logits, grads = loss_and_grads(self.model, img, label, self.mesh)
         self.optimizer.step(trainable(self.model, TRAINABLE), grads)
         c, t = masked_topk_correct(logits, label)
         return float(loss), float(100.0 * c / t.clamp(min=1)), len(label)

@@ -33,6 +33,12 @@ class ResumableRun:
     * ``monitor`` — a :class:`HealthMonitor` observing (loss, step time);
       raises on NaN/exploding loss or stragglers;
     * ``injector`` — a :class:`FaultInjector` for testing the recovery path.
+
+    On a mesh of ranks (the runner's ``mesh``) every rank runs the loop over
+    the same output directory: rank 0 alone writes the state file, and the
+    ranks meet at a barrier after each write, so that no rank reads it while
+    it is written (two ranks writing one ``.tmp`` name interleaved into a
+    file that no longer parsed).
     """
 
     def __init__(self, runner, ckpt_every_epochs: int = 1, state_name: str = "resume_state.json",
@@ -44,6 +50,7 @@ class ResumableRun:
         self.heartbeat = heartbeat
         self.monitor = monitor
         self.injector = injector
+        self.mesh = getattr(runner, "mesh", None)
         self.logger = get_logger()
 
     # -- state ------------------------------------------------------------
@@ -54,12 +61,17 @@ class ResumableRun:
         return {}
 
     def _save_state(self, **kw) -> None:
-        os.makedirs(self.out_dir, exist_ok=True)
-        state = {**self._load_state(), **kw, "ts": time.time()}
-        tmp = self.state_path + ".tmp"
-        with open(tmp, "w") as f:
-            json.dump(state, f)
-        os.replace(tmp, self.state_path)
+        if self.mesh is None or self.mesh.rank == 0:
+            os.makedirs(self.out_dir, exist_ok=True)
+            state = {**self._load_state(), **kw, "ts": time.time()}
+            tmp = self.state_path + ".tmp"
+            with open(tmp, "w") as f:
+                json.dump(state, f)
+            os.replace(tmp, self.state_path)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            dist.barrier()
 
     @property
     def finished(self) -> bool:

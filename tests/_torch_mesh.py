@@ -16,10 +16,27 @@ that each rank takes its ``data`` rows of, the device (``"cpu"``, or
   (``gather_variables`` over ``rank_variables``' spec), the trainable leaves
   this rank holds whole (for the ranks to be compared with each other),
   the updated variables gathered whole, and the collectives of the step;
-* ``refuse``: calibrate and pack on the loaded model (which used to raise
-  on a split layer): whether each ran and changed the variables; then
-  ``init_adaround``, which must raise ValueError and leave every variable
-  as it was;
+* ``modes``: calibrate, pack and ``init_adaround`` on the loaded model
+  (each used to raise on a split layer): whether calibrate and pack ran
+  and changed the variables, and the V that
+  ``init_adaround`` wrote (this rank's own, and gathered whole) beside the
+  variables it was written from (gathered whole);
+* ``ada``: AdaRound at β ``ada`` on variables that hold V: the
+  ``init_adaround`` pass on this rank's rows (its V, own and gathered
+  whole, and its collectives), then, from the loaded V again, each V's
+  regularization (its value summed over ``model`` where it is a slice, its
+  gradient gathered whole), then one joint step
+  (:func:`~quantize_tpu_torch.runners.adaround.calibrate_taps` and
+  ``reconstruction_loss`` on the mesh): the loss, the V gradients (own, and
+  gathered whole) and the step's collectives;
+* ``train_runner``: a QAT or AdaRound runner built from the config dict
+  ``train_runner["cfg"]`` over a loader of the global batches in
+  ``train_runner["batches"]`` (an ``.npz`` of ``img``/``label`` stacks),
+  from the whole variables ``train_runner["variables"]``, run on the mesh:
+  its variables gathered whole and this rank's own, its ``layer_losses``
+  (in layer order), the loss and the collectives of each train step, the
+  collectives of each sequential input pass, and its top-1 over the same
+  batches;
 * ``roundtrip``: ``gather_variables(mesh, shard_variables(mesh, v))``
   against ``v``, bit for bit;
 * ``calibrate``: a list of global batches (``.npy``), each rank calibrating
@@ -37,9 +54,10 @@ that each rank takes its ``data`` rows of, the device (``"cpu"``, or
   ``silent`` instead leaves the leader idle without an engine, and the
   follower's ``stop()`` must raise within ``follow_timeout_s`` (set as the
   engine's ``_FOLLOW_TIMEOUT_S``);
-* ``runner``: the PTQ runner through ``execute_runner`` over a config file
-  and ``--opts``, on the mesh: its test result (rank 0 writes the
-  checkpoints, gathered whole, into the job's ``output_dir``).
+* ``runner``: a runner through ``execute_runner`` over config files and
+  ``--opts`` (the CLI's path), on the mesh: its test result (rank 0 writes
+  the checkpoints, gathered whole, into the job's ``output_dir``) and the
+  files in that directory.
 """
 import json
 
@@ -96,6 +114,28 @@ def host(obj):
     return obj.detach().cpu() if isinstance(obj, torch.Tensor) else obj
 
 
+def gathered(model, mesh, flat):
+    # flat ({"collection/path/leaf": tensor} of this rank's leaves, or their
+    # gradients) with every slice gathered whole
+    spec = getattr(rank_variables(model), "spec", None)
+    if spec is None:
+        return dict(flat)
+    tree = nest(flat)
+    tree = ShardedVariables(tree, mesh, {c: {k: spec[c][k] for k in t} for c, t in tree.items()})
+    return {f"{c}/{k}": g for c, t in gather_variables(mesh, tree).items() for k, g in t.items()}
+
+
+class Loader:
+    def __init__(self, batches):
+        self.batches, self.batch_size = batches, len(batches[0]["label"])
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
 report = {}
 for job in jobs:
     dp, tp = job["mesh"]
@@ -126,15 +166,8 @@ for job in jobs:
             loss, _, grads = loss_and_grads(model, x[rows], label, mesh)
         rep["step"] = c.counts
         spec = getattr(rank_variables(model), "spec", None)
-        flat_grads = {k: g for k, g in grads.items() if g is not None}
-        if spec is not None:
-            tree = nest(flat_grads)
-            tree = ShardedVariables(tree, mesh, {c: {k: spec[c][k] for k in t}
-                                                 for c, t in tree.items()})
-            flat_grads = {f"{c}/{k}": g for c, t in gather_variables(mesh, tree).items()
-                          for k, g in t.items()}
         saved["loss"] = loss
-        saved["grads"] = flat_grads
+        saved["grads"] = gathered(model, mesh, {k: g for k, g in grads.items() if g is not None})
         sliced = {f"{c}/{k}" for c, t in (spec or {}).items() for k, s in t.items() if s}
         saved["whole_grads"] = {k: g for k, g in grads.items()
                                 if g is not None and k not in sliced}
@@ -144,7 +177,7 @@ for job in jobs:
         saved["updated"] = {f"{c}/{k}": t.detach() for c, t in
                             gather_variables(mesh, rank_variables(model)).items()
                             for k, t in t.items() if c in TRAINABLE}
-    if "refuse" in job:
+    if "modes" in job:
         before = snapshot(model)
         ran = []
         for what, call in (("calibrate", lambda: model(x[rows], mode="calibrate")),
@@ -156,15 +189,48 @@ for job in jobs:
         rep["ran"] = ran
         rep["changed"] = before.keys() != calibrated.keys() or any(
             not torch.equal(before[k], calibrated[k]) for k in before)
-        refused = []
-        try:
+        saved["from"] = {k: t for k, t in gathered(model, mesh, calibrated).items()
+                         if k.startswith(("params/", "qparams/"))}
+        with torch.no_grad():
             model(x[rows], mode="init_adaround")
-        except ValueError as exc:
-            refused.append(["init_adaround", str(exc)])
-        after = snapshot(model)
-        rep["refused"] = refused
-        rep["unchanged"] = calibrated.keys() == after.keys() and all(
-            torch.equal(calibrated[k], after[k]) for k in calibrated)
+        saved["v_own"] = trainable(model, ("adaround",))
+        saved["v"] = gathered(model, mesh, saved["v_own"])
+    if "ada" in job:
+        import math
+        from quantize_tpu_torch.parallel.tensor_parallel import all_reduce
+        from quantize_tpu_torch.quant.adaround import regularization
+        from quantize_tpu_torch.runners.adaround import (calibrate_taps, reconstruction_loss,
+                                                          v_layers)
+
+        beta = job["ada"]
+        with torch.no_grad(), CollectiveCounter() as c:
+            model(x[rows], mode="init_adaround")
+        rep["init"] = c.counts
+        saved["init_own"] = {k: t.detach().clone()
+                             for k, t in trainable(model, ("adaround",)).items()}
+        saved["init_v"] = gathered(model, mesh, saved["init_own"])
+        convert.from_jax_variables(model, shard_variables(mesh, v))
+        layers = v_layers(model)
+        values, reg_grads = {}, {}
+        for key, t in trainable(model, ("adaround",)).items():
+            t.requires_grad_(True)
+            reg = regularization(t, beta, numel=math.prod(layers[key].kernel_shape))
+            reg_grads[key], = torch.autograd.grad(reg, [t])
+            value = reg.detach().reshape(1)
+            if layers[key].tp_shard is not None:
+                value = all_reduce(value, mesh.groups["model"])
+            values[key] = float(value)
+        rep["reg"] = values
+        saved["reg_grads"] = gathered(model, mesh, reg_grads)
+        with CollectiveCounter() as c:
+            fp = calibrate_taps(model, x[rows])
+            rep["calibrate"] = dict(c.counts)
+            loss, _, grads = reconstruction_loss(model, x[rows], fp, beta, mesh)
+        rep["ada_step"] = {k: n - rep["calibrate"].get(k, 0) for k, n in c.counts.items()
+                           if n - rep["calibrate"].get(k, 0)}
+        saved["loss"] = loss
+        saved["own_grads"] = grads
+        saved["grads"] = gathered(model, mesh, grads)
     if "roundtrip" in job:
         back = gather_variables(mesh, shard_variables(mesh, v))
         rep["roundtrip"] = all(
@@ -236,8 +302,45 @@ for job in jobs:
             rep["engine"] = eng.stats()
             rep["follower_carry"] = str(precision.packed_carry_dtype())
             precision.set_packed_carry_dtype(None)
+    if "train_runner" in job:
+        from quantize_tpu_torch.runners import build_runner
+        from quantize_tpu_torch.utils import Config
+
+        r = job["train_runner"]
+        stacks = np.load(r["batches"])
+        batches = [{"img": i, "label": l} for i, l in zip(stacks["img"], stacks["label"])]
+        runner = build_runner(Config(r["cfg"]), Loader(batches), device=mesh.device, mesh=mesh)
+        quant_input = getattr(runner, "_quant_input", None)
+        if r.get("variables"):
+            runner.variables = torch.load(r["variables"], weights_only=True)
+        steps, losses, stops = [], [], []
+        train_step = runner.train_step
+
+        def counted_step(*a, **kw):
+            with CollectiveCounter() as c:
+                out = train_step(*a, **kw)
+            steps.append(c.counts)
+            losses.append(out[0])
+            return out
+
+        def counted_input(path, *a, **kw):
+            with CollectiveCounter() as c:
+                out = quant_input(path, *a, **kw)
+            stops.append([path, c.counts])
+            return out
+
+        runner.train_step = counted_step
+        if quant_input is not None:
+            runner._quant_input = counted_input
+        runner.run()
+        rep["steps"], rep["losses"], rep["stops"] = steps, losses, stops
+        rep["layer_losses"] = getattr(runner, "layer_losses", {})
+        rep["top1"] = runner.evaluate(Loader(batches), quantized=True)
+        saved["own"] = snapshot(runner.model)
+        saved["variables"] = gathered(runner.model, mesh, saved["own"])
     if "runner" in job:
         import argparse
+        import os
         from quantize_tpu_torch.cli import setup_cfg
         from quantize_tpu_torch.runners import execute_runner
         from quantize_tpu_torch.utils import set_random_seed
@@ -248,11 +351,26 @@ for job in jobs:
         set_random_seed(cfg.seed)
         result = execute_runner(cfg, device="cpu", mesh=mesh)
         rep["runner"] = result
+        rep["files"] = sorted(os.listdir(r["output_dir"]))
     torch.save(host(saved), job["out"] + f".rank{rank}.pt")
     report[job["name"]] = rep
 torch.distributed.destroy_process_group()
 print("REPORT " + json.dumps(report), flush=True)
 """
+
+
+class ArrayLoader:
+    """Global batches of numpy arrays: what a runner reads of a loader
+    (iteration, ``len`` and ``batch_size``)."""
+
+    def __init__(self, batches):
+        self.batches, self.batch_size = batches, len(batches[0]["label"])
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
 
 
 def flat_tensors(variables) -> dict:

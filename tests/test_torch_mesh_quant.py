@@ -13,8 +13,10 @@ gloo ranks on the CPU (``tests/_torch_mesh.py``), the counterpart of
   ``convert.to_numpy``) on a ``(1, 2)`` mesh.
 * ``calibrate`` and ``pack`` run on a split layer (they raised before
   calibration and pack were ported to slices: ``tests/
-  test_torch_mesh_calibrate.py`` holds them against JAX);
-  ``init_adaround`` still raises ValueError and changes nothing;
+  test_torch_mesh_calibrate.py`` holds them against JAX); so does
+  ``init_adaround`` (it raised before AdaRound was ported to slices), each
+  rank's V bit-equal to its slice of one device's V written from the same
+  variables (``tests/test_torch_mesh_adaround.py`` holds it against JAX);
   ``gather_variables`` of ``shard_variables`` gives every leaf back bit for
   bit (quant-mode and deploy variables).
 * The global masked loss: at ``(2, 1)`` with all of rank 1's labels at -1,
@@ -55,7 +57,10 @@ W8A8 = {"default": {
 # whole on every rank
 QAT = quant_cfg("testcnn-bnfold", W8, A8)
 QAT_LAYER = quant_cfg("testcnn-bnfold", {**W8, "granularity": "layer"}, A8)
-CONFIGS = {"w8a8": W8A8, "qat": QAT, "qat_layer": QAT_LAYER}
+# W8A8 with AdaRound's V on every weight quantizer
+W8A8_ADA = {"default": {**W8A8["default"],
+                        "weight": {**W8A8["default"]["weight"], "adaround": {"apply": True}}}}
+CONFIGS = {"w8a8": W8A8, "w8a8_ada": W8A8_ADA, "qat": QAT, "qat_layer": QAT_LAYER}
 MESHES = [(2, 1), (1, 2), (2, 2)]
 MODES = ("fp32", "quant")
 LAYERS = ["conv1", "conv2", "fc1", "fc2"]
@@ -128,7 +133,7 @@ def ranks(jax_side, tmp_path_factory):
 
     two = [job(f"fwd{dp}x{tp}", (dp, tp), forward=list(MODES)) for dp, tp in MESHES[:2]]
     two += [job("own1x2", (1, 2), var=str(tmp / "own.pt"), forward=["quant"]),
-            job("refuse1x2", (1, 2), refuse=True),
+            job("modes1x2", (1, 2), cfg="w8a8_ada", modes=True),
             job("round1x2", (1, 2), roundtrip=True),
             job("round_deploy1x2", (1, 2), var=str(tmp / "deploy.pt"), roundtrip=True),
             job("masked2x1", (2, 1), cfg="qat", label=str(tmp / "masked.npy"), step=1e-3),
@@ -139,7 +144,7 @@ def ranks(jax_side, tmp_path_factory):
             job("round_deploy2x2", (2, 2), var=str(tmp / "deploy.pt"), roundtrip=True)]
     r2, s2 = run_jobs(2, two, tmp)
     r4, s4 = run_jobs(4, four, tmp)
-    return {2: (r2, s2), 4: (r4, s4)}, refs
+    return {2: (r2, s2), 4: (r4, s4)}, refs, tmp
 
 
 def _rank_rows(mesh, rank):
@@ -195,21 +200,41 @@ def test_calibrate_and_pack_refuse_a_split_layer(ranks):
     before)."""
     reports, _ = ranks[0][2]
     for rank in range(2):
-        rep = reports[rank]["refuse1x2"]
+        rep = reports[rank]["modes1x2"]
         assert rep["split"] == LAYERS
         assert rep["ran"] == ["calibrate", "pack"]
         assert rep["changed"]
 
 
-def test_init_adaround_refuses_a_split_layer(ranks):
-    """``init_adaround`` still raises ValueError on a slice, before any
-    work."""
-    reports, _ = ranks[0][2]
+def test_init_adaround_runs_on_a_split_layer(ranks):
+    """``init_adaround`` used to raise ValueError on a slice (this test
+    asserted that refusal); it now writes the slice's V. Each rank's own V
+    equals, bit for bit, its slice of the V one device writes from the same
+    variables (the mesh's gathered after calibrate and pack), and the V
+    gathered whole equals that V."""
+    _, saved = ranks[0][2]
+    model = _port(W8A8_ADA, _nest(saved[0]["modes1x2"]["from"]))
+    with torch.no_grad():
+        model(torch.from_numpy(np.load(ranks[2] / "x.npy")), mode="init_adaround")
+    want = convert.flatten(convert.to_numpy(model)["adaround"])
+    assert sorted(want) == [f"{layer}/w_quantizer/V" for layer in LAYERS]
     for rank in range(2):
-        rep = reports[rank]["refuse1x2"]
-        assert [what for what, _ in rep["refused"]] == ["init_adaround"]
-        assert all("slice of the out channels" in msg for _, msg in rep["refused"])
-        assert rep["unchanged"]
+        got = saved[rank]["modes1x2"]
+        assert set(got["v"]) == {f"adaround/{k}" for k in want}
+        for key, v in want.items():
+            whole = got["v"][f"adaround/{key}"].numpy()
+            own = got["v_own"][f"adaround/{key}"].numpy()
+            n = v.shape[-1] // 2
+            np.testing.assert_array_equal(whole, v, err_msg=key)
+            np.testing.assert_array_equal(own, v[..., rank * n:(rank + 1) * n], err_msg=key)
+
+
+def _nest(flat):
+    out = {}
+    for key, t in flat.items():
+        col, rest = key.split("/", 1)
+        out.setdefault(col, {})[rest] = t
+    return out
 
 
 @pytest.mark.parametrize("name", ["round1x2", "round_deploy1x2", "round2x2", "round_deploy2x2"])
