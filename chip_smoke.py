@@ -81,7 +81,18 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    from a torchvision-layout ResNet-50 checkpoint (``model.torch_checkpoint``
    and its ``torch_checkpoint_sha256``; a ``state_dict`` the script writes
    with ``torch.save`` from a seeded generator, BatchNorm statistics and
-   ``num_batches_tracked`` included, BN folded at import); then ResNet-18
+   ``num_batches_tracked`` included, BN folded at import); then from that
+   checkpoint with ``quant.default.bn_folding: {into_scale: true}``
+   (``INTO_SCALE``: each BatchNorm's multiplier in its conv's weight
+   quantizer's ``static_scale``, the weights imported unscaled, the
+   multiplier folded into the effective scale at pack), whose own gates
+   (``into_scale_gates``) are every conv's ``LayerQuantCfg.into_scale``,
+   every ``static_scale`` bit-equal to gamma / sqrt(var + eps) computed on
+   the host from the checkpoint (after calibration, and reloaded and
+   packed), a second runner given the packed runner's variables through
+   ``merge_updates`` serving bit-equal packed logits, and the weight-only
+   conv with ``compute_dtype=bfloat16`` at ResNet-50's layer1 3 x 3 shape on
+   the card within 1e-5 of max|out| of the CPU's; then ResNet-18
    from such a checkpoint with the model and quant sections of the
    cross-entropy config (``CE_CFG``: MSE weights and activations, CE on the
    head's activations, W8A8 packed) and of the bias-correction AWQ config
@@ -605,11 +616,18 @@ RUNNER_224 = ["train_dataset.image_size=224", "val_dataset.image_size=224",
               "test_dataset.image_size=224"]
 CE_CFG = "configs/runners/ptq/cross_entropy/ptq_rn18_w8a8_bnf_sym_chan_in1k_16shots.yaml"
 AWQ_CFG = "configs/runners/ptq/bias_correct/awq.yaml"
+# RUNNER_CFG's quant section with each BatchNorm folded into its conv's weight
+# quantizer's static_scale (the weights imported unscaled)
+INTO_SCALE = {"quant": {"default": {"bn_folding": {"into_scale": True}}}}
+INTO_SCALE_LABEL = "resnet50@224 from a torch checkpoint, BN folded into scale"
+# ResNet-50's 3 x 3 layer1 conv at batch 8: the weight-only conv in bfloat16
+INTO_SCALE_WO_SHAPE = (8, 56, 56, 64, 64)
 # (label, model, config whose model and quant sections replace RUNNER_CFG's,
-# torch checkpoint, launches per forward)
+# or sections merged into RUNNER_CFG's, torch checkpoint, launches per forward)
 RUNNER_RUNS = (("testcnn", "testcnn", None, False, TESTCNN_PER_FWD),
                ("resnet50@224", "resnet50", None, False, RESNET_PER_FWD),
                ("resnet50@224 from a torch checkpoint", "resnet50", None, True, RESNET_PER_FWD),
+               (INTO_SCALE_LABEL, "resnet50", INTO_SCALE, True, RESNET_PER_FWD),
                ("resnet18@224 cross-entropy", "resnet18", CE_CFG, True, RESNET18_PER_FWD),
                ("resnet18@224 bias-correct + AWQ", "resnet18", AWQ_CFG, True, {}),
                ("mobilenet_v2@224 W8 weight-only from a torch checkpoint", "mobilenet_v2",
@@ -1649,7 +1667,8 @@ def runner_config(out_dir, label: str, model: str, source, ckpt) -> list:
     """The CLI's ``--cfg`` files and ``--opts`` of one runner run: where a
     torch checkpoint or another config's sections are used, a second file
     (JSON, which YAML reads) gives the model section, and that config's
-    quant section in place of RUNNER_CFG's."""
+    quant section in place of RUNNER_CFG's; ``source`` may instead be a dict
+    of sections merged into RUNNER_CFG's."""
     from pathlib import Path
 
     from quantize_tpu_torch.models.manifest import sha256_of
@@ -1662,7 +1681,9 @@ def runner_config(out_dir, label: str, model: str, source, ckpt) -> list:
     if ckpt is not None:
         section["model"].update(torch_checkpoint=str(ckpt),
                                 torch_checkpoint_sha256=sha256_of(str(ckpt)))
-    if source is not None:
+    if isinstance(source, dict):
+        section.update({k: v for k, v in source.items() if k != "model"})
+    elif source is not None:
         src = Config()
         src.merge_from_yaml(source)
         check(src.model.name == model, f"runner {label}: {source} is not {model}")
@@ -1781,7 +1802,7 @@ def runner_run(qtt, card, dev, label: str, model_name: str, source, ckpt, per_fw
             log(f"runner {label}: fp32 logits of the imported model vs the NCHW forward of the "
                 f"state dict (BN unfolded) {r_imp:.3e} of max|logits| (<= 1e-4)")
             check(r_imp <= 1e-4, f"runner {label}: the imported model's fp32 logits disagree")
-            if model_name == "resnet50":
+            if model_name == "resnet50" and source is None:
                 wrong = Config(cfg.to_dict())
                 wrong.model.torch_checkpoint_sha256 = "f" * 64
                 try:
@@ -1839,6 +1860,8 @@ def runner_run(qtt, card, dev, label: str, model_name: str, source, ckpt, per_fw
                 kernel_entries(rec.calls, counts, max_err, new_shapes, f"runner {label}")
             if model_name != "testcnn":
                 packed_ms = cuda_ms(lambda: fresh.model(batches[0]["img"], mode="packed"))
+        if source is INTO_SCALE:
+            into_scale_gates(qtt, runner, fresh, ckpt, batches[0]["img"], label, dev, card)
         if model_name != "testcnn":
             times = {"packed eval batch of 128 (fused residual)": packed_ms,
                      "quant-mode eval batch of 128": cuda_ms(
@@ -1851,6 +1874,89 @@ def runner_run(qtt, card, dev, label: str, model_name: str, source, ckpt, per_fw
                 log(f"time: runner {label} {what}: {ms:.3f} ms [{card}]")
         del runner, fresh, built, batches, outs, sim, sim_reloaded, packed, rec
         torch.cuda.empty_cache()
+
+
+def _resnet_bn_of(path: str) -> str:
+    """The torchvision BatchNorm that follows the port's ResNet conv
+    ``path`` (``conv1``, ``layer1_0/conv2``, ``layer2_0/downsample_conv``)."""
+    if path == "conv1":
+        return "bn1"
+    block, conv = path.split("/")
+    stage, idx = block[len("layer"):].split("_")
+    if conv == "downsample_conv":
+        return f"layer{stage}.{idx}.downsample.1"
+    return f"layer{stage}.{idx}.bn{conv[len('conv'):]}"
+
+
+def into_scale_gates(qtt, runner, fresh, ckpt, x, label: str, dev, card) -> None:
+    """The gates of the runner run with BN folded into scale (phase 3): (a)
+    every conv's ``LayerQuantCfg.into_scale``; (b) every conv's weight
+    quantizer's ``static_scale``, in the runner that calibrated and in the
+    one reloaded from its best checkpoint and packed, bit-equal to
+    gamma / sqrt(var + eps) computed on the host from the checkpoint's
+    BatchNorm; (e) a second runner built from the same config, given the
+    packed runner's variables through ``merge_updates``, serves ``x`` with
+    bit-equal packed logits; (f) the weight-only conv with
+    ``compute_dtype=torch.bfloat16`` on the card at ResNet-50's layer1 3 x 3
+    shape within 1e-5 of max|out| of the same call on the CPU (both round
+    the operands to bf16 and sum in float32)."""
+    import numpy as np
+    import torch
+    import quantize_tpu_torch.runners as runners
+    from quantize_tpu_torch.nn.layers import QuantConv
+    from quantize_tpu_torch.nn.variables import var_modules
+    from quantize_tpu_torch.ops.qconv import quant_conv2d_wo
+
+    sd = torch.load(ckpt, weights_only=True)
+    for which, model in (("calibrated", runner.model), ("reloaded and packed", fresh.model)):
+        convs = [(p, m) for p, m in var_modules(model) if isinstance(m, QuantConv)]
+        check(len(convs) == 53, f"runner {label}: {len(convs)} convs, not ResNet-50's 53")
+        for path, conv in convs:
+            check(conv.quant.into_scale, f"runner {label}: {path}'s into_scale is False")
+            bn = _resnet_bn_of(path)
+            want = (sd[f"{bn}.weight"].numpy()
+                    / np.sqrt(sd[f"{bn}.running_var"].numpy() + 1e-5))
+            check(conv.w_quantizer.has_var("qparams", "static_scale"),
+                  f"runner {label}: {path} ({which}) has no static_scale")
+            got = conv.w_quantizer.get_var("qparams", "static_scale").cpu().numpy()
+            check(got.dtype == np.float32 and np.array_equal(got, want),
+                  f"runner {label}: {path}'s static_scale ({which}) is not {bn}'s "
+                  f"gamma / sqrt(var + eps)")
+        log(f"runner {label}: into_scale on all {len(convs)} convs; each static_scale ({which}) "
+            f"bit-equal to its BatchNorm's gamma / sqrt(var + eps) from the checkpoint")
+    t0 = time.time()
+    other = runners.build_runner(fresh.cfg, device=dev)
+    other.merge_updates(fresh.variables)
+    with torch.inference_mode(), qtt.fused_residual(True):
+        want = fresh.model(x, mode="packed")
+        got = other.model(x, mode="packed")
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got, want)), f"runner {label}: a runner given the packed variables "
+          f"through merge_updates serves other packed logits")
+    log(f"runner {label}: a second runner given the packed runner's variables through "
+        f"merge_updates ({time.time() - t0:.2f} s): packed logits bit-equal")
+    del other
+    n, h, w, ci, co = INTO_SCALE_WO_SHAPE
+    g = torch.Generator().manual_seed(7)
+    args = (torch.randn((n, h, w, ci), generator=g),
+            torch.randint(-128, 128, (3, 3, ci, co), generator=g, dtype=torch.int8),
+            torch.rand((co,), generator=g) * 0.02 + 0.001,
+            torch.randint(-2, 3, (co,), generator=g).float(),
+            torch.randn((co,), generator=g))
+    cpu = quant_conv2d_wo(*args, (1, 1), "SAME", 1, torch.bfloat16)
+    on_card = [a.to(dev) for a in args]
+    card_out = quant_conv2d_wo(*on_card, (1, 1), "SAME", 1, torch.bfloat16)
+    f32 = quant_conv2d_wo(*on_card, (1, 1), "SAME", 1, torch.float32)
+    err = float((card_out.cpu() - cpu).abs().max() / cpu.abs().max())
+    check(card_out.dtype == torch.float32 and err <= 1e-5,
+          f"runner {label}: quant_conv2d_wo(compute_dtype=bfloat16) on the card is {err:.3e} "
+          f"of max|out| from the CPU's")
+    ms = {dt: cuda_ms(lambda: quant_conv2d_wo(*on_card, (1, 1), "SAME", 1, dt))
+          for dt in (torch.bfloat16, torch.float32)}
+    log(f"runner {label}: quant_conv2d_wo {tuple(args[0].shape)} x 3 x 3 x {co}, "
+        f"compute_dtype bfloat16 on the card vs the CPU {err:.3e} of max|out| (<= 1e-5); "
+        f"{float(rel(card_out, f32)):.3e} from float32; {ms[torch.bfloat16]:.3f} ms "
+        f"(float32 {ms[torch.float32]:.3f} ms) [{card}]")
 
 
 def build_packed(qtt, batch, name: str, cfg: dict, label: str, classes: int = 1000):

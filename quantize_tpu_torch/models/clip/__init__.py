@@ -57,7 +57,9 @@ class CLIPZeroShot(VarModule):
     def init_params(self, generator: torch.Generator) -> None:
         self.clip.init_params(generator)
 
-    def forward(self, images: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, images: torch.Tensor, mode: str = "fp32",
+                train: bool = False) -> torch.Tensor:
+        del train  # as JAX's: the image tower runs on its running statistics
         img = l2_normalize(self.clip.encode_image(images, mode=mode))
         return scaled(self.clip.get_var("params", "logit_scale"), img) @ self.get_var(
             "zeroshot", "weights")

@@ -123,17 +123,18 @@ class CLIPBottleneck(_Stage):
                               name_conv="downsample_conv", name_bn="downsample_bn",
                               device=device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
         identity = x
-        out = torch.relu(self._conv_bn("conv1", "bn1", x, mode))
-        out = torch.relu(self._conv_bn("conv2", "bn2", out, mode))
+        out = torch.relu(self._conv_bn("conv1", "bn1", x, mode, train=train))
+        out = torch.relu(self._conv_bn("conv2", "bn2", out, mode, train=train))
         if self.stride > 1:
             out = avg_pool_nhwc(out, self.stride)
-        out = self._conv_bn("conv3", "bn3", out, mode)
+        out = self._conv_bn("conv3", "bn3", out, mode, train=train)
         if self.downsample:
             if self.stride > 1:
                 identity = avg_pool_nhwc(identity, self.stride)
-            identity = self._conv_bn("downsample_conv", "downsample_bn", identity, mode)
+            identity = self._conv_bn("downsample_conv", "downsample_bn", identity,
+                                     mode, train=train)
         return torch.relu(out + identity)
 
 
@@ -217,12 +218,12 @@ class ModifiedResNet(_Stage):
         self.attnpool = AttentionPool2d(ctx, "/visual/attnpool", side * side, width * 32, heads,
                                         output_dim, device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
         for i in (1, 2, 3):
-            x = torch.relu(self._conv_bn(f"conv{i}", f"bn{i}", x, mode))
+            x = torch.relu(self._conv_bn(f"conv{i}", f"bn{i}", x, mode, train=train))
         x = avg_pool_nhwc(x, 2)
         for name in self.block_names:
-            x = getattr(self, name)(x, mode)
+            x = getattr(self, name)(x, mode, train)
         return self.attnpool(x, mode=mode)
 
 
@@ -309,7 +310,8 @@ class CLIPVisionTransformer(VarModule):
         for leaf in ("class_embedding", "positional_embedding", "proj"):
             _normal_(self.get_var("params", leaf), scale, generator)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
+        del train  # no BatchNorm
         n = x.shape[0]
         x = self.conv1(x, mode=mode).reshape(n, -1, self.width)
         cls = self.get_var("params", "class_embedding")

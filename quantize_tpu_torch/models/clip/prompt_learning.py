@@ -111,7 +111,9 @@ class CoOpCLIP(VarModule):
     def _scaled(self, img: torch.Tensor) -> torch.Tensor:
         return scaled(self.clip.get_var("params", "logit_scale"), img)
 
-    def forward(self, images: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, images: torch.Tensor, mode: str = "fp32",
+                train: bool = False) -> torch.Tensor:
+        del train  # as JAX's: the image tower runs on its running statistics
         img = l2_normalize(self.clip.encode_image(images, mode=mode))
         return self._scaled(img) @ self.text_features(mode=mode).T
 
@@ -126,7 +128,9 @@ class CoCoOpCLIP(CoOpCLIP):
         self.meta_fc1 = Dense(vis_dim, vis_dim // 16, device)
         self.meta_fc2 = Dense(vis_dim // 16, dim, device)
 
-    def forward(self, images: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, images: torch.Tensor, mode: str = "fp32",
+                train: bool = False) -> torch.Tensor:
+        del train  # as JAX's: the image tower runs on its running statistics
         img = l2_normalize(self.clip.encode_image(images, mode=mode))
         shifts = self.meta_fc2(torch.relu(self.meta_fc1(img)))  # (batch, dim)
         return torch.stack([self._scaled(feat) @ self.text_features(mode, shift).T

@@ -84,11 +84,11 @@ class MobileNetV1(_Net):
         self.fc = QuantDense(in_ch, num_classes, quant=ctx.resolve("/fc", "nn_linear"),
                              device=device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
-        x = torch.relu(self._conv_bn("stem_conv", "stem_bn", x, mode))
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
+        x = torch.relu(self._conv_bn("stem_conv", "stem_bn", x, mode, train=train))
         for i in range(len(self.CFG)):
-            x = torch.relu(self._conv_bn(f"dw{i}_conv", f"dw{i}_bn", x, mode))
-            x = torch.relu(self._conv_bn(f"pw{i}_conv", f"pw{i}_bn", x, mode))
+            x = torch.relu(self._conv_bn(f"dw{i}_conv", f"dw{i}_bn", x, mode, train=train))
+            x = torch.relu(self._conv_bn(f"pw{i}_conv", f"pw{i}_bn", x, mode, train=train))
         return self.fc(x.mean(dim=(1, 2)), mode=mode)
 
 
@@ -109,22 +109,23 @@ class InvertedResidual(_Stage):
         self._add_conv_bn(ctx, f"{qpath}/conv/{idx + 1}", hidden, out_ch, (1, 1),
                           name_conv="project_conv", name_bn="project_bn", device=device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
         # int8 carry: the residual reuses the first conv's quantized input
         use_qin = self.use_res and mode == "packed" and packed_qin_carry()
         identity, qin = x, None
         out = x
         if self.expand:
-            out = self._conv_bn("expand_conv", "expand_bn", out, mode, return_qinput=use_qin)
+            out = self._conv_bn("expand_conv", "expand_bn", out, mode,
+                                return_qinput=use_qin, train=train)
             if use_qin:
                 out, qin = out
             out = relu6(out)
         dw_qin = use_qin and not self.expand
-        out = self._conv_bn("dw_conv", "dw_bn", out, mode, return_qinput=dw_qin)
+        out = self._conv_bn("dw_conv", "dw_bn", out, mode, return_qinput=dw_qin, train=train)
         if dw_qin:
             out, qin = out
         out = relu6(out)
-        out = self._conv_bn("project_conv", "project_bn", out, mode)
+        out = self._conv_bn("project_conv", "project_bn", out, mode, train=train)
         if qin is not None:
             identity = qin.dequant()
         return identity + out if self.use_res else out
@@ -163,11 +164,11 @@ class MobileNetV2(_Net):
                                      quant=ctx.resolve("/classifier/1", "nn_linear"),
                                      device=device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
-        x = relu6(self._conv_bn("stem_conv", "stem_bn", x, mode))
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
+        x = relu6(self._conv_bn("stem_conv", "stem_bn", x, mode, train=train))
         for name in self.block_names:
-            x = getattr(self, name)(x, mode)
-        x = relu6(self._conv_bn("head_conv", "head_bn", x, mode))
+            x = getattr(self, name)(x, mode, train)
+        x = relu6(self._conv_bn("head_conv", "head_bn", x, mode, train=train))
         return self.classifier(x.mean(dim=(1, 2)), mode=mode)
 
 
@@ -219,17 +220,18 @@ class MNV3Block(_Stage):
         self._add_conv_bn(ctx, f"{qpath}/block/{idx}/0", exp_ch, out_ch, (1, 1),
                           name_conv="project_conv", name_bn="project_bn", device=device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
         use_qin = self.use_res and mode == "packed" and packed_qin_carry()
         identity, qin = x, None
         out = x
         if self.expand:
-            out = self._conv_bn("expand_conv", "expand_bn", out, mode, return_qinput=use_qin)
+            out = self._conv_bn("expand_conv", "expand_bn", out, mode,
+                                return_qinput=use_qin, train=train)
             if use_qin:
                 out, qin = out
             out = self.act(out)
         dw_qin = use_qin and not self.expand
-        out = self._conv_bn("dw_conv", "dw_bn", out, mode, return_qinput=dw_qin)
+        out = self._conv_bn("dw_conv", "dw_bn", out, mode, return_qinput=dw_qin, train=train)
         if dw_qin:
             out, qin = out
         out = self.act(out)
@@ -237,7 +239,7 @@ class MNV3Block(_Stage):
             identity = qin.dequant()
         if hasattr(self, "se"):
             out = self.se(out, mode)
-        out = self._conv_bn("project_conv", "project_bn", out, mode)
+        out = self._conv_bn("project_conv", "project_bn", out, mode, train=train)
         return identity + out if self.use_res else out
 
 
@@ -303,11 +305,11 @@ class MobileNetV3(_Net):
                                      quant=ctx.resolve("/classifier/3", "nn_linear"),
                                      device=device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
-        x = hard_swish(self._conv_bn("stem_conv", "stem_bn", x, mode))
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
+        x = hard_swish(self._conv_bn("stem_conv", "stem_bn", x, mode, train=train))
         for name in self.block_names:
-            x = getattr(self, name)(x, mode)
-        x = hard_swish(self._conv_bn("head_conv", "head_bn", x, mode))
+            x = getattr(self, name)(x, mode, train)
+        x = hard_swish(self._conv_bn("head_conv", "head_bn", x, mode, train=train))
         x = hard_swish(self.pre_classifier(x.mean(dim=(1, 2)), mode=mode))
         return self.classifier(x, mode=mode)
 

@@ -27,20 +27,34 @@ from ..nn.variables import VarModule
 
 
 class _BatchNorm(VarModule):
-    """flax ``nn.BatchNorm`` in inference mode (running statistics)."""
+    """flax ``nn.BatchNorm`` (momentum 0.9): on its running statistics, or
+    with ``train`` on the batch's, which then move the running ones (what
+    flax does under ``mutable=["batch_stats"]``)."""
 
-    def __init__(self, features: int, eps: float = 1e-5, device=None):
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9, device=None):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         f32 = dict(dtype=torch.float32, device=device)
         self.put_var("params", "scale", torch.ones((features,), **f32))
         self.put_var("params", "bias", torch.zeros((features,), **f32))
         self.put_var("batch_stats", "mean", torch.zeros((features,), **f32))
         self.put_var("batch_stats", "var", torch.ones((features,), **f32))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mul = torch.rsqrt(self.get_var("batch_stats", "var") + self.eps) * self.get_var("params", "scale")
-        return (x - self.get_var("batch_stats", "mean")) * mul + self.get_var("params", "bias")
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        mean, var = self.get_var("batch_stats", "mean"), self.get_var("batch_stats", "var")
+        if train:
+            # flax's statistics over every axis but the channels, in float32,
+            # the variance as E[x^2] - E[x]^2 clipped at 0
+            axes = tuple(range(x.dim() - 1))
+            xf = x.float()
+            b_mean = xf.mean(axes)
+            b_var = torch.clamp_min(xf.square().mean(axes) - b_mean.square(), 0.0)
+            m = self.momentum
+            self.put_var("batch_stats", "mean", m * mean + (1 - m) * b_mean.detach())
+            self.put_var("batch_stats", "var", m * var + (1 - m) * b_var.detach())
+            mean, var = b_mean, b_var
+        mul = torch.rsqrt(var + self.eps) * self.get_var("params", "scale")
+        return (x - mean) * mul + self.get_var("params", "bias")
 
 
 class _BN(nn.Module):
@@ -50,8 +64,8 @@ class _BN(nn.Module):
         super().__init__()
         self.BatchNorm_0 = _BatchNorm(features, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.BatchNorm_0(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.BatchNorm_0(x, train)
 
 
 def _conv_kind(ctx: QuantCtx) -> str:
@@ -83,16 +97,18 @@ class _Stage(nn.Module):
             setattr(self, name_bn, _BN(features, device=device))
 
     def _conv_bn(self, name_conv: str, name_bn: str, x: torch.Tensor, mode: str,
-                 residual=None, fuse_relu: bool = False, return_qinput: bool = False):
-        """The conv (and BN); with ``return_qinput`` (packed mode, the int8
-        carry) ``(out, qin)``, qin the conv's quantized input or None."""
+                 residual=None, fuse_relu: bool = False, return_qinput: bool = False,
+                 train: bool = False):
+        """The conv (and BN, on the batch's statistics with ``train``); with
+        ``return_qinput`` (packed mode, the int8 carry) ``(out, qin)``, qin
+        the conv's quantized input or None."""
         conv = getattr(self, name_conv)
         if return_qinput:
             x, qin = conv(x, mode=mode, return_qinput=True)
         else:
             x = conv(x, mode=mode, residual=residual, fuse_relu=fuse_relu)
         if hasattr(self, name_bn):
-            x = getattr(self, name_bn)(x)
+            x = getattr(self, name_bn)(x, train)
         return (x, qin) if return_qinput else x
 
     def _add_relu(self, ctx: QuantCtx, qpath: str, name: str, in_ch: int, device=None) -> None:
@@ -122,22 +138,24 @@ class BasicBlock(_Stage):
                           name_conv="conv2", name_bn="bn2", device=device)
         self._add_relu(ctx, f"{qpath}/relu", "relu2", features, device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
         # int8 carry: skip/downsample reuse conv1's quantized input
         use_qin = mode == "packed" and packed_qin_carry()
-        out = self._conv_bn("conv1", "bn1", x, mode, return_qinput=use_qin)
+        out = self._conv_bn("conv1", "bn1", x, mode, return_qinput=use_qin, train=train)
         qin = None
         if use_qin:
             out, qin = out
         identity = x if qin is None else qin.dequant()
         out = self._relu("relu1", out, mode)
         if self.downsample:
-            identity = self._conv_bn("downsample_conv", "downsample_bn", identity, mode)
+            identity = self._conv_bn("downsample_conv", "downsample_bn", identity,
+                                     mode, train=train)
         if _fuse_residual(self.ctx, mode):
             # 3x3 conv: the fused 1x1 kernel does not apply, but the layer's
             # unfused residual tail still adds and applies ReLU
-            return self._conv_bn("conv2", "bn2", out, mode, residual=identity, fuse_relu=True)
-        out = self._conv_bn("conv2", "bn2", out, mode)
+            return self._conv_bn("conv2", "bn2", out, mode, residual=identity,
+                                 fuse_relu=True, train=train)
+        out = self._conv_bn("conv2", "bn2", out, mode, train=train)
         return self._relu("relu2", out + identity, mode)
 
 
@@ -161,23 +179,25 @@ class Bottleneck(_Stage):
                           name_conv="conv3", name_bn="bn3", device=device)
         self._add_relu(ctx, f"{qpath}/relu", "relu3", out_features, device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
         use_qin = mode == "packed" and packed_qin_carry()
-        out = self._conv_bn("conv1", "bn1", x, mode, return_qinput=use_qin)
+        out = self._conv_bn("conv1", "bn1", x, mode, return_qinput=use_qin, train=train)
         qin = None
         if use_qin:
             out, qin = out
         identity = x if qin is None else qin.dequant()
         out = self._relu("relu1", out, mode)
-        out = self._conv_bn("conv2", "bn2", out, mode)
+        out = self._conv_bn("conv2", "bn2", out, mode, train=train)
         out = self._relu("relu2", out, mode)
         if self.downsample:
-            identity = self._conv_bn("downsample_conv", "downsample_bn", identity, mode)
+            identity = self._conv_bn("downsample_conv", "downsample_bn", identity,
+                                     mode, train=train)
         if _fuse_residual(self.ctx, mode):
             # conv3 + skip add + ReLU in one kernel: the fat block-boundary
             # activation is written to device memory exactly once
-            return self._conv_bn("conv3", "bn3", out, mode, residual=identity, fuse_relu=True)
-        out = self._conv_bn("conv3", "bn3", out, mode)
+            return self._conv_bn("conv3", "bn3", out, mode, residual=identity,
+                                 fuse_relu=True, train=train)
+        out = self._conv_bn("conv3", "bn3", out, mode, train=train)
         return self._relu("relu3", out + identity, mode)
 
 
@@ -235,15 +255,15 @@ class ResNet(_Stage):
             if hasattr(mod, "init_params") and mod is not self:
                 mod.init_params(generator)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
-        x = self._conv_bn("conv1", "bn1", x, mode)
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
+        x = self._conv_bn("conv1", "bn1", x, mode, train=train)
         x = self._relu("relu", x, mode)
         if hasattr(self, "maxpool"):
             x = self.maxpool(x, mode=mode)
         else:
             x = max_pool_nhwc(x, (3, 3), (2, 2), [(1, 1), (1, 1)])
         for name in self.block_names:
-            x = getattr(self, name)(x, mode)
+            x = getattr(self, name)(x, mode, train)
         if hasattr(self, "avgpool"):
             x = self.avgpool(x, mode=mode)
         else:

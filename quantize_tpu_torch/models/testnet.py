@@ -46,7 +46,7 @@ class TrajNet(_Net):
         self.fc = QuantDense(16, num_classes, quant=ctx.resolve("/fc", "nn_linear"),
                              device=device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
         x = torch.relu(self.conv1(x, mode=mode))
         x = torch.relu(self.conv2(x, mode=mode))
         return self.fc(x.mean(dim=(1, 2)), mode=mode)
@@ -75,15 +75,16 @@ class TestCNN(_Net):
         self.fc2 = QuantDense(32, num_classes, quant=ctx.resolve("/fc2", "nn_linear"),
                               device=device)
 
-    def _conv_bn_relu(self, conv: str, bn: str, x: torch.Tensor, mode: str) -> torch.Tensor:
+    def _conv_bn_relu(self, conv: str, bn: str, x: torch.Tensor, mode: str,
+                      train: bool) -> torch.Tensor:
         x = getattr(self, conv)(x, mode=mode)
         if hasattr(self, bn):
-            x = getattr(self, bn)(x)
+            x = getattr(self, bn)(x, train)
         return torch.relu(x)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
-        x = self._conv_bn_relu("conv1", "bn1", x, mode)
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
+        x = self._conv_bn_relu("conv1", "bn1", x, mode, train)
         x = max_pool_nhwc(x, (2, 2), (2, 2), ((0, 0), (0, 0)))  # flax max_pool: VALID
-        x = self._conv_bn_relu("conv2", "bn2", x, mode).mean(dim=(1, 2))
+        x = self._conv_bn_relu("conv2", "bn2", x, mode, train).mean(dim=(1, 2))
         x = torch.relu(self.fc1(x, mode=mode))
         return self.fc2(x, mode=mode)

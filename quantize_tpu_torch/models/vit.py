@@ -117,7 +117,8 @@ class VisionTransformer(VarModule):
             self.get_var("params", "class_token").zero_()
             pos.copy_(torch.randn(pos.shape, generator=generator) * 0.02)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
+        del train  # no BatchNorm
         n = x.shape[0]
         x = self.conv_proj(x, mode=mode)
         x = x.reshape(n, -1, self.hidden_dim)  # (N, patches, E)

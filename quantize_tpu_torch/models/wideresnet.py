@@ -46,11 +46,11 @@ class WRNBasicBlock(torch.nn.Module):
                                                             "nn_conv2d"),
                                           device=device)
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
-        pre = torch.relu(self.bn1(x))
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
+        pre = torch.relu(self.bn1(x, train))
         out = self.conv1(pre, mode=mode)
         if hasattr(self, "bn2"):
-            out = self.bn2(out)
+            out = self.bn2(out, train)
         out = self.conv2(torch.relu(out), mode=mode)
         shortcut = x if self.equal else self.convShortcut(pre, mode=mode)
         return shortcut + out
@@ -87,11 +87,11 @@ class WideResNet(torch.nn.Module):
     # kernels drawn in module order, as ResNet's
     init_params = ResNet.init_params
 
-    def forward(self, x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mode: str = "fp32", train: bool = False) -> torch.Tensor:
         x = self.conv1(x, mode=mode)
         for name in self.block_names:
-            x = getattr(self, name)(x, mode)
-        x = torch.relu(self.bn1(x))
+            x = getattr(self, name)(x, mode, train)
+        x = torch.relu(self.bn1(x, train))
         return self.fc(x.mean(dim=(1, 2)), mode=mode)
 
 

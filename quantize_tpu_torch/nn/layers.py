@@ -87,7 +87,9 @@ class LayerQuantCfg:
 
     ``weight``/``activation`` are the reference's ``w_setting``/``a_setting``
     dicts; ``bias_correct`` enables the corrector; ``bn_folding`` marks that
-    a following BN is folded into this layer at import time.
+    a following BN is folded into this layer at import time (``into_scale``
+    folds into the quantizer's static_scale instead of the weight data,
+    reference ``quantconv2d.py:115-133``).
     """
 
     weight: Mapping[str, Any] = dataclasses.field(default_factory=dict)
@@ -102,6 +104,12 @@ class LayerQuantCfg:
         object.__setattr__(self, "bias_correct", _freeze(dict(bc)) if isinstance(bc, Mapping) else bc)
         bf = self.bn_folding
         object.__setattr__(self, "bn_folding", _freeze(dict(bf)) if isinstance(bf, Mapping) else bf)
+
+    @property
+    def into_scale(self) -> bool:
+        if self.bn_folding and not isinstance(self.bn_folding, bool):
+            return bool(dict(self.bn_folding).get("into_scale", False))
+        return False
 
     def bias_correct_kwargs(self) -> dict:
         if isinstance(self.bias_correct, bool) or self.bias_correct is None:
@@ -157,7 +165,7 @@ class _QuantLayerBase(VarModule):
         the weight quantizer then sums the gradients of its whole leaves
         over the shard's group (:mod:`~quantize_tpu_torch.parallel.tensor_parallel`)."""
         self.tp_shard = shard
-        self.w_quantizer.tp_group = None if shard is None else shard.group
+        self.w_quantizer.layer_shard = shard
 
     def param_shape(self, leaf: str) -> Optional[Tuple[int, ...]]:
         """The shape a ``params`` leaf loads at: the float kernel's and the

@@ -70,10 +70,12 @@ class Quantizer(VarModule):
         super().__init__()
         self.spec = spec
         self.n_channels = int(n_channels)
-        # the ``model`` group of a layer that runs on a slice of its out
-        # channels (parallel/tensor_parallel.py): the leaves this quantizer
-        # holds whole then get their gradient summed over it
-        self.tp_group = None
+        self.device = torch.device(device or "cpu")
+        # the slice of the out channels of a layer that runs on one
+        # (parallel/tensor_parallel.py; the layer's ``set_tp_shard`` sets it):
+        # the leaves this quantizer holds whole then get their gradient summed
+        # over its ``model`` group
+        self.layer_shard = None
         # the mesh's ``data`` group where it has two ranks or more: an
         # activation's calibration statistics are reduced over it
         self.data_group = None
@@ -82,6 +84,10 @@ class Quantizer(VarModule):
                          torch.ones((self.n_channels,), dtype=torch.float32, device=device))
             self.put_var("qparams", "zero",
                          torch.zeros((self.n_channels,), dtype=torch.float32, device=device))
+
+    @property
+    def tp_group(self):
+        return None if self.layer_shard is None else self.layer_shard.group
 
     def _whole(self, t: torch.Tensor) -> torch.Tensor:
         """``t``, a leaf used whole on a slice of the out channels: its
@@ -98,6 +104,22 @@ class Quantizer(VarModule):
         ss = self.get_var("qparams", "static_scale")
         # one per out channel is cut to the slice; any other length is whole
         return ss if ss.numel() == x.shape[self.spec.channel_axis] else self._whole(ss)
+
+    def set_static_scale(self, value) -> None:
+        """Install a fixed multiplier on the calibrated scale (BN
+        fold-into-scale, reference ``quantizer.py:146-151``): ``value`` (a
+        tensor, an array or a float) stored as float32 on the quantizer's
+        device, the leaf created where it is absent. On a slice of the out
+        channels a value with one entry per whole out channel is stored as
+        the slice's, any other length whole, as :meth:`_static_scale` reads
+        it back."""
+        buf = next(self.buffers(), None)
+        device = buf.device if buf is not None else self.device
+        t = torch.as_tensor(value, dtype=torch.float32).to(device)
+        shard = self.layer_shard
+        if shard is not None and t.dim() == 1 and t.shape[0] == shard.n_out:
+            t = shard.cut(t)
+        self.put_var("qparams", "static_scale", t)
 
     def _awq_scale(self) -> Optional[torch.Tensor]:
         if self.has_var("qparams", "awq_scale"):

@@ -486,6 +486,7 @@ def quant_conv2d_wo(
     strides: Sequence[int] = (1, 1),
     padding: Padding = "SAME",
     groups: int = 1,
+    compute_dtype: torch.dtype = torch.float32,
     awq_recip: Optional[torch.Tensor] = None,
     group_size: int = 0,
 ) -> torch.Tensor:
@@ -493,6 +494,12 @@ def quant_conv2d_wo(
     dequantized, ``(w + z)·s`` in float32, then one float32 conv and
     ``+ bias``. JAX computes this in XLA outside any Pallas kernel, so the
     conv is the library's (TF32 off on the card keeps it float32).
+
+    ``compute_dtype`` (bfloat16, float16) rounds the input and the
+    dequantized weight to it first, as JAX does; JAX then sums in float32
+    (``preferred_element_type``), and so does this conv: each product of
+    two such values is exact in float32, and the output is float32. (A
+    bfloat16 library conv would round its output to bfloat16.)
 
     AWQ deploy: the packed kernel stores Q(w·awq); ``awq_recip`` (C_in,)
     folds the 1/awq in-channel divisor into the dequantized kernel.
@@ -504,7 +511,9 @@ def quant_conv2d_wo(
     if awq_recip is not None:
         # the in-channel axis of HWIO is -2
         w_deq = w_deq * awq_recip.float().reshape(-1, 1)
-    out = conv_nhwc(x.float(), w_deq, strides, padding, groups)
+    if compute_dtype != torch.float32:
+        x, w_deq = x.to(compute_dtype), w_deq.to(compute_dtype)
+    out = conv_nhwc(x.float(), w_deq.float(), strides, padding, groups)
     return out if bias is None else out + bias
 
 

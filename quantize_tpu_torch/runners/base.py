@@ -123,6 +123,26 @@ class BasicRunner:
         convert.from_jax_variables(self.model, variables)
         self._initialized = True
 
+    def merge_updates(self, updates) -> None:
+        """Replace the model's collections with those of ``updates`` (the
+        setter's layouts: nested, or the getter's ``{collection:
+        {"path/leaf": tensor}}``), as JAX's ``merged[col] = tree`` does: a
+        leaf of such a collection that ``updates`` lacks is dropped, and
+        every other collection is kept (none before the variables are
+        set); ``taps`` is ignored. On a mesh they are sharded as the setter
+        shards them, so give them whole (``gather_variables``)."""
+        from ..convert import flatten
+        from ..nn.variables import var_modules
+
+        updates = {col: tree for col, tree in updates.items() if col != "taps"}
+        wanted = {col: set(flatten(tree)) for col, tree in updates.items()}
+        for path, mod in var_modules(self.model):
+            for col, leaf, _ in list(mod.own_vars()):
+                key = f"{path}/{leaf}" if path else leaf
+                if key not in wanted.get(col, ()) and (col in wanted or not self._initialized):
+                    mod.drop_var(col, leaf)
+        self.variables = updates
+
     def init_variables(self, sample_batch: Dict[str, np.ndarray], seed: int = 0) -> None:
         """Initialise the parameters from ``seed`` and run one calibrate
         pass over ``sample_batch`` (JAX's ``model.init`` in calibrate mode),
