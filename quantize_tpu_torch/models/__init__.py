@@ -4,19 +4,48 @@ families and the test CNNs) and :func:`build_model`.
 Constructors take ``(num_classes, ctx, device="cuda")``; ``ctx`` is a
 :class:`~quantize_tpu_torch.nn.intercept.QuantCtx` (None builds the FP32
 network from the same code).
+
+Every model the registry builds carries the program's spans
+(:func:`~quantize_tpu_torch.profiling.span_module`): its forward is
+``forward.<mode>`` and each residual or encoder block ``block.<path>``,
+ranges that exist only while PyTorch's profiler is on.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
+from .. import profiling
 from ..nn.intercept import QuantCtx
 from ..utils.config import Config
 from ..utils.registry import Registry
 from . import mobilenet, resnet, vit, wideresnet
 from .clip import CLIP_MODELS
+from .clip.model import CLIPBottleneck, ResidualAttentionBlock
 from .testnet import TestCNN, TrajNet
 
-MODELS = Registry("models")
+# the residual and encoder blocks, each spanned as block.<its path>
+BLOCKS = (resnet.BasicBlock, resnet.Bottleneck, wideresnet.WRNBasicBlock,
+          mobilenet.InvertedResidual, mobilenet.MNV3Block, vit.EncoderBlock, CLIPBottleneck,
+          ResidualAttentionBlock)
+
+
+def span_model(model: torch.nn.Module) -> torch.nn.Module:
+    """Span ``model``'s forward as ``forward.<mode>`` and each of its
+    :data:`BLOCKS` as ``block.<path>``; returns ``model``."""
+    for path, mod in model.named_modules():
+        if isinstance(mod, BLOCKS):
+            profiling.span_module(mod, "block." + path)
+    return profiling.span_module(model)
+
+
+class _ModelRegistry(Registry):
+    def build(self, name: str, *args, **kwargs):
+        return span_model(super().build(name, *args, **kwargs))
+
+
+MODELS = _ModelRegistry("models")
 
 MODELS.register_dict({
     "resnet18": resnet.resnet18,
@@ -71,4 +100,4 @@ def build_model(cfg_model: Config, ctx: Optional[QuantCtx] = None, device="cuda"
     return MODELS.build(name, num_classes=num_classes, ctx=ctx, device=device, **kwargs)
 
 
-__all__ = ["MODELS", "build_model"]
+__all__ = ["BLOCKS", "MODELS", "build_model", "span_model"]

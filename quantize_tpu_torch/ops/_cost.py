@@ -1,5 +1,5 @@
-"""The contraction each kernel wrapper runs, for the cost recorders of
-:mod:`quantize_tpu_torch.profiling`.
+"""The one hook on every kernel wrapper: its span, and the contraction it
+runs, for the cost recorders of :mod:`quantize_tpu_torch.profiling`.
 
 The hand-written kernels launch through ``ctypes``, where PyTorch's
 dispatcher never sees them, so :func:`quantize_tpu_torch.profiling.
@@ -9,6 +9,10 @@ recorder is active, a call reports its name, operations, bytes and operand
 bits (:func:`contraction_work`, from the call's arguments), and the
 ``aten`` calls inside it (the plain version a CPU tensor takes) are not
 counted again. Without an active recorder the wrapper runs as it is.
+
+Every wrapper of ``ops.KERNEL_WRAPPERS`` carries :func:`reports` under its
+name there, the three that run no contraction (KQ, K6, K7) too: each call is
+the span ``op.<name>`` (:func:`quantize_tpu_torch.profiling.spanned`).
 """
 from __future__ import annotations
 
@@ -19,6 +23,11 @@ from typing import Callable, List, Tuple
 
 import torch
 
+from .. import profiling
+
+# the kernels whose contraction contraction_work counts
+CONTRACTIONS = ("w8a8_gemm", "w4a8_gemm", "conv1x1_residual", "qconv2d", "qconv2d_grouped",
+                "wo_gemm", "mha_rows", "mha_rows_int8")
 # the active recorders: objects with ``kernel(name, ops, nbytes, bits)`` and
 # a ``suppressed`` depth that their dispatch mode reads
 _ACTIVE: List = []
@@ -94,7 +103,13 @@ def suppressed():
 
 
 def reports(name: str) -> Callable:
-    """Decorator for the wrapper of contraction kernel ``name``."""
+    """Decorator for the wrapper of kernel ``name`` (its ``KERNEL_WRAPPERS``
+    name): the span ``op.<name>``, and for a contraction kernel its cost
+    while a recorder is active."""
+    span = profiling.spanned("op." + name)
+    if name not in CONTRACTIONS:
+        return span
+
     def deco(fn: Callable) -> Callable:
         sig = inspect.signature(fn)
 
@@ -111,6 +126,6 @@ def reports(name: str) -> Callable:
             with suppressed():
                 return fn(*args, **kw)
 
-        return wrapper
+        return span(wrapper)
 
     return deco

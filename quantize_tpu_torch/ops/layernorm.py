@@ -23,7 +23,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
+from . import _build, _cost
 from .qmatmul import quantize_act_int8_plain
 
 
@@ -50,6 +50,7 @@ def layernorm_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, ep
     return _ln_math(x.float(), scale.float(), bias.float(), eps).to(out_dtype)
 
 
+@_cost.reports("layernorm")
 def layernorm_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
                    out_dtype: torch.dtype) -> torch.Tensor:
     """Kernel K6 on (R, d) rows: CPU tensors take :func:`layernorm_plain`;
@@ -118,6 +119,7 @@ def layernorm_quant_int8_plain(x: torch.Tensor, scale: torch.Tensor, bias: torch
     return quantize_act_int8_plain(y, a_scale, a_zero, qmin, qmax)
 
 
+@_cost.reports("layernorm_quant_int8")
 def layernorm_quant_int8_rows(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                               eps: float, a_scale: torch.Tensor, a_zero: torch.Tensor,
                               qmin: int, qmax: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -53,6 +53,7 @@ def quantize_act_int8_plain(x: torch.Tensor, scale, zero, qmin: int, qmax: int
     return q.to(torch.int8), z_eff
 
 
+@_cost.reports("quantize_act_int8")
 def quantize_act_int8(x: torch.Tensor, scale, zero, qmin: int, qmax: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel KQ, the activation quantize of ``quantize_tpu/ops/pallas/

@@ -51,6 +51,7 @@ import torch
 import torch.distributed as dist
 
 from ..nn import precision
+from ..profiling import span, spanned
 
 
 # how long stop() waits for each thread before it fails what is not yet served
@@ -209,11 +210,13 @@ class InferenceEngine:
             self.frame_pool = torch.as_tensor(frame_pool, device=self.device)
             self.input_dtype = np.dtype(np.int32)
         self._in_dtype = _torch_dtype(self.input_dtype)
-        # chunks (images[n, ...], sinks), each sink (future, n_requests)
+        # chunks (images[n, ...], sinks, the host clock at the put), each
+        # sink (future, n_requests)
         self._queue: "queue.Queue[tuple]" = queue.Queue(maxsize=int(max_queue))
         self._pending: List[tuple] = []  # the staging thread's leftover chunks
-        # (host batch or None, sinks, n_requests, staging error) between
-        # staging and dispatch: two batches staged ahead at most
+        # (host batch or None, sinks, n_requests, staging error, the sum of
+        # the requests' put times) between staging and dispatch: two batches
+        # staged ahead at most
         self._staged: "queue.Queue[Optional[tuple]]" = queue.Queue(maxsize=2)
         # (host result, CUDA event, sinks) between dispatch and drain
         self._inflight: "queue.Queue[Optional[tuple]]" = queue.Queue(
@@ -231,6 +234,7 @@ class InferenceEngine:
         self._fail_lock = threading.Lock()  # n_failed is counted from several threads
         self.staging_s = 0.0  # host time assembling batches into pinned memory
         self.dispatch_s = 0.0  # host time queuing the copies and forwards
+        self.queue_wait_s = 0.0  # summed over requests: put to their batch's dispatch
         # tensor parallel: the batches' broadcasts (header and rows) to the
         # followers, and a follower's failure
         self.broadcast_s = 0.0
@@ -340,7 +344,8 @@ class InferenceEngine:
         """One request; its future resolves to its result."""
         self._check_leader()
         fut: Future = Future()
-        self._queue.put((np.asarray(image, self.input_dtype)[None], [(fut, 1)]))
+        self._queue.put((np.asarray(image, self.input_dtype)[None], [(fut, 1)],
+                         time.perf_counter()))
         return fut
 
     def _put_chunks(self, images, sinks_for) -> List[Future]:
@@ -352,9 +357,10 @@ class InferenceEngine:
         self._check_leader()
         arr = np.asarray(images, self.input_dtype)
         futs: List[Future] = []
+        t = time.perf_counter()
         for lo in range(0, len(arr), self.batch_size):
             hi = min(lo + self.batch_size, len(arr))
-            self._queue.put((arr[lo:hi], sinks_for(futs, lo, hi)))
+            self._queue.put((arr[lo:hi], sinks_for(futs, lo, hi), t))
         return futs
 
     def submit_many(self, images: Sequence) -> List[Future]:
@@ -383,7 +389,9 @@ class InferenceEngine:
         batches waiting for the drain, the one being handed to it included,
         seen at a dispatch (2 or more: a batch was queued before the drain
         took the one ahead of it). ``staging_ms`` and ``dispatch_ms``: host
-        time a batch on the staging and the dispatch thread."""
+        time a batch on the staging and the dispatch thread.
+        ``queue_wait_ms``: host time a request waits, from its ``submit*``
+        to the start of its batch's dispatch, over the requests served."""
         batches = max(self.n_batches, 1)
         return {
             "broadcast_ms": 1e3 * self.broadcast_s / batches,
@@ -396,6 +404,7 @@ class InferenceEngine:
             "max_observed_in_flight": self.max_observed_in_flight,
             "staging_ms": 1e3 * self.staging_s / batches,
             "dispatch_ms": 1e3 * self.dispatch_s / batches,
+            "queue_wait_ms": 1e3 * self.queue_wait_s / max(self.n_processed, 1),
         }
 
     # -- server loop ------------------------------------------------------
@@ -407,7 +416,7 @@ class InferenceEngine:
         for the next batch."""
         pieces = self._pending
         self._pending = []
-        total = sum(n for _, sinks in pieces for _, n in sinks)
+        total = sum(n for _, sinks, _ in pieces for _, n in sinks)
         if total == 0:
             try:
                 c = self._queue.get(timeout=0.05)
@@ -428,17 +437,17 @@ class InferenceEngine:
                 pieces.append(c)
                 total += sum(n for _, n in c[1])
         if total > self.batch_size:
-            imgs, sinks = pieces.pop()
+            imgs, sinks, t = pieces.pop()
             n_last = sum(n for _, n in sinks)
             if all(n == 1 for _, n in sinks):
                 keep = n_last - (total - self.batch_size)
-                pieces.append((imgs[:keep], sinks[:keep]))
-                self._pending = [(imgs[keep:], sinks[keep:])]
+                pieces.append((imgs[:keep], sinks[:keep], t))
+                self._pending = [(imgs[keep:], sinks[keep:], t)]
                 total = self.batch_size
             else:
                 # a chunk's one future cannot be split: defer the whole chunk
                 # (this batch goes out underfilled, padded)
-                self._pending = [(imgs, sinks)]
+                self._pending = [(imgs, sinks, t)]
                 total -= n_last
         return pieces, total
 
@@ -447,13 +456,13 @@ class InferenceEngine:
         rows (pinned on CUDA) and zero the padding. A request whose shape
         differs from the first raises."""
         shape = pieces[0][0].shape[1:]
-        for imgs, _ in pieces:
+        for imgs, _, _ in pieces:
             if imgs.shape[1:] != shape:
                 raise ValueError(f"a request of shape {imgs.shape[1:]} in a batch of {shape}")
         buf = torch.empty((self.batch_size, *shape), dtype=self._in_dtype,
                           pin_memory=self.device.type == "cuda")
         off = 0
-        for imgs, _ in pieces:
+        for imgs, _, _ in pieces:
             rows = buf[off:off + len(imgs)]
             if imgs.flags.writeable:  # torch's copy runs on the intra-op threads
                 rows.copy_(torch.from_numpy(imgs))
@@ -474,16 +483,18 @@ class InferenceEngine:
             pieces, n = self._collect()
             if n == 0:
                 continue
-            sinks = [s for _, ss in pieces for s in ss]
+            sinks = [s for _, ss, _ in pieces for s in ss]
             if self._abandoned is not None:
                 self._fail(sinks, self._abandoned)
                 continue
+            put_s = sum(t * k for _, ss, t in pieces for _, k in ss)
             t0 = time.perf_counter()
-            try:
-                # one request of the wrong shape fails its batch, not the thread
-                item = (self._stage(pieces), sinks, n, None)
-            except Exception as exc:  # handed to the batch's futures
-                item = (None, sinks, n, exc)
+            with span("engine.stage"):
+                try:
+                    # one request of the wrong shape fails its batch, not the thread
+                    item = (self._stage(pieces), sinks, n, None, put_s)
+                except Exception as exc:  # handed to the batch's futures
+                    item = (None, sinks, n, exc, put_s)
             self.staging_s += time.perf_counter() - t0
             self._staged.put(item)
 
@@ -520,6 +531,7 @@ class InferenceEngine:
             self.broadcast_s += time.perf_counter() - t0
             self.broadcast_bytes += hdr.nbytes + buf.nbytes
 
+    @spanned("engine.dispatch")
     def _dispatch(self, buf: torch.Tensor, n: int = 0) -> tuple:
         """Queue one staged batch's copy to the device, its forward and the
         result's copy to the host (on a tensor-parallel mesh after the
@@ -572,13 +584,14 @@ class InferenceEngine:
                     item = self._staged.get()
                 if item is None:
                     return
-                buf, sinks, n, error = item
+                buf, sinks, n, error, put_s = item
                 try:
                     if error is not None:
                         raise error
                     if self._abandoned is not None:
                         self._fail(sinks, self._abandoned)
                         continue
+                    t = time.perf_counter()
                     host, done = self._dispatch(buf, n)
                     del buf  # back to the pinned cache once its copy has run
                     self.max_observed_in_flight = max(self.max_observed_in_flight,
@@ -589,6 +602,7 @@ class InferenceEngine:
                     continue  # failed batches stay out of the throughput stats
                 self.n_processed += n
                 self.n_batches += 1
+                self.queue_wait_s += n * t - put_s
 
     def _drain(self) -> None:
         """Resolve futures off the dispatch thread: wait here for each
@@ -598,18 +612,19 @@ class InferenceEngine:
             if entry is None:
                 return
             host, done, sinks = entry
-            try:
-                if done is not None:
-                    done.synchronize()
-                out = _materialize_local_rows(host)
-                off = 0
-                for fut, n in sinks:
-                    fut.set_result(out[off] if n == 1 else out[off:off + n])
-                    off += n
-            except Exception as exc:  # handed to the batch's futures
-                for fut, _ in sinks:
-                    if not fut.done():
-                        fut.set_exception(exc)
+            with span("engine.drain"):
+                try:
+                    if done is not None:
+                        done.synchronize()
+                    out = _materialize_local_rows(host)
+                    off = 0
+                    for fut, n in sinks:
+                        fut.set_result(out[off] if n == 1 else out[off:off + n])
+                        off += n
+                except Exception as exc:  # handed to the batch's futures
+                    for fut, _ in sinks:
+                        if not fut.done():
+                            fut.set_exception(exc)
 
     def _follow(self) -> None:
         """A follower's loop: the leader's batches, each through the same

@@ -8,6 +8,9 @@ wall-clock meters, ``runner/base.py:120-145``):
 * :func:`layer_costs` — per-contraction FLOP/byte accounting of a forward,
   with roofline classification against :data:`CHIP_SPECS`.
 * :class:`Timer` — wall timing with warm-up, the card synchronized.
+* :func:`span` / :func:`spanned` — the program's own ranges (``qtt.<name>``),
+  open only while PyTorch's profiler is on, and :func:`span_totals`, their
+  host time in the latest profiler session.
 
 JAX counts every ``dot_general`` and ``conv_general_dilated`` of the
 traced program; here :func:`layer_costs` runs the function once and counts
@@ -22,15 +25,19 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import inspect
+import json
 import math
 import os
+import threading
 import time
-from typing import Any, Callable, Dict, List
+import types
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
-
-from .ops import _cost
 
 # chip peak specs (per chip): dense bf16 FLOP/s, int8 OP/s, HBM bytes/s; the
 # H100 (NVIDIA's data sheet, SXM part, dense rates) also float32 outside the
@@ -43,23 +50,194 @@ CHIP_SPECS = {
 }
 DEFAULT_CHIP = "h100_sxm"
 TRACE_FILE = "trace.json"
+SPANS_FILE = "spans.json"
+
+
+# -- the program's spans ------------------------------------------------------
+#
+# A span is a RecordFunction range named ``qtt.<name>`` around a piece of
+# the program's work (a model's forward, a block, a kernel wrapper, a phase of
+# a training step, a stage of the serving engine). It exists only while
+# PyTorch's profiler is on (``torch.profiler.profile``, ``emit_nvtx``): then
+# it shares the device trace's clock (an NVTX range under ``emit_nvtx``) and
+# adds its host time and a count to the session totals of its name. With the
+# profiler off a span reads that flag, finds no open session to close, and
+# does nothing else.
+
+class _NoSpan:
+    """The span while the profiler is off: one shared object that does
+    nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Session:
+    """The totals of the latest profiler session: ``{name: [count, host
+    ns]}``. A session starts at the first span that finds the profiler on
+    after one that found it off (or after :func:`trace` began), so a
+    profiled warm-up, then unprofiled calls, then a profiled stretch leave
+    the totals of the stretch alone. Updated under a lock, taken only while
+    the profiler is on (the serving engine's threads span concurrently)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.totals: Dict[str, List[int]] = {}
+        self.live = False
+
+    def open(self) -> None:
+        with self.lock:
+            if not self.live:
+                self.totals = {}
+                self.live = True
+
+    def add(self, name: str, ns: int) -> None:
+        with self.lock:
+            entry = self.totals.get(name)
+            if entry is None:
+                self.totals[name] = [1, ns]
+            else:
+                entry[0] += 1
+                entry[1] += ns
+
+
+_SESSION = _Session()
+# "qtt." + name, made once a name
+_LABELS: Dict[str, str] = {}
+# the range a span opens: PyTorch's fast RecordFunction where it has one (a
+# range on the profiler's host timeline and an NVTX range under emit_nvtx,
+# as record_function's, without its two dispatcher calls: on an H100's host
+# under the profiler ~35 µs a record_function range, ~8 µs a span on this)
+_RANGE = (getattr(torch._C._profiler, "_RecordFunctionFast", None)
+          or torch.profiler.record_function)
+
+
+class _Span:
+    __slots__ = ("name", "_range", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "_Span":
+        if not _SESSION.live:
+            _SESSION.open()
+        label = _LABELS.get(self.name) or _LABELS.setdefault(self.name, "qtt." + self.name)
+        self._range = _RANGE(label)
+        self._range.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _SESSION.add(self.name, time.perf_counter_ns() - self._t0)
+        self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager around one piece of the program's work: the range
+    ``qtt.<name>`` while PyTorch's profiler is on, the shared no-op
+    otherwise. ``name`` is a constant or fixed when its module is built."""
+    if not _autograd_profiler._is_profiler_enabled:
+        if _SESSION.live:
+            _SESSION.live = False
+        return _NO_SPAN
+    return _Span(name)
+
+
+def spanned(name: str) -> Callable:
+    """Decorator form of :func:`span`: every call of the function is the
+    span ``name``."""
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _autograd_profiler._is_profiler_enabled:
+                if _SESSION.live:
+                    _SESSION.live = False
+                return fn(*args, **kwargs)
+            with _Span(name):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
+
+
+def span_totals() -> Dict[str, Tuple[int, float]]:
+    """``{name: (count, host seconds)}`` of every span of the latest
+    profiler session (empty before the first)."""
+    with _SESSION.lock:
+        return {k: (c, ns / 1e9) for k, (c, ns) in _SESSION.totals.items()}
+
+
+# "forward." + mode, made once a mode
+_FORWARD_NAMES: Dict[Any, str] = {}
+
+
+def _forward_name(mode) -> str:
+    return _FORWARD_NAMES.get(mode) or _FORWARD_NAMES.setdefault(mode, f"forward.{mode}")
+
+
+def _spanned_forward(forward, name, mode_at, self, *args, **kwargs):
+    if not _autograd_profiler._is_profiler_enabled:
+        if _SESSION.live:
+            _SESSION.live = False
+        return forward(self, *args, **kwargs)
+    if name is None:
+        at, default = mode_at
+        mode = kwargs["mode"] if "mode" in kwargs else (
+            args[at] if at is not None and len(args) > at else default)
+        name = _forward_name(mode)
+    with _Span(name):
+        return forward(self, *args, **kwargs)
+
+
+def span_module(module: torch.nn.Module, name: Optional[str] = None) -> torch.nn.Module:
+    """Span every call of ``module``'s forward: as ``name``, or (None, a
+    model's top level) as ``forward.<mode>`` by the call's ``mode``. The
+    module's class forward runs inside; the instance keeps it through
+    ``copy.deepcopy``. Returns ``module``."""
+    forward = type(module).forward
+    mode_at = (None, None)
+    if name is None:
+        params = list(inspect.signature(forward).parameters.values())[1:]
+        positional = [p.name for p in params
+                      if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+        default = next((p.default for p in params if p.name == "mode"), None)
+        mode_at = (positional.index("mode") if "mode" in positional else None,
+                   None if default is inspect.Parameter.empty else default)
+    module.forward = types.MethodType(
+        functools.partial(_spanned_forward, forward, name, mode_at), module)
+    return module
 
 
 @contextlib.contextmanager
 def trace(log_dir: str = os.path.join("results", "torch_trace")):
     """``torch.profiler`` over the block, CUDA activity included where the
     card is there; writes ``<log_dir>/trace.json`` (chrome://tracing or
-    Perfetto) on exit. Yields the profiler."""
+    Perfetto) and the block's span totals, ``<log_dir>/spans.json``
+    (``{name: {"count", "host_s"}}``), on exit. Yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    _SESSION.live = False  # the block's first span opens a session of its own
     with profile(activities=activities) as prof:
         yield prof
         _sync()
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+    with open(os.path.join(log_dir, SPANS_FILE), "w") as f:
+        json.dump({k: {"count": c, "host_s": s} for k, (c, s) in span_totals().items()}, f,
+                  indent=1, sort_keys=True)
 
 
 @dataclasses.dataclass
@@ -138,6 +316,8 @@ def layer_costs(fn: Callable, *args, chip: str = DEFAULT_CHIP) -> List[OpCost]:
     it runs and every kernel wrapper it calls: FLOPs, bytes, operand bits.
     ``chip`` is accepted for JAX's signature; :meth:`OpCost.bound` and
     :meth:`OpCost.min_time_s` take it."""
+    from .ops import _cost
+
     rec = _CostRecorder()
     _cost._ACTIVE.append(rec)
     try:

@@ -17,6 +17,12 @@ optimizer runs over those leaves: its transforms are elementwise (no global
 norm), so a slice's update is the slice of one device's update, and the
 ranks of a ``data`` group stay bit-equal. The calibration epochs,
 evaluation and checkpoints are the PTQ runner's on the mesh.
+
+A training step is the span ``qat.step`` (:func:`~quantize_tpu_torch.
+profiling.span`, on while PyTorch's profiler is), in phases: ``qat.forward``
+(the quant-mode forward and the loss), ``qat.backward`` (the gradients and
+their all-reduce), ``qat.optimizer`` (the leaves gathered and the update)
+and ``qat.readback`` (the accuracy and both values read to the host).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch.nn.functional as F
 from ..nn.variables import trainable
 from ..optim import Chain, Optimizer, Partition, Scale, build_optimizer
 from ..parallel.mesh import axis_group
+from ..profiling import span
 from .base import masked_cross_entropy, masked_topk_correct
 from .ptq import PTQ
 
@@ -49,25 +56,29 @@ def loss_and_grads(model: torch.nn.Module, img: torch.Tensor, label: torch.Tenso
     ``data`` (one all-reduce), and every rank returns the global loss and
     gradients. The layers of a model-sharded mesh run their own collectives
     (:mod:`~quantize_tpu_torch.parallel.tensor_parallel`)."""
-    leaves = trainable(model, TRAINABLE)
-    for t in leaves.values():
-        t.requires_grad_(True)
-    logits = model(img, mode="quant")
-    group = axis_group(mesh, "data")
-    if group is None:
-        loss = masked_cross_entropy(logits, label)
-        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-        return loss.detach(), logits.detach(), dict(zip(leaves, grads))
-    from ..parallel.tensor_parallel import all_reduce
+    with span("qat.forward"):
+        leaves = trainable(model, TRAINABLE)
+        for t in leaves.values():
+            t.requires_grad_(True)
+        logits = model(img, mode="quant")
+        group = axis_group(mesh, "data")
+        if group is None:
+            loss = masked_cross_entropy(logits, label)
+        else:
+            from ..parallel.tensor_parallel import all_reduce
 
-    valid = label >= 0
-    loss_vec = F.cross_entropy(logits.float(), label.clamp(min=0).long(), reduction="none")
-    count = all_reduce(valid.sum().float(), group)
-    loss = (loss_vec * valid).sum() / count.clamp(min=1)
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    have = [g for g in grads if g is not None]
-    summed = all_reduce(torch.cat([g.reshape(-1) for g in have] + [loss.detach().reshape(1)]),
-                        group)
+            valid = label >= 0
+            loss_vec = F.cross_entropy(logits.float(), label.clamp(min=0).long(),
+                                       reduction="none")
+            count = all_reduce(valid.sum().float(), group)
+            loss = (loss_vec * valid).sum() / count.clamp(min=1)
+    with span("qat.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        if group is None:
+            return loss.detach(), logits.detach(), dict(zip(leaves, grads))
+        have = [g for g in grads if g is not None]
+        summed = all_reduce(torch.cat([g.reshape(-1) for g in have]
+                                      + [loss.detach().reshape(1)]), group)
     parts = iter(summed.split([g.numel() for g in have] + [1]))
     grads = [None if g is None else next(parts).view_as(g) for g in grads]
     return next(parts).reshape(()), logits.detach(), dict(zip(leaves, grads))
@@ -99,11 +110,14 @@ class QAT(PTQ):
     def train_step(self, batch, epoch, it, total_iters):
         if not self.initialized:
             return super().train_step(batch, epoch, it, total_iters)
-        img, label = batch["img"], batch["label"]
-        loss, logits, grads = loss_and_grads(self.model, img, label, self.mesh)
-        self.optimizer.step(trainable(self.model, TRAINABLE), grads)
-        c, t = masked_topk_correct(logits, label)
-        return float(loss), float(100.0 * c / t.clamp(min=1)), len(label)
+        with span("qat.step"):
+            img, label = batch["img"], batch["label"]
+            loss, logits, grads = loss_and_grads(self.model, img, label, self.mesh)
+            with span("qat.optimizer"):
+                self.optimizer.step(trainable(self.model, TRAINABLE), grads)
+            with span("qat.readback"):
+                c, t = masked_topk_correct(logits, label)
+                return float(loss), float(100.0 * c / t.clamp(min=1)), len(label)
 
     def update(self, epoch):
         cfg = self.cfg

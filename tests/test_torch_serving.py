@@ -140,6 +140,45 @@ def test_serving_overlaps_dispatch_and_drain(packed):
         packed, images, batch_size=4, max_wait_ms=1.0, max_in_flight=8)))
 
 
+def test_queue_wait_rises_when_dispatch_is_delayed(packed):
+    """``stats()["queue_wait_ms"]``: the mean host time from a request's
+    submit to its batch's dispatch. Two batches behind a forward held 0.2 s
+    wait half of that on average at least; under the profiler the engine's
+    threads span each batch's staging, dispatch and drain."""
+    from quantize_tpu_torch import profiling
+
+    rng = np.random.default_rng(13)
+    images = [rng.normal(size=(16, 16, 3)).astype(np.float32) for _ in range(8)]
+
+    def serve(hold_s):
+        eng = InferenceEngine(port_model(), packed[1], batch_size=4, max_wait_ms=1.0,
+                              device="cpu")
+        orig_forward = eng._forward
+
+        def held_forward(x):
+            time.sleep(hold_s)
+            return orig_forward(x)
+
+        eng._forward = held_forward
+        with eng:
+            for f in eng.submit_many(images):
+                f.result(timeout=TIMEOUT)
+        return eng.stats()
+
+    base = serve(0.0)
+    assert base["queue_wait_ms"] > 0 and base["processed"] == 8
+    with profiling.span("engine.test"):  # off: the profiled run opens a session
+        pass
+    with torch.profiler.profile():
+        held = serve(0.2)
+    assert held["queue_wait_ms"] >= 100.0 > base["queue_wait_ms"]
+    totals = profiling.span_totals()
+    for name in ("engine.stage", "engine.dispatch", "engine.drain"):
+        assert totals[name][0] == held["batches"] == 2, name
+    assert totals["engine.dispatch"][1] >= 2 * 0.2
+    assert totals["forward.packed"][0] == 2
+
+
 def test_serving_bounded_queue_backpressure(packed):
     eng = InferenceEngine(port_model(), packed[1], batch_size=4, max_queue=2, device="cpu")
     assert eng._queue.maxsize == 2
