@@ -221,7 +221,13 @@ Phases (any failure exits non-zero; the last line is printed only on success):
    copy of the model, on the CPU: the loss within 1e-4 relative, every
    ``params`` and ``qparams`` leaf a finite gradient, the same leaves with a
    nonzero gradient (above 1e-6 of their collection's largest entry), each
-   collection's gradient within 1e-2 of its L2 norm. The losses finite; the
+   collection's gradient within 1e-2 of its L2 norm. The 3 steps launch
+   kernel KA once a step for each fused Adam chain and no other port
+   kernel, every leaf on the fused route (``Optimizer.route_leaves``); KA
+   against its plain version on clones of the leaves and moments with a
+   seeded gradient (p, mu and nu bit for bit), its device time beside its
+   bound (28 bytes an element), KA's entry of the ``kernels`` line. The
+   losses finite; the
    median step time (CUDA events, the first step left out) and the peak
    memory allocated printed, and where a step's device time goes
    (``scripts/profile_torch_port.py``'s trace of 2 steps). The trained
@@ -544,6 +550,9 @@ KERNEL_INFO = {
     "quantize_act_int8": ("quantize_tpu_torch/csrc/quantize_act.cu",
                           "quantize_tpu/ops/pallas/qmatmul.py:66 (quantize_act_int8; an XLA "
                           "fusion, not a pallas_call)"),
+    "adam_update": ("quantize_tpu_torch/csrc/adam_update.cu",
+                    "quantize_tpu/optim.py:108-124 (optax's Adam update; left to XLA, not a "
+                    "pallas_call)"),
 }
 RESNET_PER_FWD = {"qconv2d": 37, "conv1x1_residual": 16, "w8a8_gemm": 1, "quantize_act_int8": 54}
 # TestCNN: conv1 and conv2 (K3, Ci 3 and 16), fc1 and fc2 (K1, N 32 and 10),
@@ -2848,15 +2857,94 @@ def fp32_loss_and_grads(model, img, label):
     return loss.detach(), logits.detach(), dict(zip(leaves, grads))
 
 
-def qat_phase(qtt, card, dev) -> None:
+def held_ms(fn, n: int = 10) -> float:
+    """Device ms a call of ``fn`` by CUDA events: ``n`` calls queued behind
+    a ``torch.cuda._sleep`` that holds the card until the host has queued
+    them all (checked: the start event still pending then), so the events
+    time the calls' kernels back to back, without the host's gaps."""
+    import torch
+
+    per_ms = sleep_cycles_per_ms(None)
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((4 * n * host_ms + 50) * per_ms))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    queued = not start.query()
+    end.synchronize()
+    check(queued, "held_ms: the card reached the timed calls before the host had queued them")
+    return start.elapsed_time(end) / n
+
+
+def adam_entry(opt, params: dict, launches: int, dev) -> dict:
+    """Kernel KA against its plain version at a QAT step's leaves
+    (``params``, the optimizer ``opt``'s moments after its steps, a seeded
+    gradient a leaf, the scalars of its first fused chain): one update each
+    way from clones, p, mu and nu bit-equal; then KA's device time a launch
+    (:func:`held_ms`), its CUDA-event time over back-to-back calls (the
+    wrapper's host work, ~4x the kernel's at these leaves) and the plain
+    version's, beside the bound, 28 bytes an element (g, p, mu and nu read;
+    p, mu and nu written). Returns the ``kernels`` entry."""
+    import torch
+    from quantize_tpu_torch.ops import adam as kadam
+    from quantize_tpu_torch.optim import _at
+
+    chains = opt._fused if isinstance(opt._fused, dict) else {None: opt._fused}
+    mu, nu, scalars = {}, {}, None
+    for label, chain in chains.items():
+        state = opt.state if label is None else opt.state[label]
+        moments = _at(state, chain.adam_at)
+        mu.update(moments["mu"])
+        nu.update(moments["nu"])
+        scalars = scalars or chain.scalars(state)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    grads = {k: 1e-3 * torch.randn(p.shape, generator=gen, device=dev) for k, p in params.items()}
+    sides = [[(p.detach().clone(), grads[k], mu[k].clone(), nu[k].clone())
+              for k, p in params.items()] for _ in range(2)]
+    before = kadam.adam_update.launches
+    refused = kadam.adam_update(sides[0], scalars)
+    kadam.adam_update_plain(sides[1], scalars)
+    torch.cuda.synchronize()
+    n_diff = sum(int((got[i] != want[i]).sum()) for got, want in zip(*sides) for i in (0, 2, 3))
+    n_el = sum(p.numel() for p in params.values())
+    check(refused == [] and kadam.adam_update.launches - before == 1,
+          f"adam_update: refused leaves {refused[:5]}, "
+          f"{kadam.adam_update.launches - before} launches for {len(params)} leaves")
+    check(n_diff == 0, f"adam_update: {n_diff} of {3 * n_el} values of p, mu and nu differ "
+          f"from the plain version")
+    ka_ms = held_ms(lambda: kadam.adam_update(sides[0], scalars))
+    event_ms = cuda_ms(lambda: kadam.adam_update(sides[0], scalars), reps=5, inner=10)
+    plain_ms = cuda_ms(lambda: kadam.adam_update_plain(sides[1], scalars), reps=3, warmup=1)
+    b_ms, _ = bound_ms(0, PEAK_F32, 28 * n_el)
+    check(b_ms / ka_ms <= 1.05, f"adam_update: {ka_ms:.4f} ms is {b_ms / ka_ms:.1%} of the bound: "
+          f"the bytes are counted too high or the time misses work")
+    log(f"kernel adam_update at the QAT step's {len(params)} leaves ({n_el} elements): 0 of "
+        f"{3 * n_el} values of p, mu and nu differ from the plain version; device {ka_ms:.4f} ms "
+        f"(bound {b_ms:.4f} ms by bytes, {b_ms / ka_ms:.1%} of it), {event_ms:.4f} ms a call "
+        f"back to back (events), plain {plain_ms:.3f} ms")
+    src, replaces = KERNEL_INFO["adam_update"]
+    return {"name": "adam_update", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": 0.0, "ms": ka_ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None}
+
+
+def qat_phase(qtt, card, dev) -> dict:
     """ViT-B/16 W4A8 QAT on the card, then served packed (module docstring,
-    phase 7a)."""
+    phase 7a); returns kernel KA's ``kernels`` entry."""
     import copy
     import tempfile
 
     import torch
     import quantize_tpu_torch.runners as runners
     from quantize_tpu_torch.nn.variables import trainable
+    from quantize_tpu_torch.ops import launch_counts, reset_launch_counts
     from quantize_tpu_torch.runners.qat import TRAINABLE, loss_and_grads
     from quantize_tpu_torch.utils import Logger
 
@@ -2939,10 +3027,17 @@ def qat_phase(qtt, card, dev) -> None:
                 check(r <= limits[1], f"qat: the {mode}-mode {col} gradient on the card disagrees")
         del cpu_model, steps, spread, grads_g, grads_c
 
-        # 3 QAT steps of 64
+        # 3 QAT steps of 64, the optimizer's leaves all through KA
         torch.cuda.reset_peak_memory_stats(dev)
         ms, losses = [], []
-        for i, b in enumerate([batch(QAT_BATCH) for _ in range(3)]):
+        opt = runner.optimizer
+        chains = opt._fused if isinstance(opt._fused, dict) else {None: opt._fused}
+        n_chains = sum(c is not None for c in chains.values())
+        routes = dict(opt.route_leaves)
+        train_batches = [batch(QAT_BATCH) for _ in range(3)]
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for i, b in enumerate(train_batches):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             loss, _, _ = runner.train_step(b, 1, i, 3)
@@ -2951,12 +3046,22 @@ def qat_phase(qtt, card, dev) -> None:
             ms.append(start.elapsed_time(end))
             losses.append(loss)
         check(all(math.isfinite(x) for x in losses), f"qat: losses {losses}")
+        counts = launch_counts()
+        routes = {k: opt.route_leaves[k] - routes[k] for k in routes}
+        log(f"qat vit_b_16: 3 steps, launches {counts}, leaves by route {routes}")
+        check(n_chains >= 1 and counts == {**{k: 0 for k in counts},
+                                           "adam_update": 3 * n_chains},
+              f"qat: {counts['adam_update']} KA launches in 3 steps of {n_chains} fused "
+              f"chains, or another kernel launched: {counts}")
+        check(routes == {"fused": 3 * len(keys), "per_leaf": 0},
+              f"qat: not every one of the {len(keys)} leaves went through KA: {routes}")
         peak = torch.cuda.max_memory_allocated(dev)
         log(f"time: qat vit_b_16 W4A8 train step, batch {QAT_BATCH} (quant-mode forward, backward, Adam "
             f"over {len(keys)} leaves): median {statistics.median(ms[1:]):.1f} ms of steps 2-3 "
             f"(steps {', '.join(f'{x:.1f}' for x in ms)} ms); losses "
             f"{', '.join(f'{x:.4f}' for x in losses)}; peak memory allocated "
             f"{peak / 2**30:.2f} GiB [{card}]")
+        ka = adam_entry(opt, trainable(runner.model, TRAINABLE), counts["adam_update"], dev)
         from scripts.profile_torch_port import profile_calls
 
         b = batch(QAT_BATCH)
@@ -2976,8 +3081,9 @@ def qat_phase(qtt, card, dev) -> None:
         log(f"qat vit_b_16: packed vs the trained model's quant mode {r_sim:.3e} of max|logits| "
             f"(<= 5e-2)")
         check(r_sim <= 5e-2, "qat: the packed trained model disagrees with its quant mode")
-    del runner, model, requests, outs, calib
+    del runner, model, requests, outs, calib, opt
     torch.cuda.empty_cache()
+    return ka
 
 
 def adaround_phase(qtt, card, dev) -> None:
@@ -5675,7 +5781,7 @@ def main() -> int:
     long_attention_phase(qtt, card, dev)
     log(f"long attention phase {time.time() - t0:.1f} s")
     t0 = time.time()
-    qat_phase(qtt, card, dev)
+    entries.append(qat_phase(qtt, card, dev))
     log(f"qat phase {time.time() - t0:.1f} s")
     t0 = time.time()
     adaround_phase(qtt, card, dev)
@@ -5729,8 +5835,9 @@ def main() -> int:
     log("kernel times above are per launch; the JSON sums them over one forward of each model "
         "(each shape's time x its launches per forward; K3 and KQ are ResNet-50's, K3g "
         "ResNeXt-50's, "
-        "K5 ViT-B/32's; "
-        "launches are each model's 4 served requests, K9's the one int8-scores request)")
+        "K5 ViT-B/32's; KA's one Adam update of ViT-B/16's QAT leaves, its device time; "
+        "launches are each model's 4 served requests, K9's the one int8-scores request, "
+        "KA's the 3 QAT steps)")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -21,12 +21,16 @@ and a plain PyTorch version that the wrapper runs on CPU tensors:
 * K9 :func:`~.attention.mha_rows_int8` (``csrc/mha_rows_int8.cu``)
 * KQ :func:`~.qmatmul.quantize_act_int8` (``csrc/quantize_act.cu``; the
   activation quantize, an XLA fusion in JAX)
+* KA :func:`~.adam.adam_update` (``csrc/adam_update.cu``; the optimizer's
+  Adam update of every leaf of a step, :class:`~quantize_tpu_torch.optim.
+  Optimizer`'s fused route; a training kernel, not in ``KERNEL_WRAPPERS``)
 
 Importing the package registers each wrapper as a custom op,
 ``torch.ops.qtt.<name>`` under its ``KERNEL_WRAPPERS`` name
 (:mod:`.library`), which the wrappers call only while ``torch.export``
 traces them.
 """
+from .adam import adam_update
 from .attention import mha_fused_qkv, mha_fused_qkv_rows, mha_rows, mha_rows_int8
 from .layernorm import layernorm_quant_int8, layernorm_quant_int8_rows, layernorm_rows
 from .qconv import qconv2d_grouped_int8, qconv2d_int8, quant_conv2d, quant_conv2d_wo
@@ -54,6 +58,7 @@ KERNEL_WRAPPERS = {
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    adam_update.launches = 0
     mha_rows_int8.absmax_launches = 0
     for routes in (w4a8_gemm.route_launches, conv1x1_residual_gemm.route_launches,
                    layernorm_quant_int8_rows.route_launches, w8a8_gemm.route_launches,
@@ -63,11 +68,12 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    return {**{name: fn.launches for name, fn in KERNEL_WRAPPERS.items()},
+            "adam_update": adam_update.launches}
 
 
 __all__ = [
-    "KERNEL_WRAPPERS", "conv1x1_residual", "conv1x1_residual_gemm", "launch_counts",
+    "KERNEL_WRAPPERS", "adam_update", "conv1x1_residual", "conv1x1_residual_gemm", "launch_counts",
     "kmajor_packed", "layernorm_quant_int8", "layernorm_quant_int8_rows", "layernorm_rows",
     "mha_fused_qkv", "mha_fused_qkv_rows", "mha_rows", "mha_rows_int8", "pack_int4_splithalf",
     "qconv2d_grouped_int8", "qconv2d_int8", "quant_conv2d", "quant_conv2d_wo",

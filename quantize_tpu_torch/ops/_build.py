@@ -45,8 +45,13 @@ KERNELS = {
                       [_P] * 3 + [_I] * 6 + [_F] + [_I] * 3 + [_P]),
     "quantize_act_int8": ("quantize_act", "qtt_quantize_act",
                           [_P] * 4 + [ctypes.c_longlong] + [_I] * 3 + [_P]),
+    "adam_update": ("adam_update", "qtt_adam_update", [_P, _I] + [_F] * 10 + [_I] * 2 + [_P]),
 }
 LIBRARIES = sorted({lib for lib, _, _ in KERNELS.values()})
+# training kernels: a library built and loaded alone at its kernel's first
+# use, so that a training run's first step waits for no inference kernel's
+# nvcc build (the inference libraries built cold take tens of seconds)
+ALONE = {"adam_update"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -106,15 +111,20 @@ def build_all(names: List[str] = None) -> Dict[str, str]:
 
 
 def kernel_fn(name: str) -> ctypes._CFuncPtr:
-    """The C entry point of kernel ``name``, built on first use."""
+    """The C entry point of kernel ``name``, built on first use with every
+    library, or alone where its library is in :data:`ALONE`."""
     fn = _fns.get(name)
     if fn is not None:
         return fn
     with _lock:
         if name not in _fns:
-            build_all()
-            libs = {lib: ctypes.CDLL(str(_lib_path(lib))) for lib in LIBRARIES}
+            own = KERNELS[name][0]
+            names = [own] if own in ALONE else LIBRARIES
+            build_all(names)
+            libs = {lib: ctypes.CDLL(str(_lib_path(lib))) for lib in names}
             for kname, (lib, sym, argtypes) in KERNELS.items():
+                if lib not in libs:
+                    continue
                 f = getattr(libs[lib], sym)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int

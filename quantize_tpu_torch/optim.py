@@ -24,7 +24,13 @@ is continuous. Each rule keeps optax's order of float32 operations:
 
 An optimizer is a chain of :class:`Transform` s over a dict of tensors keyed
 ``"collection/path/leaf"`` (:func:`~quantize_tpu_torch.nn.variables.trainable`);
-:class:`Optimizer` holds the state and updates the tensors in place.
+:class:`Optimizer` holds the state and updates the tensors in place. The
+chains the registry builds for ``adam`` and ``adamw`` (and such a chain
+followed by :class:`Scale`, alone or as a label of a :class:`Partition`)
+update their leaves through one fused launch a step (kernel KA,
+:mod:`~quantize_tpu_torch.ops.adam`), bit-equal to the chain leaf by leaf;
+every other transform, and a leaf the fused update does not take, runs leaf
+by leaf.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from .ops.adam import AdamScalars, adam_update
 from .utils.registry import Registry
 
 OPTIMIZERS = Registry("optimizers")
@@ -217,15 +224,20 @@ class ScaleByAdam(Transform):
         return {"count": 0, "mu": {k: torch.zeros_like(p) for k, p in params.items()},
                 "nu": {k: torch.zeros_like(p) for k, p in params.items()}}
 
+    def bias_corrections(self, count: int):
+        """``(1 - b1 ** count, 1 - b2 ** count)`` as float32 values."""
+        return f32(1.0) - _pow(self.b1, count), f32(1.0) - _pow(self.b2, count)
+
     def update(self, updates, state, params):
         count = state["count"] + 1
+        c1, c2 = self.bias_corrections(count)
         out = {}
         for k, g in updates.items():
             mu, nu = state["mu"][k], state["nu"][k]
             mu.mul_(self.b1).add_(g * (1 - self.b1))
             nu.mul_(self.b2).add_(g * g * (1 - self.b2))
-            mu_hat = mu / _scalar_like(mu, f32(1.0) - _pow(self.b1, count))
-            nu_hat = nu / _scalar_like(nu, f32(1.0) - _pow(self.b2, count))
+            mu_hat = mu / _scalar_like(mu, c1)
+            nu_hat = nu / _scalar_like(nu, c2)
             out[k] = mu_hat / (torch.sqrt(nu_hat) + self.eps)
         return out, {**state, "count": count}
 
@@ -337,23 +349,118 @@ class Partition(Transform):
         return {k: out[k] for k in updates}, new
 
 
+def _at(state, path: Sequence[int]):
+    for i in path:
+        state = state[i]
+    return state
+
+
+class _FusedAdam:
+    """A chain :func:`_fused_adam` recognised: ``ScaleByAdam``, an optional
+    ``AddDecayedWeights``, ``ScaleByLearningRate``, optionally then
+    ``Scale``; ``adam_at`` and ``lr_at`` index the Adam state and the
+    schedule's count in the chain's state."""
+
+    def __init__(self, tx: Transform, adam: ScaleByAdam, wd: Optional[float],
+                 lr: ScaleByLearningRate, qs: Optional[float], adam_at: tuple, lr_at: tuple):
+        self.tx, self.adam, self.wd, self.lr, self.qs = tx, adam, wd, lr, qs
+        self.adam_at, self.lr_at = adam_at, lr_at
+
+    def scalars(self, state) -> AdamScalars:
+        """The step's scalars, each rounded to float32 as the chain's
+        transforms round them leaf by leaf."""
+        a = self.adam
+        c1, c2 = a.bias_corrections(_at(state, self.adam_at)["count"] + 1)
+        return AdamScalars(
+            float(f32(a.b1)), float(f32(a.b2)), float(f32(1 - a.b1)), float(f32(1 - a.b2)),
+            float(f32(a.eps)), float(c1), float(c2),
+            None if self.wd is None else float(f32(self.wd)),
+            float(-f32(self.lr.schedule(_at(state, self.lr_at)))),
+            None if self.qs is None else float(f32(self.qs)))
+
+    def step(self, params: Tensors, grads, state, routes: Dict[str, int]):
+        """One update of ``params`` in place; returns the chain's new state.
+        The leaves :func:`~quantize_tpu_torch.ops.adam.adam_update` takes
+        go through the fused update, the rest through the chain leaf by
+        leaf, whose update (over no leaves, where none is left) also moves
+        the chain's counts."""
+        moments = _at(state, self.adam_at)
+        mu, nu = moments["mu"], moments["nu"]
+        keys = list(params)
+        refused = adam_update([(params[k], grads.get(k), mu[k], nu[k]) for k in keys],
+                              self.scalars(state))
+        rest = {keys[i]: params[keys[i]] for i in refused}
+        routes["fused"] += len(keys) - len(rest)
+        routes["per_leaf"] += len(rest)
+        return _per_leaf(self.tx, rest, grads, state)
+
+
+def _fused_adam(tx: Transform) -> Optional[_FusedAdam]:
+    """The fused form of ``tx`` if it is a chain the registry builds for
+    ``adam`` or ``adamw``, alone or followed by ``Scale``; else None."""
+    if type(tx) is not Chain:
+        return None
+    ts = tx.transforms
+    if len(ts) == 2 and type(ts[1]) is Scale:
+        inner = _fused_adam(ts[0])
+        if inner is None or inner.qs is not None:
+            return None
+        return _FusedAdam(tx, inner.adam, inner.wd, inner.lr, ts[1].step_size,
+                          (0, *inner.adam_at), (0, *inner.lr_at))
+    if (len(ts) in (2, 3) and type(ts[0]) is ScaleByAdam and type(ts[-1]) is ScaleByLearningRate
+            and (len(ts) == 2 or type(ts[1]) is AddDecayedWeights)):
+        return _FusedAdam(tx, ts[0], ts[1].weight_decay if len(ts) == 3 else None, ts[-1], None,
+                          (0,), (len(ts) - 1,))
+    return None
+
+
+def _per_leaf(tx: Transform, params: Tensors, grads, state):
+    """``tx``'s update of ``params`` leaf by leaf (a missing gradient as
+    zeros), applied in place; returns the new state."""
+    grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
+             for k, p in params.items()}
+    updates, state = tx.update(grads, state, params)
+    for k, p in params.items():
+        p.add_(updates[k])
+    return state
+
+
 class Optimizer:
     """A transform and its state over named tensors: :meth:`step` applies
     one update to the tensors in place (optax's ``apply_updates``). The
     tensors are looked up by name at each step, so a leaf that a module
-    replaced keeps its optimizer state."""
+    replaced keeps its optimizer state.
+
+    A chain :func:`_fused_adam` recognises (the whole transform, or a label
+    of a :class:`Partition`) updates its leaves through kernel KA;
+    ``route_leaves`` counts the leaves updated on each route, ``"fused"``
+    and ``"per_leaf"``, over every step."""
 
     def __init__(self, tx: Transform, params: Tensors):
         self.tx = tx
         self.state = tx.init(params)
+        self.route_leaves = {"fused": 0, "per_leaf": 0}
+        if type(tx) is Partition:
+            self._fused = {label: _fused_adam(t) for label, t in tx.transforms.items()}
+        else:
+            self._fused = _fused_adam(tx)
+
+    def _update(self, tx: Transform, fused: Optional[_FusedAdam], params: Tensors, grads, state):
+        if fused is not None:
+            return fused.step(params, grads, state, self.route_leaves)
+        self.route_leaves["per_leaf"] += len(params)
+        return _per_leaf(tx, params, grads, state)
 
     @torch.no_grad()
     def step(self, params: Tensors, grads: Mapping[str, Optional[torch.Tensor]]) -> None:
-        grads = {k: torch.zeros_like(p) if grads.get(k) is None else grads[k]
-                 for k, p in params.items()}
-        updates, self.state = self.tx.update(grads, self.state, params)
-        for k, p in params.items():
-            p.add_(updates[k])
+        tx = self.tx
+        if type(tx) is not Partition:
+            self.state = self._update(tx, self._fused, params, grads, self.state)
+            return
+        parts = tx._split(params)
+        self.state = {label: self._update(t, self._fused[label], parts[label], grads,
+                                          self.state[label])
+                      for label, t in tx.transforms.items()}
 
 
 # ---------------------------------------------------------------------------

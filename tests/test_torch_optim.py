@@ -32,21 +32,13 @@ import optax
 import pytest
 import torch
 
+from _torch_optim_cases import SCHEDULES
 from quantize_tpu import optim as jopt
 from quantize_tpu_torch import optim as topt
 
 torch.set_num_threads(2)
 
 STEPS, PER_EPOCH = 20, 3
-SCHEDULES = {
-    "constant": {},
-    "step": {"step_size": 2, "gamma": 0.5},
-    "multistep": {"milestones": [1, 3], "gamma": 0.3},
-    "exponential": {"gamma": 0.9},
-    "cosine": {"t_max": 5},
-    "cosine_warmup": {"warmup_epoch": 2, "warmup_lr": 1e-4},
-    "linear_warmup": {"warmup_epoch": 2, "warmup_lr": 1e-4},
-}
 OPTIMIZERS = {
     "sgd-momentum-wd": {"name": "sgd", "lr": 0.05, "momentum": 0.9, "weight_decay": 1e-3},
     "sgd-nesterov": {"name": "sgd", "lr": 0.05, "momentum": 0.9, "nesterov": True},

@@ -23,7 +23,8 @@ from quantize_tpu_torch.models.resnet import ResNet
 from quantize_tpu_torch.models.vit import VisionTransformer
 from quantize_tpu_torch.parallel import (InferenceEngine, PrefetchIterator, device_healthcheck,
                                          prefetch_to_mesh)
-from quantize_tpu_torch.ops import _build, launch_counts, reset_launch_counts
+from quantize_tpu_torch.ops import KERNEL_WRAPPERS, _build, launch_counts, reset_launch_counts
+from quantize_tpu_torch.ops.adam import adam_update
 from quantize_tpu_torch.ops.attention import mha_rows, mha_rows_int8
 from quantize_tpu_torch.ops.layernorm import layernorm_quant_int8_rows, layernorm_rows
 from quantize_tpu_torch.ops.qconv import kmajor_weight, qconv2d_int8
@@ -78,7 +79,9 @@ def test_export_modules_import_no_jax(module):
     assert not bad, f"{module} imports {bad}"
     assert all(hasattr(qtt, name) for name in ("export_forward", "load_exported",
                                                 "export_mlir_text"))
-    assert all(hasattr(torch.ops.qtt, name) for name in _build.KERNELS)
+    # every kernel but the optimizer's (a training kernel, never exported)
+    assert set(_build.KERNELS) == set(KERNEL_WRAPPERS) | {"adam_update"}
+    assert all(hasattr(torch.ops.qtt, name) for name in KERNEL_WRAPPERS)
 
 
 def test_entry_points_default_to_cuda(tmp_path, monkeypatch):
@@ -107,7 +110,8 @@ def test_every_kernel_has_its_source_and_a_launch_counter():
     for name, (lib, sym, _) in _build.KERNELS.items():
         assert f"extern \"C\" int {sym}(" in (PORT / "csrc" / f"{lib}.cu").read_text(), name
     for fn in (w8a8_gemm, conv1x1_residual_gemm, qconv2d_int8, w4a8_gemm, layernorm_rows,
-               layernorm_quant_int8_rows, mha_rows, wo_gemm, mha_rows_int8, quantize_act_int8):
+               layernorm_quant_int8_rows, mha_rows, wo_gemm, mha_rows_int8, quantize_act_int8,
+               adam_update):
         assert isinstance(fn.launches, int)
     gitignore = (ROOT / ".gitignore").read_text().split()
     assert "quantize_tpu_torch/_build/" in gitignore
